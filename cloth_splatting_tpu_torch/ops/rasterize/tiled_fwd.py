@@ -1,0 +1,422 @@
+"""Serving rasterizer: sort-based tile binning + the per-tile compositor K1;
+counterpart of ``cloth_splatting_tpu/ops/rasterize/pallas_tiled.py``.
+
+1. ``sorted_pack`` expands each projected Gaussian into the tiles its
+   screen rect covers (a static ``win x win`` slot window, with a capped
+   side stream for big splats), sorts the instances by (tile, depth) with
+   one stable ``torch.sort`` and packs their parameters tile-grouped and
+   front-to-back as ``rows16`` [16, B_pad].
+2. ``raster_forward_tiles`` composites every tile: on a CUDA tensor it
+   launches K1, the hand-written kernel in ``csrc/tiled_fwd.cu``; on a CPU
+   tensor it runs ``raster_forward_tiles_plain``, the same walk in plain
+   PyTorch.
+
+K1 replaces the TPU kernel ``pallas_tiled.py::_kernel`` (tile walk
+``_one_tile``, per-chunk math ``_composite_chunk``). One thread block per
+tile walks the tile's instances in 128-wide chunks ALIGNED to the global
+sorted array (the first chunk is ``start // 128``), composites each pixel
+front to back, and stops after the first chunk at which the MAX over the
+tile's pixels of the transmittance T is <= 1e-4. The background term is
+``bg * (1 - sum w)``; T only drives the exit. On the H100 it is bound by
+fp32 arithmetic (about 27 operations and one ``exp`` per live
+instance-pixel pair, against tens of MB of traffic); the design keeps each
+chunk's 11 parameter rows in shared memory, where every thread of the
+block reads the same instance at once (a broadcast), and each thread keeps
+its pixels' T and sums in registers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from cloth_splatting_tpu_torch import kernels
+from cloth_splatting_tpu_torch.ops.projection import (
+    ALPHA_MAX,
+    ALPHA_MIN,
+    ProjectedGaussians,
+)
+
+PACK16 = 16      # param rows: x y conic(3) rgb(3) opacity depth cut pad(5)
+CHUNK = 128      # instances per compositing chunk
+TRANS_EPS = 1e-4
+WIN_SMALL = 2    # slot window (tiles per axis) of the small-splat stream
+
+
+class RasterAux(NamedTuple):
+    """Diagnostics from binning."""
+
+    n_dropped: torch.Tensor       # instances dropped (always 0 in this tier)
+    max_tile_count: torch.Tensor  # deepest per-tile list
+
+
+class PackedTiles(NamedTuple):
+    rows16: torch.Tensor     # [16, B_pad] f32 param-major, tile-grouped,
+                             # depth-ordered along dim 1, contiguous
+    starts: torch.Tensor     # [T] i32 segment starts (unaligned)
+    counts: torch.Tensor     # [T] i32 segment lengths
+    gauss_idx: torch.Tensor  # [B_pad] i32 source Gaussian per instance
+    aux: RasterAux
+
+
+def pack_rows(proj: ProjectedGaussians) -> torch.Tensor:
+    """[N, 16] per-Gaussian parameter rows."""
+    n = proj.xy.shape[0]
+    opacity = torch.where(proj.valid, proj.opacity, torch.zeros_like(proj.opacity))
+    depth = torch.where(torch.isfinite(proj.depth), proj.depth,
+                        torch.zeros_like(proj.depth))
+    return torch.cat(
+        [proj.xy, proj.conic, proj.color, opacity[:, None], depth[:, None],
+         proj.power_cut[:, None],
+         torch.zeros((n, PACK16 - 11), dtype=torch.float32, device=proj.xy.device)],
+        dim=1)
+
+
+def _expand_slots(xy, r, valid, depth, gidx_src, tw, th, tile_size, win):
+    """Per-slot (tile_id, depth, gauss_idx) for a win x win window, flat.
+
+    Dead slots (outside the Gaussian's span, or invalid Gaussians) get the
+    sentinel tile tw*th so the sort groups them last."""
+    n = xy.shape[0]
+    slots = win * win
+    n_tiles = tw * th
+    # An invalid Gaussian's xy may be non-finite, and torch's float->int cast
+    # of NaN/inf is undefined; its slots are masked dead below either way.
+    zero = torch.zeros_like(r)
+    x = torch.where(valid, xy[:, 0], zero)
+    y = torch.where(valid, xy[:, 1], zero)
+    r = torch.where(valid, r, zero)
+    x0 = torch.clamp(torch.floor((x - r) / tile_size), 0, tw).to(torch.int32)
+    y0 = torch.clamp(torch.floor((y - r) / tile_size), 0, th).to(torch.int32)
+    x1 = torch.clamp(torch.floor((x + r) / tile_size) + 1, 0, tw).to(torch.int32)
+    y1 = torch.clamp(torch.floor((y + r) / tile_size) + 1, 0, th).to(torch.int32)
+
+    dj = torch.arange(slots, dtype=torch.int32, device=xy.device)
+    tx = x0[:, None] + (dj % win)[None, :]
+    ty = y0[:, None] + (dj // win)[None, :]
+    in_span = (tx < x1[:, None]) & (ty < y1[:, None]) & valid[:, None]
+    tile_id = torch.where(in_span, ty * tw + tx, n_tiles).reshape(-1)
+    depth_c = torch.where(torch.isfinite(depth), depth,
+                          torch.full_like(depth, 3.4e38))
+    depth_b = depth_c[:, None].expand(n, slots).reshape(-1)
+    gidx = gidx_src[:, None].expand(n, slots).reshape(-1)
+    return tile_id, depth_b, gidx
+
+
+def round_big_cap(n: int) -> int:
+    """Static size of the big-Gaussian side stream."""
+    return min(n, max(2048, n // 8))
+
+
+def fused_depth_bits(n_tiles: int) -> int:
+    """Bits of depth kept in the fused (tile << bits) | depth i32 sort key:
+    what the tile field (values 0..n_tiles) leaves of the 31 non-sign bits."""
+    return 31 - max(1, n_tiles.bit_length())
+
+
+def _float_order_key(d: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) ordered like the finite float32 values ``d``, with
+    -0.0 and +0.0 equal (they compare equal in the JAX package's sort)."""
+    bits = (d + 0.0).view(torch.int32).to(torch.int64)   # -0.0 + 0.0 = +0.0
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) + (1 << 31)
+
+
+def tile_and_win(width: int, height: int) -> tuple[int, int]:
+    """(tile_size, win) for a frame: 32 px tiles for frames of 512 px and
+    more that 32 divides, else 16 px; ``win`` is the span in tiles that a
+    MAX_SPLAT_RADIUS splat needs."""
+    if width % 32 == 0 and height % 32 == 0 and min(width, height) >= 512:
+        return 32, 3
+    return 16, 5
+
+
+def sorted_pack(proj: ProjectedGaussians, tw: int, th: int, tile_size: int,
+                win: int, big_cap: int | None = None,
+                order: str = "exact") -> PackedTiles:
+    """Sort-based tile binning in front-to-back order.
+
+    Gaussians whose span exceeds ``WIN_SMALL`` tiles per axis go into a side
+    stream of ``big_cap`` (default ``round_big_cap(N)``) slots expanded at
+    the full ``win``; the rest expand at ``WIN_SMALL``. Big Gaussians beyond the cap have their
+    support shrunk to the small span (``power_cut`` scaled to match). Both
+    streams share one stable sort, so compositing order stays exact.
+
+    ``order``: 'exact' sorts by (tile, f32 depth); 'fused' by one i32 key
+    ``(tile << bits) | (depth bits >> (31 - bits))`` (quantized depth).
+    Instances with equal keys keep their expansion order (Gaussian index),
+    as under the JAX package's stable ``lax.sort``."""
+    n_tiles = tw * th
+    n = proj.xy.shape[0]
+    dev = proj.xy.device
+    xy, r, valid, depth = proj.xy, proj.radius, proj.valid, proj.depth
+    gidx_all = torch.arange(n, dtype=torch.int32, device=dev)
+
+    if win <= WIN_SMALL:
+        tile_id, depth_b, gidx = _expand_slots(
+            xy, r, valid, depth, gidx_all, tw, th, tile_size, win)
+        proj_adj = proj
+    else:
+        if big_cap is None:
+            big_cap = round_big_cap(n)
+        small_rmax = (WIN_SMALL - 1) * tile_size / 2.0 - 0.51
+        is_big = (r > small_rmax) & valid
+        score = torch.where(is_big, r, torch.full_like(r, -1.0))
+        # jax.lax.top_k puts the lower index first among equal scores, and
+        # integer radii tie often; torch.topk promises no tie order, so take
+        # a stable descending sort instead.
+        big_idx = torch.sort(score, descending=True, stable=True).indices[:big_cap]
+        big_sel = score[big_idx] > 0.0
+        in_big = torch.zeros(n, dtype=torch.bool, device=dev)
+        in_big[big_idx] = big_sel
+
+        shrink = is_big & ~in_big
+        r_small = torch.where(shrink, torch.full_like(r, small_rmax), r)
+        cut_adj = torch.where(
+            shrink,
+            proj.power_cut * (small_rmax / torch.clamp_min(r, 1e-6)) ** 2,
+            proj.power_cut)
+        proj_adj = proj._replace(power_cut=cut_adj)
+        tid_s, dep_s, gid_s = _expand_slots(
+            xy, r_small, valid & ~in_big, depth, gidx_all,
+            tw, th, tile_size, WIN_SMALL)
+        tid_b, dep_b, gid_b = _expand_slots(
+            xy[big_idx], r[big_idx], big_sel & valid[big_idx], depth[big_idx],
+            big_idx.to(torch.int32), tw, th, tile_size, win)
+        tile_id = torch.cat([tid_s, tid_b])
+        depth_b = torch.cat([dep_s, dep_b])
+        gidx = torch.cat([gid_s, gid_b])
+
+    b = tile_id.shape[0]
+    bounds = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
+    if order == "fused":
+        bits_d = fused_depth_bits(n_tiles)
+        dbits = torch.clamp_min(depth_b, 0.0).view(torch.int32)
+        # clamp_min may keep -0.0 (bit 0x80000000); mask the sign bit so -0.0
+        # keys like +0.0 instead of sorting before tile 0
+        key = (tile_id << bits_d) | ((dbits & 0x7FFFFFFF) >> (31 - bits_d))
+        sorted_key, perm = torch.sort(key, stable=True)
+        edges = torch.searchsorted(sorted_key, bounds << bits_d, right=False)
+    elif order == "exact":
+        key = (tile_id.to(torch.int64) << 32) | _float_order_key(depth_b)
+        sorted_key, perm = torch.sort(key, stable=True)
+        edges = torch.searchsorted(sorted_key, bounds.to(torch.int64) << 32,
+                                   right=False)
+    else:
+        raise ValueError(f"unknown pack order: {order!r}")
+    sorted_gidx = gidx[perm]
+    edges = edges.to(torch.int32)
+    starts = edges[:-1]
+    counts = edges[1:] - starts
+
+    rows_sorted = pack_rows(proj_adj)[sorted_gidx]                   # [B, 16]
+    # pad to a whole number of chunks plus one, as the JAX package does
+    b_pad = ((b + CHUNK - 1) // CHUNK) * CHUNK + CHUNK
+    rows_sorted = torch.cat(
+        [rows_sorted, rows_sorted.new_zeros((b_pad - b, PACK16))])
+    sorted_gidx = torch.cat(
+        [sorted_gidx, torch.full((b_pad - b,), n, dtype=torch.int32, device=dev)])
+    rows16 = rows_sorted.T.contiguous()                               # [16, B_pad]
+
+    aux = RasterAux(n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
+                    max_tile_count=counts.max())
+    return PackedTiles(rows16, starts, counts, sorted_gidx, aux)
+
+
+class PlainWalk(NamedTuple):
+    """Counters of the plain compositor's walk."""
+
+    walked: torch.Tensor        # [T] chunks walked per tile
+    contributing: torch.Tensor  # [T] instance-pixel pairs with nonzero alpha
+
+
+def _chunk_span(packed: PackedTiles):
+    """(starts, ends, first aligned chunk, aligned chunk count) per tile."""
+    starts = packed.starts.to(torch.int64)
+    ends = starts + packed.counts.to(torch.int64)
+    kt = starts // CHUNK
+    return starts, ends, kt, (ends - kt * CHUNK + CHUNK - 1) // CHUNK
+
+
+def raster_forward_tiles_plain(
+        packed: PackedTiles, width: int, height: int, tile_size: int,
+        bg: tuple[float, float, float]) -> tuple[torch.Tensor, PlainWalk]:
+    """Plain PyTorch version of K1, the CPU path and the on-card reference:
+    (out [T, 8, p], the walk's counters).
+
+    All tiles advance together over chunk index ``ci``; a tile takes part
+    while ``ci < n_chunks`` and the max of its T exceeds TRANS_EPS, exactly
+    the loop condition of K1 and of the TPU kernel."""
+    tw, th = width // tile_size, height // tile_size
+    n_tiles = tw * th
+    p = tile_size * tile_size
+    dev = packed.rows16.device
+    n_chunks_arr = packed.rows16.shape[1] // CHUNK
+    rows3d = packed.rows16.reshape(PACK16, n_chunks_arr, CHUNK).permute(1, 0, 2)
+
+    starts, ends, kt, n_chunks = _chunk_span(packed)
+
+    tiles = torch.arange(n_tiles, device=dev)
+    pidx = torch.arange(p, device=dev)
+    px = ((tiles % tw) * tile_size)[:, None] + (pidx % tile_size)[None, :]
+    py = ((tiles // tw) * tile_size)[:, None] + (pidx // tile_size)[None, :]
+    px = px.to(torch.float32)[..., None]                             # [T, p, 1]
+    py = py.to(torch.float32)[..., None]
+    lane = torch.arange(CHUNK, device=dev)
+
+    trans = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_tiles, 5, p), dtype=torch.float32, device=dev)
+    walked = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    contributing = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    for ci in range(int(n_chunks.max()) if n_tiles else 0):
+        active = (ci < n_chunks) & (trans.amax(dim=1) > TRANS_EPS)
+        ta = active.nonzero().squeeze(1)
+        if ta.numel() == 0:
+            break
+        walked[ta] += 1
+        blk = rows3d[kt[ta] + ci]                                    # [A, 16, 128]
+        pos = (kt[ta] + ci)[:, None] * CHUNK + lane[None, :]
+        live = (pos >= starts[ta, None]) & (pos < ends[ta, None])    # [A, 128]
+
+        dx = px[ta] - blk[:, None, 0, :]                             # [A, p, 128]
+        dy = py[ta] - blk[:, None, 1, :]
+        ca, cb, cc = blk[:, None, 2, :], blk[:, None, 3, :], blk[:, None, 4, :]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.clamp_max(blk[:, None, 8, :] * torch.exp(power), ALPHA_MAX)
+        dead = ((power > 0.0) | (power < blk[:, None, 10, :])
+                | (alpha < ALPHA_MIN) | ~live[:, None, :])
+        alpha = torch.where(dead, torch.zeros_like(alpha), alpha)
+        contributing[ta] += (~dead).sum(dim=(1, 2))
+
+        incl = torch.cumprod(1.0 - alpha, dim=2)
+        excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=2)
+        w = alpha * excl * trans[ta, :, None]                        # [A, p, 128]
+        chans = torch.cat([blk[:, 5:8], blk[:, 9:10],
+                           torch.ones_like(blk[:, :1])], dim=1)      # [A, 5, 128]
+        acc[ta] += torch.einsum("acl,apl->acp", chans, w)
+        trans[ta] *= incl[..., -1]
+
+    alpha_img = acc[:, 4]
+    bg_t = torch.tensor(bg, dtype=torch.float32, device=dev)
+    out = torch.zeros((n_tiles, 8, p), dtype=torch.float32, device=dev)
+    out[:, 0:3] = acc[:, 0:3] + (1.0 - alpha_img)[:, None, :] * bg_t[None, :, None]
+    out[:, 3] = acc[:, 3]
+    out[:, 4] = alpha_img
+    return out, PlainWalk(walked, contributing)
+
+
+def walk_stats(packed: PackedTiles, walk: PlainWalk, tile_size: int) -> dict:
+    """What compositing ``packed`` needs, from the counters of the plain
+    version's walk: tiles whose transmittance exit fired, live instances
+    walked and instance-pixel pairs (walked, and contributing a nonzero
+    alpha)."""
+    starts, ends, kt, n_chunks = _chunk_span(packed)
+    live_walked = torch.clamp(
+        torch.minimum(ends, (kt + walk.walked) * CHUNK) - starts, min=0)
+    return {
+        "tiles": int(starts.numel()),
+        "tiles_exited_early": int((walk.walked < n_chunks).sum()),
+        "instances": int(packed.counts.to(torch.int64).sum()),
+        "instances_walked": int(live_walked.sum()),
+        "pairs_walked": int(live_walked.sum()) * tile_size * tile_size,
+        "pairs_contributing": int(walk.contributing.sum()),
+    }
+
+
+def _check(packed: PackedTiles, width: int, height: int, tile_size: int) -> None:
+    rows16, starts, counts = packed.rows16, packed.starts, packed.counts
+    if tile_size not in (16, 32):
+        raise ValueError(f"tile_size must be 16 or 32, got {tile_size}")
+    if width % tile_size or height % tile_size:
+        raise ValueError("width/height must be multiples of tile_size")
+    n_tiles = (width // tile_size) * (height // tile_size)
+    if rows16.dtype != torch.float32 or rows16.dim() != 2 \
+            or rows16.shape[0] != PACK16 or rows16.shape[1] % CHUNK:
+        raise ValueError(f"rows16 must be f32 [16, k*{CHUNK}], got "
+                         f"{rows16.dtype} {tuple(rows16.shape)}")
+    for name, t in (("starts", starts), ("counts", counts)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (n_tiles,):
+            raise ValueError(f"{name} must be i32 [{n_tiles}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for name, t in (("rows16", rows16), ("starts", starts), ("counts", counts)):
+        if t.device != rows16.device:
+            raise ValueError(f"{name} is on {t.device}, rows16 on {rows16.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _launcher():
+    lib = kernels.load("tiled_fwd")
+    fn = lib.tiled_fwd_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
+                         tile_size: int,
+                         bg: tuple[float, float, float]) -> torch.Tensor:
+    """Composite every tile; returns [n_tiles, 8, tile_size^2] with channels
+    (r, g, b with background, depth, alpha, 0, 0, 0).
+
+    A CUDA ``packed`` launches K1 on the current stream (or raises); a CPU
+    one runs the plain version. ``raster_forward_tiles.launches`` counts K1
+    launches."""
+    _check(packed, width, height, tile_size)
+    dev = packed.rows16.device
+    if dev.type == "cpu":
+        return raster_forward_tiles_plain(packed, width, height, tile_size, bg)[0]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    tw = width // tile_size
+    n_tiles = tw * (height // tile_size)
+    p = tile_size * tile_size
+    out = torch.empty((n_tiles, 8, p), dtype=torch.float32, device=dev)
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(packed.starts.data_ptr(), packed.counts.data_ptr(),
+                     packed.rows16.data_ptr(), out.data_ptr(), n_tiles, tw,
+                     packed.rows16.shape[1], tile_size, float(bg[0]),
+                     float(bg[1]), float(bg[2]), stream)
+    if err != 0:
+        raise RuntimeError(f"tiled_fwd kernel launch failed: CUDA error {err}")
+    raster_forward_tiles.launches += 1
+    return out
+
+
+raster_forward_tiles.launches = 0
+
+
+def tiles_to_images(out_t: torch.Tensor, width: int, height: int,
+                    tile_size: int):
+    """[T, 8, p] tile slabs -> (rgb [3,H,W], depth [1,H,W], alpha [1,H,W])."""
+    tw, th = width // tile_size, height // tile_size
+
+    def to_image(tiled, ch):
+        flat = tiled.reshape(th, tw, ch, tile_size, tile_size)
+        return flat.permute(2, 0, 3, 1, 4).reshape(ch, height, width)
+
+    return (to_image(out_t[:, 0:3, :], 3), to_image(out_t[:, 3:4, :], 1),
+            to_image(out_t[:, 4:5, :], 1))
+
+
+def rasterize_tiled_fwd(proj: ProjectedGaussians, width: int, height: int,
+                        bg: tuple[float, float, float] = (1.0, 1.0, 1.0),
+                        pack_order: str = "exact"):
+    """Pack + composite at ``tile_and_win``'s tiling; returns
+    (rgb [3,H,W], depth [1,H,W], alpha [1,H,W], aux)."""
+    tile_size, win = tile_and_win(width, height)
+    if width % tile_size or height % tile_size:
+        raise ValueError("width/height must be multiples of tile_size")
+    tw, th = width // tile_size, height // tile_size
+    packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
+    out_t = raster_forward_tiles(packed, width, height, tile_size, bg)
+    rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
+    return rgb, dep, acc, packed.aux

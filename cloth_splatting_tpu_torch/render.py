@@ -1,0 +1,181 @@
+"""Top-level render function; counterpart of ``cloth_splatting_tpu/render.py``.
+
+Pipeline per camera: residual simulator -> deformed vertices -> barycentric
+Gaussian means + face rotations -> SH colours -> EWA projection -> sort
+binning -> tile compositor (K1). This slice of the port serves frames only:
+the differentiable tiers come with the training kernels.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cloth_splatting_tpu_torch.device import check_on, resolve_device
+from cloth_splatting_tpu_torch.models.deform import simulate_any
+from cloth_splatting_tpu_torch.models.gaussians import (
+    GaussianParams,
+    GaussianState,
+    Mesh,
+    gaussian_positions,
+    gaussian_rotations,
+    get_features,
+    get_opacity,
+    get_scaling,
+)
+from cloth_splatting_tpu_torch.ops.projection import (
+    build_covariance,
+    project_gaussians,
+)
+from cloth_splatting_tpu_torch.ops.quaternion import quat_normalize
+from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fwd
+from cloth_splatting_tpu_torch.ops.sh import eval_sh
+
+SERVING_BACKEND = "tiled_fwd"
+# backends of the JAX package that later slices of the port bring
+_LATER = {"pallas": "slice 2 (differentiable render)",
+          "tiled": "slice 2 (differentiable render)"}
+
+
+class CameraArrays(NamedTuple):
+    """Device-side camera tensors."""
+
+    world_view: torch.Tensor     # [4, 4] row-vector W2C
+    full_proj: torch.Tensor      # [4, 4]
+    camera_center: torch.Tensor  # [3]
+    time: torch.Tensor           # scalar
+
+
+class RenderOutput(NamedTuple):
+    rgb: torch.Tensor          # [3, H, W]
+    depth: torch.Tensor        # [1, H, W]
+    alpha: torch.Tensor        # [1, H, W]
+    radii: torch.Tensor        # [C]
+    visibility: torch.Tensor   # [C] bool (radius > 0)
+    means3d: torch.Tensor      # [C, 3] deformed Gaussian centres
+    vertices: torch.Tensor     # [V, 3] deformed mesh vertices
+    rotations: torch.Tensor    # [C, 4]
+    projections: torch.Tensor  # [C, 2] pixel-space projections
+    n_dropped: torch.Tensor    # binning overflow (always 0 here)
+
+
+def camera_arrays(cam, device: str | torch.device = "cuda") -> CameraArrays:
+    """A ``ops.camera.Camera`` as tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32).to(dev)
+
+    return CameraArrays(world_view=t(cam.world_view), full_proj=t(cam.full_proj),
+                        camera_center=t(cam.camera_center), time=t(cam.time))
+
+
+@torch.no_grad()
+def project_view(
+    cam: CameraArrays,
+    width: int,
+    height: int,
+    tanfovx: float,
+    tanfovy: float,
+    params: GaussianParams,
+    state: GaussianState,
+    mesh: Mesh,
+    simulator: torch.nn.Module | None,
+    mesh_predictions: torch.Tensor | None,
+    sh_degree: int,
+    screen_offset: torch.Tensor | None = None,
+    render_static: bool = False,
+    scaling_modifier: float = 1.0,
+    override_color: torch.Tensor | None = None,
+    override_vertices: torch.Tensor | None = None,
+):
+    """The front half of ``render``: (ProjectedGaussians, vertices, means3d,
+    rotations) for one camera."""
+    if override_vertices is not None:
+        vertices = override_vertices
+        means3d = gaussian_positions(params, state, mesh, vertices)
+        rotations = gaussian_rotations(params, state, mesh, vertices)
+    elif render_static or simulator is None:
+        vertices = mesh.pos
+        means3d = gaussian_positions(params, state, mesh)
+        rotations = quat_normalize(params.rotation)
+    else:
+        vertices = simulate_any(simulator, mesh_predictions, cam.time)
+        means3d = gaussian_positions(params, state, mesh, vertices)
+        rotations = gaussian_rotations(params, state, mesh, vertices)
+
+    cov3d = build_covariance(get_scaling(params), rotations, scaling_modifier)
+
+    if override_color is None:
+        dirs = means3d - cam.camera_center[None, :]
+        dirs = dirs / torch.clamp_min(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
+        colors = torch.clamp_min(
+            eval_sh(sh_degree, get_features(params), dirs) + 0.5, 0.0)
+    else:
+        colors = override_color
+
+    proj = project_gaussians(means3d, cov3d, colors, get_opacity(params),
+                             cam.world_view, cam.full_proj, width, height,
+                             tanfovx, tanfovy, alive=state.alive)
+    if screen_offset is not None:
+        scale = torch.tensor([width / 2.0, height / 2.0], dtype=proj.xy.dtype,
+                             device=proj.xy.device)
+        proj = proj._replace(xy=proj.xy + screen_offset * scale)
+    return proj, vertices, means3d, rotations
+
+
+@torch.no_grad()
+def render(
+    cam: CameraArrays,
+    width: int,
+    height: int,
+    tanfovx: float,
+    tanfovy: float,
+    params: GaussianParams,
+    state: GaussianState,
+    mesh: Mesh,
+    simulator: torch.nn.Module | None,
+    mesh_predictions: torch.Tensor | None,
+    bg_color: tuple[float, float, float],
+    sh_degree: int,
+    screen_offset: torch.Tensor | None = None,
+    render_static: bool = False,
+    scaling_modifier: float = 1.0,
+    override_color: torch.Tensor | None = None,
+    override_vertices: torch.Tensor | None = None,
+    backend: str = SERVING_BACKEND,
+    pack_order: str = "fused",
+    device: str | torch.device = "cuda",
+) -> RenderOutput:
+    """Render one camera; ``sh_degree`` is the active SH degree.
+
+    ``override_vertices`` renders at explicitly given deformed vertices
+    (bypassing the simulator). ``bg_color`` is a static RGB triple (it is
+    part of the compositor's epilogue). ``screen_offset`` [C, 2] shifts the
+    projected means by ``offset * (W/2, H/2)`` pixels. All tensors must lie
+    on ``device``."""
+    dev = resolve_device(device)
+    if backend != SERVING_BACKEND:
+        if backend in _LATER:
+            raise NotImplementedError(
+                f"backend {backend!r} is not ported yet: it comes with "
+                f"{_LATER[backend]}")
+        raise ValueError(f"unknown backend {backend!r}")
+    check_on(dev, face_bary=params.face_bary, alive=state.alive, mesh_pos=mesh.pos,
+             world_view=cam.world_view)
+
+    proj, vertices, means3d, rotations = project_view(
+        cam, width, height, tanfovx, tanfovy, params, state, mesh, simulator,
+        mesh_predictions, sh_degree, screen_offset=screen_offset,
+        render_static=render_static, scaling_modifier=scaling_modifier,
+        override_color=override_color, override_vertices=override_vertices)
+    rgb, depth, alpha, aux = rasterize_tiled_fwd(
+        proj, width, height, tuple(float(c) for c in bg_color),
+        pack_order=pack_order)
+
+    return RenderOutput(rgb=rgb, depth=depth, alpha=alpha, radii=proj.radius,
+                        visibility=proj.radius > 0, means3d=means3d,
+                        vertices=vertices, rotations=rotations,
+                        projections=proj.xy, n_dropped=aux.n_dropped)
