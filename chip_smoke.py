@@ -5,25 +5,36 @@
 
 Phases, each of which raises on failure:
   1. build every kernel of the port from ``cloth_splatting_tpu_torch/csrc``
-     and print the card's name and power limit;
+     (one ``nvcc`` per source, all started together) and print the card's
+     name and power limit;
   2. hold each kernel against its plain PyTorch version on the card: K1 on
      the packs of the 65k-Gaussian 800x800 serving scene for two orbit
-     views, and on deep synthetic packs (thousands of instances per tile, so
-     the transmittance exit fires) at both tile sizes;
-  3. time K1, its plain version and the stages of one frame;
+     views, and K2 and K3 on the pack of the 65k training scene; all three
+     also on deep synthetic packs (thousands of instances per tile, so the
+     transmittance exit fires) at both tile sizes;
+  3. time K1, K2, K3, their plain versions and the stages of one frame;
   4. serve frames of the scene at different views and times through the
      port's ``render`` with the launch counters set to 0 just before, and
-     check that every kernel of the path was launched once per frame and
-     that the frames are finite with nonzero coverage;
-  5. check a small render against the O(N*P) oracle.
+     check that K1 was launched once per frame and that the frames are
+     finite with nonzero coverage;
+  5. check a small render, and the gradients of the differentiable
+     rasterizer (K2 forward, K3 backward, under autograd), against the
+     O(N*P) oracle;
+  6. train: a warm-up step and 5 timed steps of the port's ``Trainer`` on
+     bench.py's 65k training configuration (3 cameras, 800x800) with the
+     launch counters set to 0 just before, checking that K2 and K3 ran 3
+     times per step, that the loss is finite and that the Gaussians and the
+     simulator moved.
 
-Prints a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
-Exits non-zero and prints no result when CUDA is unavailable, when the port
-package is missing, or when any phase fails. Imports nothing of JAX.
+Prints a {"serving": ...} line, a {"train": ...} line, a {"kernels": [...]}
+line and, last, {"ok": true, "device": ...}. Exits non-zero and prints no
+result when CUDA is unavailable, when the port package is missing, or when
+any phase fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -34,28 +45,50 @@ import time
 SEED = 0
 WIDTH = HEIGHT = 800
 MESH_RES = 128           # grid_cloth_mesh(128, 128): 65,024 Gaussians
+TRAIN_CAPACITY = 65536
 N_FRAMES = 8
+TRAIN_STEPS = 5
+TRAIN_TIMES = (0.0, 0.5, 1.0)
 FOV = 2.0 * math.atan(0.4)
 BG = (1.0, 1.0, 1.0)
-# K1 against its plain version: both walk the same chunks in the same order
-# and stop at the same chunk, so they differ only by rounding (sequential
-# products in K1, cumprod in the plain version); sound runs read at most
-# 2.4e-6 in any channel. 1e-5 catches a splat that crosses its power cut or
-# a chunk walked by one side only, each of which moves pixels by ~1e-4.
-TOL_PLAIN = {"r": 1e-5, "g": 1e-5, "b": 1e-5, "depth": 1e-5, "alpha": 1e-5}
+# K1 and K2 against their plain versions: both walk the same chunks in the
+# same order and stop at the same chunk, so they differ only by rounding
+# (sequential products in the kernels, cumprod in the plain versions); sound
+# K1 runs read at most 2.4e-6 in any channel. 1e-5 catches a splat that
+# crosses its power cut or a chunk walked by one side only, each of which
+# moves pixels by ~1e-4. K2's saved boundaries are held to the same limit.
+TOL_PLAIN = 1e-5
 CHANNELS = ("r", "g", "b", "depth", "alpha")
-# A render against the O(N*P) oracle, which composites each pixel on its own
-# and has no tile-wide exit: the tolerances of tests/test_pallas_raster.py.
+# K3 against its plain version, per gradient field, relative to the field's
+# largest magnitude. Both use K2's boundaries and the same classification;
+# they differ in rounding (sequential T and prefix in K3, cumprod/cumsum in
+# the plain version; per-thread, warp-shuffle and cross-warp sums against
+# torch's sums over pixels), and the occlusion term (K - S_i) / (1 - alpha)
+# divides a difference of sums by 1 - alpha >= 0.01. Sound runs read at
+# most 6.8e-7 (colour, deep 256 px pack); the limit is about 4x that. A pair
+# classified differently, or a clamp gate missed, moves a field by 1e-4 of
+# its largest magnitude or more.
+TOL_K3 = 3e-6
+GRAD_FIELDS = {"xy": slice(0, 2), "conic": slice(2, 5), "color": slice(5, 8),
+               "opacity": slice(8, 9), "depth": slice(9, 10)}
+# A render, and its gradients, against the O(N*P) oracle, which composites
+# each pixel on its own and has no tile-wide exit: the tolerances of
+# tests/test_pallas_raster.py (images 3e-4 / 3e-3, gradients 2e-4 times the
+# field's largest magnitude).
 TOL_ORACLE = {"rgb": 3e-4, "depth": 3e-3, "alpha": 3e-4}
+TOL_ORACLE_GRAD = 2e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# fp32 operations per instance-pixel pair in K1: every walked pair computes
-# dx, dy and the quadratic form (11) and alpha (exp, scale, min: 3); a pair
-# with nonzero alpha also does w = alpha T, five multiply-adds and T update (13).
+# fp32 operations per instance-pixel pair. Every walked pair computes dx, dy
+# and the quadratic form (11) and alpha (exp, scale, min: 3). A pair with
+# nonzero alpha also does, in K1 and K2, w = alpha T, five multiply-adds and
+# the T update (13); in K3, w, u = g . c (7), the prefix (2), four colour
+# and depth sums (8), dL/dalpha (7), dpow (1), six moment sums (14) and the
+# T update (2): 42.
 OPS_PER_WALKED_PAIR = 14
-OPS_PER_CONTRIBUTING_PAIR = 13
+OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42}
 
 
 def log(msg: str) -> None:
@@ -86,6 +119,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(stats: dict, kernel: str, n_bytes: int) -> dict:
+    """The least time the card could take for ``kernel``'s work on a pack:
+    the larger of its fp32 operations at the fp32 peak and its bytes at the
+    memory rate."""
+    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR
+           + stats["pairs_contributing"] * OPS_PER_CONTRIBUTING_PAIR[kernel])
+    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
+    return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def compare_k1(packed, width, height, tile_size, label: str):
     """(max abs difference of K1 and its plain version, walk statistics) on
     one pack; raises above TOL_PLAIN, on non-finite output, or on nonzero
@@ -109,17 +154,122 @@ def compare_k1(packed, width, height, tile_size, label: str):
             for i, ch in enumerate(CHANNELS)}
     stats = walk_stats(packed, walk, tile_size)
     log(f"K1 vs plain [{label}] max|diff| {json.dumps(errs)} walk {json.dumps(stats)}")
-    bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN[ch]}
+    bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN}
     if bad:
         raise RuntimeError(f"K1 {label}: disagrees with its plain version {bad}")
     return max(errs.values()), stats
 
 
-def profile_frames(frame, cams) -> dict:
-    """Device kernels of a few frames under torch.profiler: launches per
-    frame, device busy share of the wall time, and the kernels that take
-    most device time. Busy share is None when the profiler saw no device
-    time."""
+def compare_k2(packed, width, height, tile_size, label: str):
+    """(max abs difference of K2 and its plain version over the output and
+    the saved boundaries, walk statistics, K2's out and tbounds); raises
+    above TOL_PLAIN, on non-finite output, or when the two started
+    different chunks."""
+    import torch
+
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        chunk_span,
+        walk_stats,
+    )
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        raster_forward_train_plain,
+    )
+
+    out_k, tb_k = raster_forward_train(packed, width, height, tile_size, BG)
+    torch.cuda.synchronize()
+    out_p, tb_p, walk = raster_forward_train_plain(packed, width, height,
+                                                   tile_size, BG)
+    # rows past the tiles' chunk counts are laid out by chunk_layout's bound
+    # but never written by K2 and never read by K3
+    n_laid = int(chunk_span(packed)[3].sum())
+    if not bool(torch.isfinite(out_k).all()) \
+            or not bool(torch.isfinite(tb_k[:n_laid]).all()):
+        raise RuntimeError(f"K2 {label}: non-finite output")
+    started_k = tb_k[:n_laid].amax(dim=1) > 0.0
+    started_p = tb_p[:n_laid].amax(dim=1) > 0.0
+    if not torch.equal(started_k, started_p):
+        raise RuntimeError(
+            f"K2 {label}: started {int(started_k.sum())} chunks, the plain "
+            f"version {int(started_p.sum())}, not the same set")
+    errs = {ch: float((out_k[:, i] - out_p[:, i]).abs().max())
+            for i, ch in enumerate(CHANNELS)}
+    errs["tbounds"] = float((tb_k[:n_laid] - tb_p[:n_laid]).abs().max())
+    stats = walk_stats(packed, walk, tile_size)
+    stats["chunks_laid"] = n_laid
+    stats["chunks_started"] = int(started_k.sum())
+    log(f"K2 vs plain [{label}] max|diff| {json.dumps(errs)} walk {json.dumps(stats)}")
+    bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN}
+    if bad:
+        raise RuntimeError(f"K2 {label}: disagrees with its plain version {bad}")
+    return max(errs.values()), stats, out_k, tb_k
+
+
+def cotangent_tiles(out_t, width, height, tile_size, gen):
+    """K3's input gimg [T, p, 8] for the loss sum of squared differences
+    between the forward's (rgb, depth, alpha) and a seeded random target."""
+    import torch
+
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import tiles_to_images
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        grad_image,
+        images_to_tiles,
+    )
+
+    rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
+    dev = out_t.device
+
+    def target(c, lo, hi):
+        return lo + (hi - lo) * torch.rand(c, height, width, generator=gen,
+                                           device=dev)
+
+    g_rgb = 2.0 * (rgb - target(3, 0.0, 1.0)) / rgb.numel()
+    g_dep = 2.0 * (dep - target(1, 2.0, 4.0)) / dep.numel()
+    g_acc = 2.0 * (acc - target(1, 0.0, 1.0)) / acc.numel()
+    return images_to_tiles(grad_image(rgb, dep, acc, g_rgb, g_dep, g_acc, BG),
+                           width, height, tile_size)
+
+
+def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str):
+    """(max abs difference of K3 and its plain version, per-field readings
+    relative to the field's largest magnitude) on one pack, both fed K2's
+    boundaries; raises above TOL_K3, on non-finite grads, or on nonzero
+    rows 10..15."""
+    import torch
+
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        run_backward,
+        run_backward_plain,
+    )
+
+    g_k = run_backward(packed, gimg_t, tb, width, height, tile_size, BG)
+    torch.cuda.synchronize()
+    g_p = run_backward_plain(packed, gimg_t, tb, width, height, tile_size, BG)
+    if not bool(torch.isfinite(g_k).all()):
+        raise RuntimeError(f"K3 {label}: non-finite gradients")
+    if float(g_k[10:].abs().max()) != 0.0:
+        raise RuntimeError(f"K3 {label}: rows 10..15 not zero")
+    rel, abs_err = {}, 0.0
+    for name, rows in GRAD_FIELDS.items():
+        diff = float((g_k[rows] - g_p[rows]).abs().max())
+        scale = float(g_p[rows].abs().max())
+        if scale == 0.0:
+            raise RuntimeError(f"K3 {label}: plain {name} gradient is all zero")
+        rel[name] = diff / scale
+        abs_err = max(abs_err, diff)
+    log(f"K3 vs plain [{label}] max|diff|/max|plain| {json.dumps(rel)} "
+        f"max|diff| {abs_err:.4g}")
+    bad = {k: e for k, e in rel.items() if not e <= TOL_K3}
+    if bad:
+        raise RuntimeError(f"K3 {label}: disagrees with its plain version {bad}")
+    return abs_err, rel
+
+
+def profile_calls(fn, args) -> dict:
+    """Device kernels of ``fn(a)`` for each ``a`` under torch.profiler:
+    launches per call, device busy share of the wall time, and the kernels
+    that take most device time. Busy share is None when the profiler saw
+    no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -127,21 +277,22 @@ def profile_frames(frame, cams) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for cam in cams:
-            frame(cam)
+        for a in args:
+            fn(a)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    n = len(args)
     return {
-        "kernels_per_frame": sum(e.count for e in kernels) / len(cams),
+        "kernels_per_call": sum(e.count for e in kernels) / n,
         "device_busy_share": busy_us / wall_us if busy_us > 0 else None,
-        "device_ms_per_frame": busy_us / 1e3 / len(cams),
-        "wall_ms_per_frame_profiled": wall_us / 1e3 / len(cams),
-        "top_kernels_ms_per_frame": {
-            e.key[:60]: e.self_device_time_total / 1e3 / len(cams) for e in top},
+        "device_ms_per_call": busy_us / 1e3 / n,
+        "wall_ms_per_call_profiled": wall_us / 1e3 / n,
+        "top_kernels_ms_per_call": {
+            e.key[:60]: e.self_device_time_total / 1e3 / n for e in top},
     }
 
 
@@ -168,6 +319,160 @@ def deep_proj(n: int, width: int, height: int, gen, device):
         power_cut=torch.full((n,), -4.5, device=device))
 
 
+def oracle_grads(proj, width, height, gen):
+    """Gradients of one loss through ``rasterize_tiled_train`` (K2, K3) and
+    through the oracle under autograd, with respect to the projected
+    fields; raises above TOL_ORACLE_GRAD times each field's largest
+    magnitude. Returns the readings."""
+    import torch
+
+    from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        rasterize_tiled_train,
+    )
+
+    names = ("xy", "conic", "color", "opacity", "depth")
+    tgt = torch.rand(3, height, width, generator=gen, device=proj.xy.device)
+
+    def grads(raster):
+        leaves = [getattr(proj, k).detach().clone().requires_grad_() for k in names]
+        rgb, dep, acc = raster(proj._replace(**dict(zip(names, leaves))))
+        loss = ((rgb - tgt) ** 2).mean() + 0.1 * dep.mean() + 0.05 * acc.mean()
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss_k, g_k = grads(lambda q: rasterize_tiled_train(q, width, height, BG))
+    loss_o, g_o = grads(lambda q: rasterize_reference(
+        q, width, height, torch.tensor(BG, device=proj.xy.device)))
+    rel = {}
+    for name, a, o in zip(names, g_k, g_o):
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"autograd path: non-finite {name} gradient")
+        scale = float(o.abs().max())
+        if scale == 0.0:
+            raise RuntimeError(f"autograd path: oracle {name} gradient is zero")
+        rel[name] = float((a - o).abs().max()) / scale
+    rel["loss"] = abs(float(loss_k.detach()) - float(loss_o.detach())) / abs(float(loss_o.detach()))
+    log(f"{width}x{height} autograd grads vs oracle max|diff|/max|oracle| "
+        f"{json.dumps(rel)}")
+    bad = {k: e for k, e in rel.items() if not e <= TOL_ORACLE_GRAD}
+    if bad:
+        raise RuntimeError(f"autograd path disagrees with the oracle: {bad}")
+    return rel
+
+
+def train_phase(mesh, tan, gpu):
+    """bench.py's 65k training configuration through the port's Trainer:
+    a warm-up step, then TRAIN_STEPS timed steps with the launch counters
+    set to 0 just before. Returns (the {"train": ...} record, K2 launches,
+    K3 launches)."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.models import gaussians as G
+    from cloth_splatting_tpu_torch.ops.camera import Camera
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        raster_forward_tiles,
+    )
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        run_backward,
+    )
+    from cloth_splatting_tpu_torch.render import CameraArrays, camera_arrays
+    from cloth_splatting_tpu_torch.train.config import Config
+    from cloth_splatting_tpu_torch.train.step import Trainer
+
+    dev = mesh.pos.device
+    cfg = Config()
+    trainer = Trainer(cfg, mesh, mesh.pos[None].repeat(3, 1, 1), WIDTH, HEIGHT,
+                      tan, tan, 2.0)
+    rng = np.random.default_rng(SEED)
+    params, gstate = G.init_from_mesh(rng, mesh, cfg.model.sh_degree, 2,
+                                      capacity=TRAIN_CAPACITY, device=dev)
+    state = trainer.init_state(rng, params, gstate)
+    cam = Camera.create(R=np.eye(3), t=np.asarray([0.0, 0.0, 3.0]), fovx=FOV,
+                        fovy=FOV, width=WIDTH, height=HEIGHT, time=0.5)
+    arrs = [camera_arrays(dataclasses.replace(cam, time=t), device=dev)
+            for t in TRAIN_TIMES]
+    cams = CameraArrays(*(torch.stack([getattr(a, f) for a in arrs])
+                          for f in CameraArrays._fields))
+    gts = torch.full((len(TRAIN_TIMES), 3, HEIGHT, WIDTH), 0.5, device=dev)
+    n_alive = int(state.gstate.alive.sum())
+
+    def step(s):
+        return trainer.step(s, cams, gts, None, sh_degree=1, static=False)
+
+    state0 = state
+    state, _ = step(state)                      # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    raster_forward_tiles.launches = 0
+    raster_forward_train.launches = 0
+    run_backward.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state)
+        losses.append(metrics.loss)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_STEPS
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    k2, k3 = raster_forward_train.launches, run_backward.launches
+    k1 = raster_forward_tiles.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = len(TRAIN_TIMES) * TRAIN_STEPS
+    if k2 != expected or k3 != expected:
+        raise RuntimeError(f"train: K2 launched {k2} and K3 {k3} times in "
+                           f"{TRAIN_STEPS} steps of {len(TRAIN_TIMES)} cameras")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"train: non-finite loss {losses}")
+    moved = {k: float((a - b).abs().max())
+             for k, a, b in zip(state.params._fields, state.params, state0.params)}
+    sim_moved = {k: float((state.sim_params[k] - v).abs().max())
+                 for k, v in state0.sim_params.items()}
+    if max(moved.values()) <= 0.0 or max(sim_moved.values()) <= 0.0:
+        raise RuntimeError(f"train: parameters did not move {moved} {sim_moved}")
+    if int(state.step) != TRAIN_STEPS + 1:
+        raise RuntimeError(f"train: step counter {int(state.step)}")
+
+    # the step's three stages, timed separately over two more steps
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    stages = {"forward_renders_and_losses": 0.0, "backward": 0.0, "adam_and_stats": 0.0}
+    for _ in range(2):
+        ev[0].record()
+        fwd = trainer.forward(state, cams, gts, None, 1, False)
+        ev[1].record()
+        grads = trainer.backward(fwd)
+        ev[2].record()
+        state, _ = trainer.update(state, fwd, grads)
+        ev[3].record()
+        ev[3].synchronize()
+        for i, k in enumerate(stages):
+            stages[k] += ev[i].elapsed_time(ev[i + 1]) / 2
+    trace = profile_calls(lambda _: step(state), [0])
+    record = {
+        "steps": TRAIN_STEPS, "cameras": len(TRAIN_TIMES), "gaussians": n_alive,
+        "width": WIDTH, "height": HEIGHT, "ms_per_step": step_ms,
+        "host_ms_per_step": host_ms, "stage_ms": stages,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
+        "peak_memory_gb": peak_gb,
+        "device_busy_share": trace["device_busy_share"],
+        "kernels_per_step": trace["kernels_per_call"],
+        "gpu": gpu}
+    log(f"train: {TRAIN_STEPS} steps, {step_ms:.4f} ms/step (device), "
+        f"{host_ms:.4f} ms/step (host), stages {json.dumps(stages)}, K2 {k2} "
+        f"K3 {k3} launches, loss {losses[0]:.6f} -> {losses[-1]:.6f}, largest "
+        f"parameter moves {json.dumps(moved)} simulator {json.dumps(sim_moved)} "
+        f"[{gpu}]")
+    log(f"profile of 1 train step: {json.dumps(trace)}")
+    return record, k2, k3
+
+
 def main() -> int:
     import torch
 
@@ -181,7 +486,7 @@ def main() -> int:
     from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
     from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
-    from cloth_splatting_tpu_torch.models.deform import init_residual_simulator
+    from cloth_splatting_tpu_torch.models import gaussians as G
     from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         raster_forward_tiles,
@@ -190,6 +495,14 @@ def main() -> int:
         tile_and_win,
         tiles_to_images,
     )
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        raster_forward_train_plain,
+        run_backward,
+        run_backward_plain,
+    )
+    from cloth_splatting_tpu_torch.models.deform import init_residual_simulator
+    from cloth_splatting_tpu_torch.ops.camera import Camera
     from cloth_splatting_tpu_torch.render import camera_arrays, project_view, render
 
     t_start = time.time()
@@ -197,8 +510,7 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------------
     t0 = time.time()
-    for name in kernels.SOURCES:
-        text = kernels.build(name)
+    for name, text in kernels.build_all().items():
         if text is not None:
             log(f"nvcc {name}:\n{text.strip()}")
     log(f"build: {time.time() - t0:.1f} s")
@@ -223,13 +535,28 @@ def main() -> int:
             for v in range(N_FRAMES)]
     tile, win = tile_and_win(WIDTH, HEIGHT)   # as render's rasterizer picks
     tw, th = WIDTH // tile, HEIGHT // tile
+    n_tiles = tw * th
+    p = tile * tile
 
     def project(cam):
-        return project_view(cam, WIDTH, HEIGHT, tan, tan, params, state, mesh,
-                            simulator, preds, 3)[0]
+        with torch.no_grad():
+            return project_view(cam, WIDTH, HEIGHT, tan, tan, params, state, mesh,
+                                simulator, preds, 3)[0]
+
+    # the training scene's pack for its first camera (bench.py's 65k train
+    # configuration; the step renders with the fused pack order)
+    t_params, t_state = G.init_from_mesh(np.random.default_rng(SEED), mesh, 3, 2,
+                                         capacity=TRAIN_CAPACITY, device=dev)
+    t_cam = camera_arrays(Camera.create(
+        R=np.eye(3), t=np.asarray([0.0, 0.0, 3.0]), fovx=FOV, fovy=FOV,
+        width=WIDTH, height=HEIGHT, time=TRAIN_TIMES[0]), device=dev)
+    with torch.no_grad():
+        t_proj = project_view(t_cam, WIDTH, HEIGHT, tan, tan, t_params, t_state,
+                              mesh, simulator, preds, 1)[0]
+    train_pack = sorted_pack(t_proj, tw, th, tile, win, order="fused")
 
     # 2. kernels against their plain versions ----------------------------------
-    k1_err = 0.0
+    k1_err = k2_err = k3_err = 0.0
     packs = []
     for v in (0, 3):
         packed = sorted_pack(project(cams[v]), tw, th, tile, win, order="fused")
@@ -238,30 +565,66 @@ def main() -> int:
         packs.append((packed, stats))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    err, train_stats, train_out, train_tb = compare_k2(
+        train_pack, WIDTH, HEIGHT, tile, "65k train cam 0")
+    k2_err = max(k2_err, err)
+    train_gimg = cotangent_tiles(train_out, WIDTH, HEIGHT, tile, gen)
+    err, _ = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
+                        "65k train cam 0")
+    k3_err = max(k3_err, err)
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
         packed = sorted_pack(proj, size // ts, size // ts, ts,
                              3 if ts == 32 else 5, order="exact")
-        err, stats = compare_k1(packed, size, size, ts, f"deep {size}px/{ts}px tiles")
+        label = f"deep {size}px/{ts}px tiles"
+        err, stats = compare_k1(packed, size, size, ts, label)
         if stats["tiles_exited_early"] == 0:
             raise RuntimeError("deep pack: the transmittance exit never fired")
         k1_err = max(k1_err, err)
+        err, stats, out_k, tb_k = compare_k2(packed, size, size, ts, label)
+        if stats["chunks_started"] == stats["chunks_laid"]:
+            raise RuntimeError("deep pack: K2 started every chunk")
+        k2_err = max(k2_err, err)
+        err, _ = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
+                            tb_k, size, size, ts, label)
+        k3_err = max(k3_err, err)
 
-    # 3. times at the serving shapes ------------------------------------------
+    # 3. times at the main paths' shapes ---------------------------------------
     packed, stats = packs[0]
     k1_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG), 50)
-    plain_ms = time_ms(
+    k1_plain_ms = time_ms(
         lambda: raster_forward_tiles_plain(packed, WIDTH, HEIGHT, tile, BG), 3, 1)
-    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR
-           + stats["pairs_contributing"] * OPS_PER_CONTRIBUTING_PAIR)
-    n_tiles = tw * th
-    n_bytes = (stats["instances_walked"] * 11 * 4 + n_tiles * 2 * 4
-               + n_tiles * 8 * tile * tile * 4)
-    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    log(f"K1 65k view 0: {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({ops:.4g} fp32 ops -> {ops_ms:.4f} ms, "
-        f"{n_bytes} B -> {bytes_ms:.4f} ms) [{gpu}]")
+    k1_bound = bound(stats, "K1", stats["instances_walked"] * 11 * 4
+                     + n_tiles * 2 * 4 + n_tiles * 8 * p * 4)
+    log(f"K1 65k view 0: {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound "
+        f"{json.dumps(k1_bound)} [{gpu}]")
+
+    k2_ms = time_ms(lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile,
+                                                 BG), 50)
+    k2_plain_ms = time_ms(lambda: raster_forward_train_plain(
+        train_pack, WIDTH, HEIGHT, tile, BG), 3, 1)
+    # K2 reads K1's inputs plus the offsets and writes K1's output plus one
+    # boundary row of p floats per laid chunk
+    k2_bound = bound(train_stats, "K2", train_stats["instances_walked"] * 11 * 4
+                     + n_tiles * 3 * 4 + n_tiles * 8 * p * 4
+                     + train_stats["chunks_laid"] * p * 4)
+    log(f"K2 65k train cam 0: {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, bound "
+        f"{json.dumps(k2_bound)} [{gpu}]")
+
+    k3_ms = time_ms(lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH,
+                                         HEIGHT, tile, BG), 50)
+    k3_plain_ms = time_ms(lambda: run_backward_plain(
+        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), 3, 1)
+    # K3 reads the walked instances' rows, the three per-tile ints, the
+    # grad image and the started chunks' boundaries, and writes grads
+    # [16, B_pad]
+    k3_bound = bound(train_stats, "K3", train_stats["instances_walked"] * 11 * 4
+                     + n_tiles * 3 * 4 + n_tiles * p * 8 * 4
+                     + train_stats["chunks_started"] * p * 4
+                     + 16 * train_pack.rows16.shape[1] * 4)
+    log(f"K3 65k train cam 0: {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
+        f"{json.dumps(k3_bound)} [{gpu}]")
+
     proj0 = project(cams[0])
     stage_ms = {
         "project_view": time_ms(lambda: project(cams[0]), 10),
@@ -275,7 +638,7 @@ def main() -> int:
     }
     log(f"stages of one frame (ms): {json.dumps(stage_ms)}")
 
-    # 4. the main path: serve frames through render ----------------------------
+    # 4. the serving path: frames through render ------------------------------
     def frame(cam):
         return render(cam, WIDTH, HEIGHT, tan, tan, params, state, mesh,
                       simulator, preds, BG, 3, device=dev)
@@ -308,23 +671,24 @@ def main() -> int:
     log(f"serving: {N_FRAMES} frames, {frame_ms:.4f} ms/frame (device), "
         f"{host_ms:.4f} ms/frame (host), K1 launches {k1_launches}, "
         f"alpha coverage {min(coverages):.4f}..{max(coverages):.4f} [{gpu}]")
-    trace = profile_frames(frame, cams[:2])
+    trace = profile_calls(frame, cams[:2])
     log(f"profile of 2 frames: {json.dumps(trace)}")
     print(json.dumps({"serving": {
         "frames": N_FRAMES, "gaussians": n_alive, "width": WIDTH,
         "height": HEIGHT, "ms_per_frame": frame_ms,
         "host_ms_per_frame": host_ms, "stage_ms": stage_ms,
         "device_busy_share": trace["device_busy_share"],
-        "kernels_per_frame": trace["kernels_per_frame"], "gpu": gpu}}))
+        "kernels_per_frame": trace["kernels_per_call"], "gpu": gpu}}))
 
-    # 5. a small render against the oracle --------------------------------------
+    # 5. a small render and its gradients against the oracle -------------------
     small_mesh = grid_cloth_mesh(8, 8, size=1.2, device=dev)
     s_params, s_state = target_gaussians(small_mesh, 3, seed=SEED, device=dev)
     s_cam = camera_arrays(orbit_camera(1, 8, FOV, 64, 64, 0.0), device=dev)
     out = render(s_cam, 64, 64, tan, tan, s_params, s_state, small_mesh, None,
                  None, BG, 3, device=dev)
-    proj = project_view(s_cam, 64, 64, tan, tan, s_params, s_state, small_mesh,
-                        None, None, 3)[0]
+    with torch.no_grad():
+        proj = project_view(s_cam, 64, 64, tan, tan, s_params, s_state,
+                            small_mesh, None, None, 3)[0]
     ref = rasterize_reference(proj, 64, 64, torch.tensor(BG, device=dev))
     ref_err = {name: float((getattr(out, name) - r).abs().max())
                for name, r in zip(("rgb", "depth", "alpha"), ref)}
@@ -333,22 +697,35 @@ def main() -> int:
         raise RuntimeError(f"render disagrees with the oracle: {ref_err}")
     if float(out.alpha.mean()) <= 0.0:
         raise RuntimeError("small render has no coverage")
+    oracle_grads(proj, 64, 64, gen)
+
+    # 6. the training path: steps of the Trainer -------------------------------
+    train, k2_launches, k3_launches = train_phase(mesh, tan, gpu)
+    print(json.dumps({"train": train}))
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
-    print(json.dumps({"kernels": [{
-        "name": "K1 tiled_fwd compositor",
-        "route": "cuda",
-        "source": "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
-        "replaces": "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]}))
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("K1 tiled_fwd compositor",
+              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
+              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
+              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+        entry("K2 tiled_fwd_train compositor + boundaries",
+              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
+              k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry("K3 tiled_bwd forward-order gradient sweep",
+              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
+              k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,12 @@
 """Convert the JAX package's state into the port's structures.
 
 Inputs are dicts of numpy arrays, one per JAX NamedTuple, e.g.
-``{k: np.asarray(v) for k, v in p._asdict().items()}``; this module never
-imports JAX. Field names and layouts are the same in both packages; integer
-index fields become int64 (torch's index type).
+``{k: np.asarray(v) for k, v in p._asdict().items()}``, nested where the
+JAX structure nests (an optax ``ScaleByAdamState`` is ``{"count", "mu",
+"nu"}`` with ``mu`` and ``nu`` dicts of the parameters' fields); this module
+never imports JAX. Field names and layouts are the same in both packages;
+integer index fields become int64 (torch's index type), except the Adam
+and step counters, which stay int32 as in JAX.
 """
 
 from __future__ import annotations
@@ -14,16 +17,14 @@ import numpy as np
 import torch
 
 from cloth_splatting_tpu_torch.device import resolve_device
-from cloth_splatting_tpu_torch.models.deform import (
-    EmbeddingSimulator,
-    ResidualSimulator,
-)
+from cloth_splatting_tpu_torch.models.deform import simulator_from_params
 from cloth_splatting_tpu_torch.models.gaussians import (
     GaussianParams,
     GaussianState,
     Mesh,
 )
 from cloth_splatting_tpu_torch.render import CameraArrays
+from cloth_splatting_tpu_torch.train.step import AdamState, SplatTrainState
 
 Arrays = Mapping[str, np.ndarray]
 
@@ -35,6 +36,10 @@ def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     if a.dtype == np.bool_:
         return torch.from_numpy(a.copy()).to(dev)
     return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+def _counter(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
 
 
 def _build(cls, arrays: Arrays, dev: torch.device):
@@ -63,15 +68,46 @@ def camera_arrays(arrays: Arrays, device: str | torch.device = "cuda"
     return _build(CameraArrays, arrays, resolve_device(device))
 
 
+def simulator_params(arrays: Arrays, device: str | torch.device = "cuda"
+                     ) -> dict[str, torch.Tensor]:
+    """A ``ResidualSimulatorParams`` or ``EmbeddingSimulatorParams`` dict as
+    the port's parameter dict (what a ``SplatTrainState`` holds)."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in arrays.items()}
+
+
 def simulator(arrays: Arrays, device: str | torch.device = "cuda"
               ) -> torch.nn.Module:
     """A ``ResidualSimulatorParams`` dict (w_in, b_in, w_h, b_h, w_out, b_out)
     or an ``EmbeddingSimulatorParams`` dict (embedding) as the port's module."""
+    return simulator_from_params(simulator_params(arrays, device))
+
+
+def adam_state(arrays: Mapping, like, device: str | torch.device = "cuda"
+               ) -> AdamState:
+    """An optax ``ScaleByAdamState`` dict {"count", "mu", "nu"} as the port's
+    ``AdamState``; ``like`` is ``GaussianParams`` for the Gaussian optimizer
+    or ``dict`` for the simulator's."""
     dev = resolve_device(device)
-    if set(arrays) == {"embedding"}:
-        return EmbeddingSimulator(_tensor(arrays["embedding"], dev))
-    names = ("w_in", "b_in", "w_h", "b_h", "w_out", "b_out")
-    missing = set(names) - set(arrays)
-    if missing:
-        raise KeyError(f"residual simulator needs fields {sorted(missing)}")
-    return ResidualSimulator(*(_tensor(arrays[k], dev) for k in names))
+
+    def tree(a):
+        if like is dict:
+            return {k: _tensor(v, dev) for k, v in a.items()}
+        return _build(like, a, dev)
+
+    return AdamState(count=_counter(arrays["count"], dev), mu=tree(arrays["mu"]),
+                     nu=tree(arrays["nu"]))
+
+
+def train_state(arrays: Mapping, device: str | torch.device = "cuda"
+                ) -> SplatTrainState:
+    """A whole JAX ``SplatTrainState`` dict {"params", "gstate", "g_opt",
+    "sim_params", "sim_opt", "step"} as the port's."""
+    dev = resolve_device(device)
+    return SplatTrainState(
+        params=gaussian_params(arrays["params"], dev),
+        gstate=gaussian_state(arrays["gstate"], dev),
+        g_opt=adam_state(arrays["g_opt"], GaussianParams, dev),
+        sim_params=simulator_params(arrays["sim_params"], dev),
+        sim_opt=adam_state(arrays["sim_opt"], dict, dev),
+        step=_counter(arrays["step"], dev))

@@ -4,8 +4,9 @@ Each source under ``csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``. Builds happen at first use, from the sources in the checkout,
 into ``_build/`` beside this file (git-ignored); a library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
-Nothing is built or loaded at import time.
+carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header is rebuilt. Nothing is built or
+loaded at import time.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import subprocess
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
+CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = {"tiled_fwd": PKG_DIR / "csrc" / "tiled_fwd.cu"}
+SOURCES = {"tiled_fwd": CSRC / "tiled_fwd.cu",
+           "tiled_train": CSRC / "tiled_train.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,33 +41,47 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> str | None:
-    """Compile kernel ``name`` unless it is built already. Returns the new
-    build's compiler log (register and shared-memory use from
-    ``-Xptxas -v``), or None if it was built; raises with the log if
-    ``nvcc`` fails."""
-    lib = library_path(name)
-    if lib.exists():
-        return None
+def build_all(names=None) -> dict[str, str | None]:
+    """Compile the kernels ``names`` (default: all) that are not built yet,
+    one ``nvcc`` process each, all started together. Returns each name's
+    compiler log (register and shared-memory use from ``-Xptxas -v``), or
+    None where it was built already; raises with the log if ``nvcc`` fails."""
+    names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
-                           f"(rc {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return proc.stdout
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs: dict[str, str | None] = {name: None for name in names}
+    failed = []
+    for name, (lib, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {SOURCES[name]} "
+                          f"(rc {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)
+        logs[name] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     if name not in _loaded:
-        build(name)
+        build_all([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -13,6 +13,7 @@ screen-space noise (the package turns TF32 off).
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -114,3 +115,24 @@ def simulate_any(simulator: nn.Module, mesh_predictions: torch.Tensor,
                  t: torch.Tensor) -> torch.Tensor:
     """Deformed vertices [V, 3] at time t from either simulator type."""
     return simulator(mesh_predictions, t)
+
+
+RESIDUAL_FIELDS = ("w_in", "b_in", "w_h", "b_h", "w_out", "b_out")
+
+
+def simulator_from_params(params: Mapping[str, torch.Tensor]) -> nn.Module:
+    """The simulator whose parameters share storage with ``params``: an
+    ``EmbeddingSimulator`` for ``{"embedding"}``, else a
+    ``ResidualSimulator`` from the fields ``RESIDUAL_FIELDS`` (the JAX
+    package's field names)."""
+    if set(params) == {"embedding"}:
+        return EmbeddingSimulator(params["embedding"])
+    missing = set(RESIDUAL_FIELDS) - set(params)
+    if missing:
+        raise KeyError(f"residual simulator needs fields {sorted(missing)}")
+    return ResidualSimulator(*(params[k] for k in RESIDUAL_FIELDS))
+
+
+def simulator_params(simulator: nn.Module) -> dict[str, torch.Tensor]:
+    """The simulator's parameters as a dict of plain (detached) tensors."""
+    return {k: p.detach() for k, p in simulator.named_parameters()}

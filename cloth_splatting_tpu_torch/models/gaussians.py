@@ -89,6 +89,24 @@ def get_features(params: GaussianParams) -> torch.Tensor:
     return torch.cat([params.features_dc, params.features_rest], dim=1)
 
 
+def num_alive(state: GaussianState) -> torch.Tensor:
+    return state.alive.sum()
+
+
+def add_densification_stats(state: GaussianState, xy_grad_norm: torch.Tensor,
+                            radii: torch.Tensor,
+                            visibility: torch.Tensor) -> GaussianState:
+    """Accumulate the viewspace gradient norms, visible counts and running
+    max screen radii of the visible Gaussians."""
+    zero = torch.zeros_like(xy_grad_norm)
+    return state._replace(
+        grad_accum=state.grad_accum + torch.where(visibility, xy_grad_norm, zero),
+        denom=state.denom + visibility.to(state.denom.dtype),
+        max_radii2d=torch.where(visibility,
+                                torch.maximum(state.max_radii2d, radii),
+                                state.max_radii2d))
+
+
 # --------------------------------------------------------------------------- #
 # Initialization
 # --------------------------------------------------------------------------- #

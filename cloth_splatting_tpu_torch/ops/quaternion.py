@@ -78,3 +78,8 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Inverse (= conjugate) of a unit WXYZ quaternion."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])

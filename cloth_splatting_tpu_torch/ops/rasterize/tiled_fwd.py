@@ -232,12 +232,42 @@ class PlainWalk(NamedTuple):
     contributing: torch.Tensor  # [T] instance-pixel pairs with nonzero alpha
 
 
-def _chunk_span(packed: PackedTiles):
+def chunk_span(packed: PackedTiles):
     """(starts, ends, first aligned chunk, aligned chunk count) per tile."""
     starts = packed.starts.to(torch.int64)
     ends = starts + packed.counts.to(torch.int64)
     kt = starts // CHUNK
     return starts, ends, kt, (ends - kt * CHUNK + CHUNK - 1) // CHUNK
+
+
+def pixel_coords(width: int, tile_size: int, n_tiles: int, dev):
+    """Absolute pixel coordinates (px, py), each f32 [T, p, 1]."""
+    tw = width // tile_size
+    tiles = torch.arange(n_tiles, device=dev)
+    pidx = torch.arange(tile_size * tile_size, device=dev)
+    px = ((tiles % tw) * tile_size)[:, None] + (pidx % tile_size)[None, :]
+    py = ((tiles // tw) * tile_size)[:, None] + (pidx // tile_size)[None, :]
+    return px.to(torch.float32)[..., None], py.to(torch.float32)[..., None]
+
+
+def chunk_alpha(blk: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                live: torch.Tensor):
+    """Plain version of ``csrc/composite.cuh::splat_alpha`` over chunks:
+    blk [A, 16, 128], px/py [A, p, 1], live [A, 128] -> (dx, dy, a_raw,
+    alpha, dead), each [A, p, 128], with alpha zero where dead. The one
+    classification of K1, K2 and K3: the quadratic form in the kernels'
+    order, dead where power > 0, power < cut, alpha < 1/255 or off the
+    tile's segment."""
+    dx = px - blk[:, None, 0, :]
+    dy = py - blk[:, None, 1, :]
+    ca, cb, cc = blk[:, None, 2, :], blk[:, None, 3, :], blk[:, None, 4, :]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    a_raw = blk[:, None, 8, :] * torch.exp(power)
+    alpha = torch.clamp_max(a_raw, ALPHA_MAX)
+    dead = ((power > 0.0) | (power < blk[:, None, 10, :])
+            | (alpha < ALPHA_MIN) | ~live[:, None, :])
+    alpha = torch.where(dead, torch.zeros_like(alpha), alpha)
+    return dx, dy, a_raw, alpha, dead
 
 
 def raster_forward_tiles_plain(
@@ -249,6 +279,19 @@ def raster_forward_tiles_plain(
     All tiles advance together over chunk index ``ci``; a tile takes part
     while ``ci < n_chunks`` and the max of its T exceeds TRANS_EPS, exactly
     the loop condition of K1 and of the TPU kernel."""
+    out, walk, _ = plain_walk(packed, width, height, tile_size, bg)
+    return out, walk
+
+
+def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
+               bg: tuple[float, float, float],
+               boundaries: tuple[torch.Tensor, int] | None = None):
+    """The walk of ``raster_forward_tiles_plain``: (out, counters, tbounds).
+
+    ``boundaries`` = (per-tile flat chunk offsets [T], number of rows) also
+    records, as K2 does, every pixel's T at the start of each chunk a tile
+    walks into tbounds [rows, p] at row offset + ci; rows of chunks never
+    started stay zero. tbounds is None without it."""
     tw, th = width // tile_size, height // tile_size
     n_tiles = tw * th
     p = tile_size * tile_size
@@ -256,38 +299,31 @@ def raster_forward_tiles_plain(
     n_chunks_arr = packed.rows16.shape[1] // CHUNK
     rows3d = packed.rows16.reshape(PACK16, n_chunks_arr, CHUNK).permute(1, 0, 2)
 
-    starts, ends, kt, n_chunks = _chunk_span(packed)
-
-    tiles = torch.arange(n_tiles, device=dev)
-    pidx = torch.arange(p, device=dev)
-    px = ((tiles % tw) * tile_size)[:, None] + (pidx % tile_size)[None, :]
-    py = ((tiles // tw) * tile_size)[:, None] + (pidx // tile_size)[None, :]
-    px = px.to(torch.float32)[..., None]                             # [T, p, 1]
-    py = py.to(torch.float32)[..., None]
+    starts, ends, kt, n_chunks = chunk_span(packed)
+    px, py = pixel_coords(width, tile_size, n_tiles, dev)            # [T, p, 1]
     lane = torch.arange(CHUNK, device=dev)
 
     trans = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
     acc = torch.zeros((n_tiles, 5, p), dtype=torch.float32, device=dev)
     walked = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     contributing = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    tbounds = None
+    if boundaries is not None:
+        offsets, n_rows = boundaries
+        offsets = offsets.to(torch.int64)
+        tbounds = torch.zeros((n_rows, p), dtype=torch.float32, device=dev)
     for ci in range(int(n_chunks.max()) if n_tiles else 0):
         active = (ci < n_chunks) & (trans.amax(dim=1) > TRANS_EPS)
         ta = active.nonzero().squeeze(1)
         if ta.numel() == 0:
             break
+        if tbounds is not None:
+            tbounds[offsets[ta] + ci] = trans[ta]
         walked[ta] += 1
         blk = rows3d[kt[ta] + ci]                                    # [A, 16, 128]
         pos = (kt[ta] + ci)[:, None] * CHUNK + lane[None, :]
         live = (pos >= starts[ta, None]) & (pos < ends[ta, None])    # [A, 128]
-
-        dx = px[ta] - blk[:, None, 0, :]                             # [A, p, 128]
-        dy = py[ta] - blk[:, None, 1, :]
-        ca, cb, cc = blk[:, None, 2, :], blk[:, None, 3, :], blk[:, None, 4, :]
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.clamp_max(blk[:, None, 8, :] * torch.exp(power), ALPHA_MAX)
-        dead = ((power > 0.0) | (power < blk[:, None, 10, :])
-                | (alpha < ALPHA_MIN) | ~live[:, None, :])
-        alpha = torch.where(dead, torch.zeros_like(alpha), alpha)
+        _, _, _, alpha, dead = chunk_alpha(blk, px[ta], py[ta], live)
         contributing[ta] += (~dead).sum(dim=(1, 2))
 
         incl = torch.cumprod(1.0 - alpha, dim=2)
@@ -304,7 +340,7 @@ def raster_forward_tiles_plain(
     out[:, 0:3] = acc[:, 0:3] + (1.0 - alpha_img)[:, None, :] * bg_t[None, :, None]
     out[:, 3] = acc[:, 3]
     out[:, 4] = alpha_img
-    return out, PlainWalk(walked, contributing)
+    return out, PlainWalk(walked, contributing), tbounds
 
 
 def walk_stats(packed: PackedTiles, walk: PlainWalk, tile_size: int) -> dict:
@@ -312,7 +348,7 @@ def walk_stats(packed: PackedTiles, walk: PlainWalk, tile_size: int) -> dict:
     version's walk: tiles whose transmittance exit fired, live instances
     walked and instance-pixel pairs (walked, and contributing a nonzero
     alpha)."""
-    starts, ends, kt, n_chunks = _chunk_span(packed)
+    starts, ends, kt, n_chunks = chunk_span(packed)
     live_walked = torch.clamp(
         torch.minimum(ends, (kt + walk.walked) * CHUNK) - starts, min=0)
     return {
@@ -325,7 +361,7 @@ def walk_stats(packed: PackedTiles, walk: PlainWalk, tile_size: int) -> dict:
     }
 
 
-def _check(packed: PackedTiles, width: int, height: int, tile_size: int) -> None:
+def check_packed(packed: PackedTiles, width: int, height: int, tile_size: int) -> None:
     rows16, starts, counts = packed.rows16, packed.starts, packed.counts
     if tile_size not in (16, 32):
         raise ValueError(f"tile_size must be 16 or 32, got {tile_size}")
@@ -368,7 +404,7 @@ def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
     A CUDA ``packed`` launches K1 on the current stream (or raises); a CPU
     one runs the plain version. ``raster_forward_tiles.launches`` counts K1
     launches."""
-    _check(packed, width, height, tile_size)
+    check_packed(packed, width, height, tile_size)
     dev = packed.rows16.device
     if dev.type == "cpu":
         return raster_forward_tiles_plain(packed, width, height, tile_size, bg)[0]

@@ -26,6 +26,12 @@ def bmm33_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def bmv3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[N,3,3] @ [N,3] -> [N,3]."""
+    return torch.stack([m[:, i, 0] * v[:, 0] + m[:, i, 1] * v[:, 1]
+                        + m[:, i, 2] * v[:, 2] for i in range(3)], dim=-1)
+
+
 def affine4_shared(points: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Row-vector transform [N,3] -> [N,4]: [p, 1] @ M with one shared [4,4]."""
     cols = [points[:, 0] * m[0, j] + points[:, 1] * m[1, j]

@@ -2,12 +2,19 @@
 
 Pipeline per camera: residual simulator -> deformed vertices -> barycentric
 Gaussian means + face rotations -> SH colours -> EWA projection -> sort
-binning -> tile compositor (K1). This slice of the port serves frames only:
-the differentiable tiers come with the training kernels.
+binning -> tile compositor. Two backends:
+
+- ``"tiled_fwd"`` (serving, the JAX package's ``"pallas_fwd"``): K1, run
+  under ``torch.no_grad``;
+- ``"tiled_train"`` (training, the JAX package's ``"pallas"``): K2 with K3
+  as its backward; autograd flows through the whole front end (simulator,
+  barycentric positions, face rotations, SH, EWA) and to ``screen_offset``,
+  whose gradient is the density-control statistic.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -30,12 +37,14 @@ from cloth_splatting_tpu_torch.ops.projection import (
 )
 from cloth_splatting_tpu_torch.ops.quaternion import quat_normalize
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fwd
+from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import rasterize_tiled_train
 from cloth_splatting_tpu_torch.ops.sh import eval_sh
 
 SERVING_BACKEND = "tiled_fwd"
+TRAIN_BACKEND = "tiled_train"
 # backends of the JAX package that later slices of the port bring
-_LATER = {"pallas": "slice 2 (differentiable render)",
-          "tiled": "slice 2 (differentiable render)"}
+_LATER = {"tiled": "slice 3 (the full fit: the dense XLA tier that eval's "
+                   "k_cap doubling uses)"}
 
 
 class CameraArrays(NamedTuple):
@@ -71,7 +80,6 @@ def camera_arrays(cam, device: str | torch.device = "cuda") -> CameraArrays:
                         camera_center=t(cam.camera_center), time=t(cam.time))
 
 
-@torch.no_grad()
 def project_view(
     cam: CameraArrays,
     width: int,
@@ -126,7 +134,6 @@ def project_view(
     return proj, vertices, means3d, rotations
 
 
-@torch.no_grad()
 def render(
     cam: CameraArrays,
     width: int,
@@ -151,13 +158,14 @@ def render(
 ) -> RenderOutput:
     """Render one camera; ``sh_degree`` is the active SH degree.
 
-    ``override_vertices`` renders at explicitly given deformed vertices
+    ``backend`` is ``"tiled_fwd"`` (serving, no autograd) or
+    ``"tiled_train"`` (differentiable). ``override_vertices`` renders at explicitly given deformed vertices
     (bypassing the simulator). ``bg_color`` is a static RGB triple (it is
     part of the compositor's epilogue). ``screen_offset`` [C, 2] shifts the
     projected means by ``offset * (W/2, H/2)`` pixels. All tensors must lie
     on ``device``."""
     dev = resolve_device(device)
-    if backend != SERVING_BACKEND:
+    if backend not in (SERVING_BACKEND, TRAIN_BACKEND):
         if backend in _LATER:
             raise NotImplementedError(
                 f"backend {backend!r} is not ported yet: it comes with "
@@ -165,17 +173,25 @@ def render(
         raise ValueError(f"unknown backend {backend!r}")
     check_on(dev, face_bary=params.face_bary, alive=state.alive, mesh_pos=mesh.pos,
              world_view=cam.world_view)
+    bg = tuple(float(c) for c in bg_color)
+    serving = backend == SERVING_BACKEND
 
-    proj, vertices, means3d, rotations = project_view(
-        cam, width, height, tanfovx, tanfovy, params, state, mesh, simulator,
-        mesh_predictions, sh_degree, screen_offset=screen_offset,
-        render_static=render_static, scaling_modifier=scaling_modifier,
-        override_color=override_color, override_vertices=override_vertices)
-    rgb, depth, alpha, aux = rasterize_tiled_fwd(
-        proj, width, height, tuple(float(c) for c in bg_color),
-        pack_order=pack_order)
+    with torch.no_grad() if serving else contextlib.nullcontext():
+        proj, vertices, means3d, rotations = project_view(
+            cam, width, height, tanfovx, tanfovy, params, state, mesh, simulator,
+            mesh_predictions, sh_degree, screen_offset=screen_offset,
+            render_static=render_static, scaling_modifier=scaling_modifier,
+            override_color=override_color, override_vertices=override_vertices)
+        if serving:
+            rgb, depth, alpha, aux = rasterize_tiled_fwd(
+                proj, width, height, bg, pack_order=pack_order)
+            n_dropped = aux.n_dropped
+        else:
+            rgb, depth, alpha = rasterize_tiled_train(
+                proj, width, height, bg, pack_order=pack_order)
+            n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
     return RenderOutput(rgb=rgb, depth=depth, alpha=alpha, radii=proj.radius,
                         visibility=proj.radius > 0, means3d=means3d,
                         vertices=vertices, rotations=rotations,
-                        projections=proj.xy, n_dropped=aux.n_dropped)
+                        projections=proj.xy, n_dropped=n_dropped)

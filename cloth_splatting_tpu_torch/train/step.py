@@ -1,0 +1,336 @@
+"""The splat train step; counterpart of ``cloth_splatting_tpu/train/step.py``
+(``SplatTrainState``, ``StepMetrics``, ``Trainer.step`` and
+``compute_knn_state``).
+
+One step renders the camera batch (one camera after another, each through
+the differentiable backend ``tiled_train``: K2 forward, K3 backward), sums
+the photometric loss and the regularizers, takes one backward pass to the
+Gaussian parameters, the simulator's parameters and the screen-space
+offsets, and then applies two Adams with per-group learning rates: the
+Gaussians' (eps 1e-15; the position group follows the log-linear schedule)
+and the simulator's (eps 1e-8; frozen in the static stage). The offsets'
+gradient norms feed the density-control statistics.
+
+``Trainer.step`` is ``forward`` -> ``backward`` -> ``update``; the three
+are public so that a caller can time the stages. The step is functional:
+it returns a new state and leaves the old one as it was. Density control,
+the banked step and the loop come with slice 3.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from cloth_splatting_tpu_torch.models import gaussians as G
+from cloth_splatting_tpu_torch.models.deform import (
+    init_embedding_simulator,
+    init_residual_simulator,
+    simulate_any,
+    simulator_from_params,
+    simulator_params,
+    time_index,
+)
+from cloth_splatting_tpu_torch.ops.image import psnr
+from cloth_splatting_tpu_torch.ops.knn import knn
+from cloth_splatting_tpu_torch.render import TRAIN_BACKEND, CameraArrays, render
+from cloth_splatting_tpu_torch.train.config import Config
+from cloth_splatting_tpu_torch.train.losses import (
+    KnnState,
+    image_losses,
+    knn_regularization,
+    regularization,
+)
+from cloth_splatting_tpu_torch.train.schedules import expon_lr
+
+
+class AdamState(NamedTuple):
+    """optax ``ScaleByAdamState``: the step count and the two moments, each
+    shaped like the parameters (``GaussianParams`` or a dict)."""
+
+    count: torch.Tensor   # int32 scalar
+    mu: Any
+    nu: Any
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    return list(tree.values()) if isinstance(tree, dict) else list(tree)
+
+
+def _like(tree, leaves):
+    return dict(zip(tree, leaves)) if isinstance(tree, dict) else type(tree)(*leaves)
+
+
+def adam_init(params) -> AdamState:
+    leaves = _leaves(params)
+    return AdamState(
+        count=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+        mu=_like(params, [torch.zeros_like(p) for p in leaves]),
+        nu=_like(params, [torch.zeros_like(p) for p in leaves]))
+
+
+@torch.no_grad()
+def adam_update(grads, state: AdamState, b1: float, b2: float, eps: float):
+    """(updates, new state) of ``optax.scale_by_adam``: mu = (1-b1) g + b1 mu,
+    nu = (1-b2) g^2 + b2 nu, updates = mu_hat / (sqrt(nu_hat) + eps) with
+    the bias corrections of the incremented count; ``grads`` is shaped like
+    the moments."""
+    count = state.count + 1
+    c = count.to(torch.float32)
+    bc1 = 1.0 - torch.full_like(c, b1) ** c
+    bc2 = 1.0 - torch.full_like(c, b2) ** c
+    mu = [(1 - b1) * g + b1 * m for g, m in zip(_leaves(grads), _leaves(state.mu))]
+    nu = [(1 - b2) * (g * g) + b2 * v
+          for g, v in zip(_leaves(grads), _leaves(state.nu))]
+    updates = [(m / bc1) / (torch.sqrt(v / bc2) + eps) for m, v in zip(mu, nu)]
+    return (_like(state.mu, updates),
+            AdamState(count, _like(state.mu, mu), _like(state.nu, nu)))
+
+
+class SplatTrainState(NamedTuple):
+    params: G.GaussianParams
+    gstate: G.GaussianState
+    g_opt: AdamState                    # moments shaped like GaussianParams
+    sim_params: dict[str, torch.Tensor]  # JAX field names (w_in, ... / embedding)
+    sim_opt: AdamState                  # moments shaped like sim_params
+    step: torch.Tensor                  # int32 scalar
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    psnr: torch.Tensor
+    l1: torch.Tensor
+    n_alive: torch.Tensor
+    n_dropped: torch.Tensor
+
+
+class Forward(NamedTuple):
+    """What ``Trainer.forward`` hands to ``backward`` and ``update``: the
+    loss with its graph, the leaves it was taken at, and the statistics."""
+
+    loss: torch.Tensor
+    params: G.GaussianParams                    # leaves
+    sim: dict[str, torch.Tensor] | None         # leaves; None when static
+    screen_offset: torch.Tensor                 # leaf [C, 2]
+    psnr: torch.Tensor
+    l1: torch.Tensor
+    radii: torch.Tensor                         # [C] max over cameras
+    visibility: torch.Tensor                    # [C] any over cameras
+    n_dropped: torch.Tensor
+
+
+class Trainer:
+    """The train step of one scene. Tensors live on the mesh's device."""
+
+    def __init__(self, cfg: Config, mesh: G.Mesh, mesh_predictions: torch.Tensor,
+                 width: int, height: int, tanfovx: float, tanfovy: float,
+                 spatial_lr_scale: float):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.mesh_predictions = mesh_predictions
+        self.width, self.height = width, height
+        self.tanfovx, self.tanfovy = tanfovx, tanfovy
+        self.spatial_lr_scale = float(spatial_lr_scale)
+        self.device = mesh.pos.device
+        self.bg = (1.0, 1.0, 1.0) if cfg.model.white_background else (0.0, 0.0, 0.0)
+        # the JAX package's "auto" picks its Pallas tier off the CPU, whose
+        # counterpart here is "tiled_train" on every device
+        backend = cfg.opt.raster_backend
+        if backend == "tiled":
+            raise NotImplementedError(
+                "raster_backend 'tiled' comes with slice 3 of the port")
+        if backend not in ("auto", "pallas"):
+            raise ValueError(f"unknown raster_backend {backend!r}")
+        self.backend = TRAIN_BACKEND
+
+    # ------------------------------------------------------------------ init
+
+    def init_state(self, rng: np.random.Generator,
+                   params: G.GaussianParams | None = None,
+                   gstate: G.GaussianState | None = None,
+                   sim_params: dict[str, torch.Tensor] | None = None
+                   ) -> SplatTrainState:
+        """Draws what is not given in the JAX package's order: Gaussians
+        from the mesh, then the simulator."""
+        if params is None or gstate is None:
+            params, gstate = G.init_from_mesh(
+                rng, self.mesh, self.cfg.model.sh_degree,
+                self.cfg.opt.gaussian_init_factor, device=self.device)
+        if sim_params is None:
+            n_nodes = int(self.mesh.pos.shape[0])
+            if self.cfg.model.simulator == "embedding":
+                module = init_embedding_simulator(
+                    rng, int(self.mesh_predictions.shape[0]), n_nodes,
+                    device=self.device)
+            else:
+                module = init_residual_simulator(rng, n_nodes, device=self.device)
+            sim_params = simulator_params(module)
+        return SplatTrainState(
+            params=params, gstate=gstate, g_opt=adam_init(params),
+            sim_params=sim_params, sim_opt=adam_init(sim_params),
+            step=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    # -------------------------------------------------------------------- lr
+
+    def _tail_mult(self, step: torch.Tensor):
+        """Cosine tail-decay multiplier over all parameter groups (1.0 = off)."""
+        o = self.cfg.opt
+        if o.lr_tail_start >= 1.0:
+            return 1.0
+        total = float(max(o.iterations, 1))
+        t0 = o.lr_tail_start * total
+        frac = torch.clamp((step.to(torch.float32) - t0) / max(total - t0, 1.0),
+                           0.0, 1.0)
+        return (o.lr_tail_floor + (1.0 - o.lr_tail_floor)
+                * 0.5 * (1.0 + torch.cos(math.pi * frac)))
+
+    def _lr_tree(self, step: torch.Tensor) -> G.GaussianParams:
+        o = self.cfg.opt
+        pos_lr = expon_lr(step, o.position_lr_init * self.spatial_lr_scale,
+                          o.position_lr_final * self.spatial_lr_scale,
+                          lr_delay_mult=o.position_lr_delay_mult,
+                          max_steps=o.position_lr_max_steps)
+        mult = self._tail_mult(step)
+        return G.GaussianParams(
+            face_bary=pos_lr * mult, face_offset=pos_lr * mult,
+            features_dc=o.feature_lr * mult,
+            features_rest=o.feature_lr / 20.0 * mult,
+            opacity=o.opacity_lr * mult, scaling=o.scaling_lr * mult,
+            rotation=o.rotation_lr * mult)
+
+    # ------------------------------------------------------------------ step
+
+    def forward(self, state: SplatTrainState, cams: CameraArrays,
+                gt_images: torch.Tensor, masks: torch.Tensor | None,
+                sh_degree: int, static: bool,
+                knn_state: KnnState | None = None) -> Forward:
+        """Render the camera batch (``cams`` fields stacked [B, ...]) and
+        form the loss, with autograd recording."""
+        o = self.cfg.opt
+        cap = state.params.face_bary.shape[0]
+        params = G.GaussianParams(*(p.detach().requires_grad_() for p in state.params))
+        simulator, sim = None, None
+        if not static:
+            simulator = simulator_from_params(state.sim_params)
+            sim = dict(simulator.named_parameters())
+        screen_offset = torch.zeros((cap, 2), dtype=torch.float32,
+                                    device=self.device, requires_grad=True)
+
+        outs = []
+        for b in range(cams.time.shape[0]):
+            cam = CameraArrays(*(f[b] for f in cams))
+            outs.append(render(
+                cam, self.width, self.height, self.tanfovx, self.tanfovy,
+                params, state.gstate, self.mesh, simulator,
+                self.mesh_predictions, self.bg, sh_degree,
+                screen_offset=screen_offset, render_static=static,
+                backend=self.backend, pack_order=o.raster_pack_order,
+                device=self.device))
+        images = torch.stack([out.rgb for out in outs])              # [B, 3, H, W]
+        loss, ldict = image_losses(images, gt_images, o.lambda_dssim, masks)
+        vertices = torch.stack([out.vertices for out in outs])       # [B, V, 3]
+        anchor_base = None
+        if o.lambda_anchor > 0.0 and not static:
+            n_times = self.mesh_predictions.shape[0]
+            anchor_base = torch.stack([
+                self.mesh_predictions.index_select(0, time_index(t, n_times))[0]
+                for t in cams.time])
+        loss = loss + regularization(
+            vertices, self.mesh, o.lambda_deform_mag, o.lambda_rigid,
+            o.lambda_momentum, static, lambda_anchor=o.lambda_anchor,
+            anchor_base=anchor_base)
+        if knn_state is not None and not static:
+            loss = loss + knn_regularization(
+                torch.stack([out.means3d for out in outs]),
+                torch.stack([out.rotations for out in outs]), knn_state,
+                o.lambda_isometric, o.lambda_spring, o.lambda_rigidity)
+        with torch.no_grad():
+            return Forward(
+                loss=loss, params=params, sim=sim, screen_offset=screen_offset,
+                psnr=psnr(images, gt_images).mean(), l1=ldict["l1"].detach(),
+                radii=torch.stack([out.radii for out in outs]).amax(dim=0),
+                visibility=torch.stack([out.visibility for out in outs]).any(dim=0),
+                n_dropped=torch.stack([out.n_dropped for out in outs]).sum())
+
+    @staticmethod
+    def backward(fwd: Forward):
+        """(Gaussian grads, simulator grads or None, screen-offset grad);
+        leaves the loss does not reach get zeros."""
+        leaves = list(fwd.params) + ([] if fwd.sim is None else list(fwd.sim.values()))
+        leaves.append(fwd.screen_offset)
+        grads = torch.autograd.grad(fwd.loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        n = len(fwd.params)
+        g_grads = G.GaussianParams(*grads[:n])
+        sim_grads = None if fwd.sim is None else dict(zip(fwd.sim, grads[n:-1]))
+        return g_grads, sim_grads, grads[-1]
+
+    @torch.no_grad()
+    def update(self, state: SplatTrainState, fwd: Forward, grads
+               ) -> tuple[SplatTrainState, StepMetrics]:
+        """Density statistics, the Gaussian Adam and (unless static) the
+        simulator Adam; returns the new state and the step's metrics."""
+        g_grads, sim_grads, screen_grad = grads
+        gstate = G.add_densification_stats(
+            state.gstate, torch.linalg.norm(screen_grad, dim=-1), fwd.radii,
+            fwd.visibility)
+
+        g_updates, g_opt = adam_update(g_grads, state.g_opt, 0.9, 0.999, 1e-15)
+        new_params = G.GaussianParams(*(
+            p - lr * u for p, u, lr in zip(state.params, g_updates,
+                                           self._lr_tree(state.step))))
+
+        if sim_grads is None:
+            new_sim, sim_opt = state.sim_params, state.sim_opt
+        else:
+            sim_updates, sim_opt = adam_update(
+                {k: sim_grads[k] for k in state.sim_params}, state.sim_opt,
+                0.9, 0.999, 1e-8)
+            sim_lr = self.cfg.meshnet.lr_init * self._tail_mult(state.step)
+            new_sim = {k: p - sim_lr * sim_updates[k]
+                       for k, p in state.sim_params.items()}
+
+        new_state = SplatTrainState(new_params, gstate, g_opt, new_sim, sim_opt,
+                                    state.step + 1)
+        metrics = StepMetrics(loss=fwd.loss.detach(), psnr=fwd.psnr, l1=fwd.l1,
+                              n_alive=G.num_alive(gstate), n_dropped=fwd.n_dropped)
+        return new_state, metrics
+
+    def step(self, state: SplatTrainState, cams: CameraArrays,
+             gt_images: torch.Tensor, masks: torch.Tensor | None,
+             sh_degree: int, static: bool, knn_state: KnnState | None = None
+             ) -> tuple[SplatTrainState, StepMetrics]:
+        """One train step: ``forward`` -> ``backward`` -> ``update``."""
+        fwd = self.forward(state, cams, gt_images, masks, sh_degree, static,
+                           knn_state)
+        return self.update(state, fwd, self.backward(fwd))
+
+    # ------------------------------------------------------------------- knn
+
+    @torch.no_grad()
+    def compute_knn_state(self, state: SplatTrainState) -> KnnState:
+        """kNN neighbourhoods at the t=0 deformed state: distances d0 and
+        weights exp(-lambda_w d0^2), valid between alive Gaussians."""
+        o = self.cfg.opt
+        verts0 = simulate_any(simulator_from_params(state.sim_params),
+                              self.mesh_predictions,
+                              torch.zeros((), device=self.device))
+        means = G.gaussian_positions(state.params, state.gstate, self.mesh, verts0)
+        alive = state.gstate.alive
+        cap = means.shape[0]
+        # park dead slots far away, each at its own spot, so they are never
+        # neighbours of live Gaussians (nor of each other's queries)
+        park = (~alive).to(torch.float32) * (
+            1e6 + torch.arange(cap, dtype=torch.float32, device=self.device) * 1e3)
+        pts = means.clone()
+        pts[:, 0] += park
+        d2, idx = knn(pts, k=o.k_nearest)
+        finite = torch.isfinite(d2)
+        d2 = torch.where(finite, d2, torch.zeros_like(d2))
+        valid = alive[:, None] & alive[idx] & finite
+        w = torch.where(valid, torch.exp(-o.lambda_w * d2), torch.zeros_like(d2))
+        return KnnState(idx=idx, d0=torch.sqrt(d2), w=w, valid=valid)
