@@ -65,9 +65,9 @@ CHANNELS = ("r", "g", "b", "depth", "alpha")
 # the plain version; per-thread, warp-shuffle and cross-warp sums against
 # torch's sums over pixels), and the occlusion term (K - S_i) / (1 - alpha)
 # divides a difference of sums by 1 - alpha >= 0.01. Sound runs read at
-# most 6.8e-7 (colour, deep 256 px pack); the limit is about 4x that. A pair
-# classified differently, or a clamp gate missed, moves a field by 1e-4 of
-# its largest magnitude or more.
+# most 1.0e-6 (colour, deep 256 px pack of 32 px tiles); the limit is 3x
+# that. A pair classified differently, or a clamp gate missed, moves a field
+# by 1e-4 of its largest magnitude or more.
 TOL_K3 = 3e-6
 GRAD_FIELDS = {"xy": slice(0, 2), "conic": slice(2, 5), "color": slice(5, 8),
                "opacity": slice(8, 9), "depth": slice(9, 10)}
@@ -556,7 +556,7 @@ def main() -> int:
     train_pack = sorted_pack(t_proj, tw, th, tile, win, order="fused")
 
     # 2. kernels against their plain versions ----------------------------------
-    k1_err = k2_err = k3_err = 0.0
+    k1_err = k2_err = k3_err = k3_rel = 0.0
     packs = []
     for v in (0, 3):
         packed = sorted_pack(project(cams[v]), tw, th, tile, win, order="fused")
@@ -569,9 +569,9 @@ def main() -> int:
         train_pack, WIDTH, HEIGHT, tile, "65k train cam 0")
     k2_err = max(k2_err, err)
     train_gimg = cotangent_tiles(train_out, WIDTH, HEIGHT, tile, gen)
-    err, _ = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
-                        "65k train cam 0")
-    k3_err = max(k3_err, err)
+    err, rel = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
+                          "65k train cam 0")
+    k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
         packed = sorted_pack(proj, size // ts, size // ts, ts,
@@ -585,9 +585,9 @@ def main() -> int:
         if stats["chunks_started"] == stats["chunks_laid"]:
             raise RuntimeError("deep pack: K2 started every chunk")
         k2_err = max(k2_err, err)
-        err, _ = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
-                            tb_k, size, size, ts, label)
-        k3_err = max(k3_err, err)
+        err, rel = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
+                              tb_k, size, size, ts, label)
+        k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
 
     # 3. times at the main paths' shapes ---------------------------------------
     packed, stats = packs[0]
@@ -712,6 +712,14 @@ def main() -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": None}
 
+    # K3's cotangent is scaled by 1 / numel, so its absolute error is small
+    # whatever the agreement; its entry also carries the relative reading
+    # that TOL_K3 holds
+    k3_entry = entry("K3 tiled_bwd forward-order gradient sweep",
+                     "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+                     "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
+                     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound)
+    k3_entry["max_rel_err"] = k3_rel
     print(json.dumps({"kernels": [
         entry("K1 tiled_fwd compositor",
               "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
@@ -721,10 +729,7 @@ def main() -> int:
               "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
               k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
-        entry("K3 tiled_bwd forward-order gradient sweep",
-              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
-              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
-              k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
+        k3_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

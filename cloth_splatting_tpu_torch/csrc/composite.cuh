@@ -65,6 +65,20 @@ __device__ __forceinline__ bool splat_alpha(float dx, float dy, float ca,
   return true;
 }
 
+// The first of the tile's lanes in its chunk kt + ci: start's lane in the
+// first chunk, 0 in every later one (start < (kt + 1) * kChunk).
+//
+// Do not write it as max(start - base, 0) with base = (kt + ci) * kChunk in
+// int64. ptxas of CUDA 12.9 for sm_90a folds that max into one VIADDMNMX and
+// can drop the negation of base, so lo becomes start + base and every tile
+// whose lanes start past the first chunk composites nothing: at -O1 in K1
+// and K2 for 16 px tiles, and at -O3 in K2 once the walk's exit index was
+// carried in the loop variable. scripts/ptxas_check.py builds the kernels at
+// -O0, -O1 and -O3 and holds each build to the plain versions.
+__device__ __forceinline__ int chunk_lo(int start, int kt, int ci) {
+  return ci == 0 ? start - kt * kChunk : 0;
+}
+
 // Stages chunk (kt + ci)'s 11 used rows in shared memory; the caller
 // synchronises before reading them.
 __device__ __forceinline__ void load_chunk(float (*sh)[kChunk],
@@ -118,11 +132,7 @@ __device__ __forceinline__ void composite_tile(
     acc_r[i] = acc_g[i] = acc_b[i] = acc_d[i] = acc_w[i] = 0.0f;
   }
 
-  // Chunks walked, fewer when the exit fires. Keep this counter: with the
-  // loop's own index carried past the loop instead (`++ci; break;`, then
-  // zeros from ci on) and splat_alpha as above, nvcc 12.8 built a K2 for
-  // 16 px tiles that never composited, while K1 from the same source was
-  // right (chip_smoke's K2-vs-plain check caught it).
+  // chunks walked, fewer when the exit fires
   int walked = n_chunks;
   for (int ci = 0; ci < n_chunks; ++ci) {
     if (kRecord) {
@@ -134,7 +144,7 @@ __device__ __forceinline__ void composite_tile(
     load_chunk(sh, rows16, b_pad, base);
     __syncthreads();
 
-    const int lo = max(static_cast<int>(start - base), 0);
+    const int lo = chunk_lo(start, kt, ci);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
     for (int j = lo; j < hi; ++j) {
       const float gx = sh[kX][j], gy = sh[kY][j];

@@ -134,7 +134,7 @@ tiled_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
       rem[i] = u_tot[i] - carry[i];
       cum[i] = 0.0f;
     }
-    const int lo = max(static_cast<int>(start - base), 0);
+    const int lo = chunk_lo(start, kt, ci);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
     for (int j = lo; j < hi; ++j) {
       const float gx = sh[kX][j], gy = sh[kY][j];

@@ -1,10 +1,10 @@
-"""Configuration dataclasses; the port's own copy of
-``cloth_splatting_tpu/train/config.py`` (same group and field names, same
-defaults, same override semantics), so that a run configured for one
-package configures the other.
+"""Configuration dataclasses: the fields of
+``cloth_splatting_tpu/train/config.py`` that the port reads, under the same
+group and field names, with the same defaults.
 
-Fields the port's step does not read yet are kept for that reason: density
-control, the kNN regularizer's schedule and the loop come with slice 3.
+The port has only the fields its code reads; density control, the loop,
+data loading and the dense tier bring theirs with slice 3. So an override
+of a field the port does not have raises instead of doing nothing.
 """
 
 from __future__ import annotations
@@ -19,42 +19,18 @@ class ModelConfig:
 
     sh_degree: int = 3
     simulator: str = "mlp"          # 'mlp' residual MLP | 'embedding' table
-    source_path: str = ""
-    model_path: str = ""
-    images: str = "images"
-    resolution: int = -1
     white_background: bool = True
-    data_device: str = "tpu"
-    eval: bool = True
-    render_process: bool = False
-
-
-@dataclasses.dataclass
-class PipelineConfig:
-    """Reference PipelineParams."""
-
-    convert_SHs_python: bool = False
-    compute_cov3D_python: bool = False
-    debug: bool = False
 
 
 @dataclasses.dataclass
 class OptimizationConfig:
     """Reference OptimizationParams plus the JAX package's additions."""
 
-    dataloader: bool = False
     iterations: int = 8_000
-    coarse_iterations: int = 3000
     position_lr_init: float = 0.00016
     position_lr_final: float = 0.0000016
     position_lr_delay_mult: float = 0.01
     position_lr_max_steps: int = 20_000
-    position_lr_static: float = 0.0016
-    deformation_lr_init: float = 0.00016
-    deformation_lr_final: float = 0.000016
-    deformation_lr_delay_mult: float = 0.01
-    grid_lr_init: float = 0.0016
-    grid_lr_final: float = 0.00016
     feature_lr: float = 0.0025
     opacity_lr: float = 0.05
     scaling_lr: float = 0.005
@@ -63,10 +39,7 @@ class OptimizationConfig:
     # iterations down to lr_tail_floor * lr; 1.0 = off
     lr_tail_start: float = 1.0
     lr_tail_floor: float = 0.01
-    time_sample: str = "interior"
-    percent_dense: float = 0.01
     lambda_dssim: float = 0.1
-    lambda_lpips: float = 0.0
     lambda_rigid: float = 0.3
     lambda_deform_mag: float = 0.01
     lambda_momentum: float = 0.1
@@ -77,81 +50,43 @@ class OptimizationConfig:
     lambda_rigidity: float = 0.0
     lambda_w: float = 2000.0
     k_nearest: int = 20
-    reg_iter: int = 5000
-    knn_update_iter: int = 1000
-    weight_constraint_init: float = 1.0
-    weight_constraint_after: float = 0.2
-    weight_decay_iteration: int = 5000
-    opacity_reset_interval: int = 3000
-    densification_interval: int = 100
-    densify_from_iter: int = 500
-    densify_until_iter: int = 15_000
-    densify_grad_threshold_coarse: float = 0.0002
-    densify_grad_threshold_fine_init: float = 0.0002
-    densify_grad_threshold_after: float = 0.0002
-    pruning_from_iter: int = 500
-    pruning_interval: int = 100
-    pruningy_until_iter: int = 4500  # [sic] name kept for config-file compat
-    opacity_threshold_coarse: float = 0.005
-    opacity_threshold_fine_init: float = 0.005
-    opacity_threshold_fine_after: float = 0.005
-    static_reconst: bool = False
-    static_reconst_iteration: int = 2000
-    bary_cleanup: int = 200
-    initial_gaussians: int = 2000
     gaussian_init_factor: int = 2
-    no_coarse: bool = False
-    mesh_type: str = "multi"
-    white_background: bool = True
-    # the dense tier's per-tile cap (slice 3)
-    raster_k_cap: int = 512
-    raster_k_chunk: int = 32
     # "auto" and "pallas" both render through K2/K3 in the port; the dense
     # tier "tiled" comes with slice 3
     raster_backend: str = "auto"
     raster_pack_order: str = "fused"
-    param_ema: float = 0.0
 
 
 @dataclasses.dataclass
 class MeshnetConfig:
     """Reference MeshnetParams."""
 
-    meshnet_path: str = ""
-    meshnet_file: str = "latest"
     lr_init: float = 3e-4
-    lr_decay_rate: float = 0.1
-    lr_decay_steps: float = 5e6
 
 
 @dataclasses.dataclass
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
-    pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
     opt: OptimizationConfig = dataclasses.field(default_factory=OptimizationConfig)
     meshnet: MeshnetConfig = dataclasses.field(default_factory=MeshnetConfig)
 
 
 _GROUP_MAP = {
     "ModelParams": "model",
-    "PipelineParams": "pipeline",
     "OptimizationParams": "opt",
     "MeshnetParams": "meshnet",
-    "ModelHiddenParams": None,  # k-planes config: vestigial in the reference
 }
 
 
 def apply_overrides(cfg: Config, group_dicts: dict[str, dict[str, Any]]) -> Config:
     """Merge ``{'OptimizationParams': {...}, ...}`` dicts over ``cfg``;
-    unknown keys are ignored, unknown groups raise."""
+    unknown groups and fields raise."""
     for group_name, values in group_dicts.items():
-        attr = _GROUP_MAP.get(group_name, group_name)
-        if attr is None:
-            continue
-        if not hasattr(cfg, attr):
+        if group_name not in _GROUP_MAP:
             raise KeyError(f"Unknown config group: {group_name}")
-        group = getattr(cfg, attr)
+        group = getattr(cfg, _GROUP_MAP[group_name])
         for key, value in values.items():
-            if hasattr(group, key):
-                setattr(group, key, value)
+            if not hasattr(group, key):
+                raise KeyError(f"{group_name} has no field {key!r} in the port")
+            setattr(group, key, value)
     return cfg

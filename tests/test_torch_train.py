@@ -317,3 +317,20 @@ def test_trainer_backend_choice():
         trainers({"OptimizationParams": {"raster_backend": "tiled"}})
     with pytest.raises(ValueError, match="unknown raster_backend"):
         trainers({"OptimizationParams": {"raster_backend": "nope"}})
+
+
+def test_config_defaults_match_jax():
+    """Every field of the port's Config has the JAX package's default."""
+    jcfg, tcfg = JConfig(), TConfig()
+    for group in ("model", "opt", "meshnet"):
+        for key, value in dataclasses.asdict(getattr(tcfg, group)).items():
+            assert getattr(getattr(jcfg, group), key) == value, f"{group}.{key}"
+
+
+def test_apply_overrides_rejects_fields_the_port_lacks():
+    tcfg = apply_overrides(TConfig(), {"MeshnetParams": {"lr_init": 1e-3}})
+    assert tcfg.meshnet.lr_init == 1e-3
+    with pytest.raises(KeyError, match="densify_from_iter"):
+        apply_overrides(TConfig(), {"OptimizationParams": {"densify_from_iter": 1}})
+    with pytest.raises(KeyError, match="PipelineParams"):
+        apply_overrides(TConfig(), {"PipelineParams": {"debug": True}})
