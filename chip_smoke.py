@@ -11,23 +11,36 @@ Phases, each of which raises on failure:
      the packs of the 65k-Gaussian 800x800 serving scene for two orbit
      views, and K2 and K3 on the pack of the 65k training scene; all three
      also on deep synthetic packs (thousands of instances per tile, so the
-     transmittance exit fires) at both tile sizes;
-  3. time K1, K2, K3, their plain versions and the stages of one frame;
+     transmittance exit fires) at both tile sizes; then the span forms
+     K1-span, K2-span and K4 (the rasterizer's ``tiles_per_program`` and
+     ``span_cap`` options) on the same packs at 32 px and 16 px tiles, with
+     a window most programs fit and with a window of one chunk, K4 also
+     against K3;
+  3. time the six kernels, their plain versions and the stages of one frame;
   4. serve frames of the scene at different views and times through the
      port's ``render`` with the launch counters set to 0 just before, and
      check that K1 was launched once per frame and that the frames are
-     finite with nonzero coverage;
+     finite with nonzero coverage; then the same frames with the span
+     options on (K1-span), beside the default's time;
   5. check a small render, and the gradients of the differentiable
-     rasterizer (K2 forward, K3 backward, under autograd), against the
-     O(N*P) oracle;
+     rasterizer (K2 forward, K3 backward, under autograd; once more with
+     the span options: K2-span, K4), against the O(N*P) oracle;
   6. train: a warm-up step and 5 timed steps of the port's ``Trainer`` on
      bench.py's 65k training configuration (3 cameras, 800x800) with the
      launch counters set to 0 just before, checking that K2 and K3 ran 3
      times per step, that the loss is finite and that the Gaussians and the
-     simulator moved.
+     simulator moved; then 5 steps with the span options on (K2-span, K4),
+     beside the default's time;
+  7. fit: a scene built in memory (the 65k mesh on an inextensible wave over
+     5 times, 4 orbit views rendered at 800x800 by the port's serving path
+     into uint8 banks) fitted for 300 iterations of ``fit_banks`` with
+     density control, barycentric cleanup, one held-out evaluation and one
+     checkpoint, checking the launch counts, that every event ran, finite
+     values, a rising PSNR and that the checkpoint reloads equal.
 
-Prints a {"serving": ...} line, a {"train": ...} line, a {"kernels": [...]}
-line and, last, {"ok": true, "device": ...}. Exits non-zero and prints no
+Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
+line, a {"fit": ...} line, a {"kernels": [...]} line and, last,
+{"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
 """
@@ -49,6 +62,20 @@ TRAIN_CAPACITY = 65536
 N_FRAMES = 8
 TRAIN_STEPS = 5
 TRAIN_TIMES = (0.0, 0.5, 1.0)
+# the span options: 625 tiles of 32 px are 5^4, so tiles_per_program must be
+# 5 there (4 or 8 would silently turn the span off); 2,500 tiles of 16 px
+# take 4. span_cap 41 is all a block's shared memory holds (34 for K4).
+SPAN_32 = (5, 41)
+SPAN_16 = (4, 41)
+SPAN_DEEP = (2, 41)
+FIT_ITERATIONS = 300
+FIT_TIMES = 5
+FIT_PROGRESS_EVERY = 50
+FIT_VIEWS = 4
+FIT_SCHEDULE = dict(iterations=FIT_ITERATIONS, densify_from_iter=100,
+                    densification_interval=50, pruning_from_iter=100,
+                    pruning_interval=50, opacity_reset_interval=150,
+                    bary_cleanup=100)
 FOV = 2.0 * math.atan(0.4)
 BG = (1.0, 1.0, 1.0)
 # K1 and K2 against their plain versions: both walk the same chunks in the
@@ -69,6 +96,13 @@ CHANNELS = ("r", "g", "b", "depth", "alpha")
 # that. A pair classified differently, or a clamp gate missed, moves a field
 # by 1e-4 of its largest magnitude or more.
 TOL_K3 = 3e-6
+# K4 against K3 on the same inputs. They differ in where the occlusion
+# suffix S_i comes from: K3 subtracts a running prefix from the closed-form
+# U_tot, K4 adds the chunk's remainder to a carry of the later chunks, each a
+# float32 sum of up to thousands of terms taken in another order, and the
+# difference is divided by 1 - alpha >= 0.01. The JAX package's own tests hold
+# its two sweeps to each other at this limit.
+TOL_K4_K3 = 1e-4
 GRAD_FIELDS = {"xy": slice(0, 2), "conic": slice(2, 5), "color": slice(5, 8),
                "opacity": slice(8, 9), "depth": slice(9, 10)}
 # A render, and its gradients, against the O(N*P) oracle, which composites
@@ -88,7 +122,11 @@ PEAK_HBM_BYTES = 3.35e12
 # and depth sums (8), dL/dalpha (7), dpow (1), six moment sums (14) and the
 # T update (2): 42.
 OPS_PER_WALKED_PAIR = 14
-OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42}
+# K4 walks every started pair twice: the first pass repeats the 14 and, for
+# a contributing pair, w, u, the running total and the T update (12); the
+# second pass does K3's work on the chunk's total and a carry.
+OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42, "K4": 42 + 12}
+WALKS_PER_PAIR = {"K1": 1, "K2": 1, "K3": 1, "K4": 2}
 
 
 def log(msg: str) -> None:
@@ -123,7 +161,7 @@ def bound(stats: dict, kernel: str, n_bytes: int) -> dict:
     """The least time the card could take for ``kernel``'s work on a pack:
     the larger of its fp32 operations at the fp32 peak and its bytes at the
     memory rate."""
-    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR
+    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR * WALKS_PER_PAIR[kernel]
            + stats["pairs_contributing"] * OPS_PER_CONTRIBUTING_PAIR[kernel])
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
     return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -131,10 +169,34 @@ def bound(stats: dict, kernel: str, n_bytes: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def compare_k1(packed, width, height, tile_size, label: str):
+def span_label(span) -> str:
+    return "" if span is None else f" tpp={span[0]} span_cap={span[1]}"
+
+
+def span_counts(packed, n_tiles: int, span, kernel: str) -> dict:
+    """How many programs of a span kernel take the span branch and how many
+    the overflow walk, with the options as ``resolve_span`` resolves them."""
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        resolve_span,
+        span_programs,
+    )
+
+    tpp, cap = resolve_span(n_tiles, packed.rows16.shape[1], span[0], span[1],
+                            kernel)
+    if not cap:
+        raise RuntimeError(f"span options {span} resolve to no span "
+                           f"({n_tiles} tiles)")
+    fits = span_programs(packed, tpp, cap)[1]
+    return {"tpp": tpp, "span_cap": cap, "span": int(fits.sum()),
+            "overflow": int((~fits).sum())}
+
+
+def compare_k1(packed, width, height, tile_size, label: str, span=None):
     """(max abs difference of K1 and its plain version, walk statistics) on
     one pack; raises above TOL_PLAIN, on non-finite output, or on nonzero
-    padding rows."""
+    padding rows. With ``span`` = (tiles_per_program, span_cap) it is
+    K1-span against its plain version, the statistics carry the programs'
+    branch counts and whether the output is bit-identical to K1's."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
@@ -143,28 +205,41 @@ def compare_k1(packed, width, height, tile_size, label: str):
         walk_stats,
     )
 
-    out_k = raster_forward_tiles(packed, width, height, tile_size, BG)
+    name = "K1" if span is None else "K1-span"
+    label += span_label(span)
+    opts = () if span is None else tuple(span)
+    n_before = raster_forward_tiles.span_launches
+    out_k = raster_forward_tiles(packed, width, height, tile_size, BG, *opts)
     torch.cuda.synchronize()
-    out_p, walk = raster_forward_tiles_plain(packed, width, height, tile_size, BG)
+    out_p, walk = raster_forward_tiles_plain(packed, width, height, tile_size,
+                                             BG, *opts)
     if not bool(torch.isfinite(out_k).all()):
-        raise RuntimeError(f"K1 {label}: non-finite output")
+        raise RuntimeError(f"{name} {label}: non-finite output")
     if float(out_k[:, 5:8].abs().max()) != 0.0:
-        raise RuntimeError(f"K1 {label}: padding rows 5..7 not zero")
+        raise RuntimeError(f"{name} {label}: padding rows 5..7 not zero")
     errs = {ch: float((out_k[:, i] - out_p[:, i]).abs().max())
             for i, ch in enumerate(CHANNELS)}
     stats = walk_stats(packed, walk, tile_size)
-    log(f"K1 vs plain [{label}] max|diff| {json.dumps(errs)} walk {json.dumps(stats)}")
+    if span is not None:
+        if raster_forward_tiles.span_launches != n_before + 1:
+            raise RuntimeError(f"{name} {label}: the span kernel was not launched")
+        stats["programs"] = span_counts(packed, out_k.shape[0], span, "fwd")
+        stats["bit_identical_to_k1"] = bool(torch.equal(
+            out_k, raster_forward_tiles(packed, width, height, tile_size, BG)))
+    log(f"{name} vs plain [{label}] max|diff| {json.dumps(errs)} walk "
+        f"{json.dumps(stats)}")
     bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN}
     if bad:
-        raise RuntimeError(f"K1 {label}: disagrees with its plain version {bad}")
+        raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     return max(errs.values()), stats
 
 
-def compare_k2(packed, width, height, tile_size, label: str):
+def compare_k2(packed, width, height, tile_size, label: str, span=None):
     """(max abs difference of K2 and its plain version over the output and
     the saved boundaries, walk statistics, K2's out and tbounds); raises
     above TOL_PLAIN, on non-finite output, or when the two started
-    different chunks."""
+    different chunks. With ``span`` it is K2-span, and its boundaries must
+    also equal K2's bit for bit."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
@@ -176,21 +251,25 @@ def compare_k2(packed, width, height, tile_size, label: str):
         raster_forward_train_plain,
     )
 
-    out_k, tb_k = raster_forward_train(packed, width, height, tile_size, BG)
+    name = "K2" if span is None else "K2-span"
+    label += span_label(span)
+    opts = () if span is None else tuple(span)
+    n_before = raster_forward_train.span_launches
+    out_k, tb_k = raster_forward_train(packed, width, height, tile_size, BG, *opts)
     torch.cuda.synchronize()
     out_p, tb_p, walk = raster_forward_train_plain(packed, width, height,
-                                                   tile_size, BG)
+                                                   tile_size, BG, *opts)
     # rows past the tiles' chunk counts are laid out by chunk_layout's bound
     # but never written by K2 and never read by K3
     n_laid = int(chunk_span(packed)[3].sum())
     if not bool(torch.isfinite(out_k).all()) \
             or not bool(torch.isfinite(tb_k[:n_laid]).all()):
-        raise RuntimeError(f"K2 {label}: non-finite output")
+        raise RuntimeError(f"{name} {label}: non-finite output")
     started_k = tb_k[:n_laid].amax(dim=1) > 0.0
     started_p = tb_p[:n_laid].amax(dim=1) > 0.0
     if not torch.equal(started_k, started_p):
         raise RuntimeError(
-            f"K2 {label}: started {int(started_k.sum())} chunks, the plain "
+            f"{name} {label}: started {int(started_k.sum())} chunks, the plain "
             f"version {int(started_p.sum())}, not the same set")
     errs = {ch: float((out_k[:, i] - out_p[:, i]).abs().max())
             for i, ch in enumerate(CHANNELS)}
@@ -198,10 +277,18 @@ def compare_k2(packed, width, height, tile_size, label: str):
     stats = walk_stats(packed, walk, tile_size)
     stats["chunks_laid"] = n_laid
     stats["chunks_started"] = int(started_k.sum())
-    log(f"K2 vs plain [{label}] max|diff| {json.dumps(errs)} walk {json.dumps(stats)}")
+    if span is not None:
+        if raster_forward_train.span_launches != n_before + 1:
+            raise RuntimeError(f"{name} {label}: the span kernel was not launched")
+        stats["programs"] = span_counts(packed, out_k.shape[0], span, "fwd_train")
+        out_d, tb_d = raster_forward_train(packed, width, height, tile_size, BG)
+        stats["bit_identical_to_k2"] = bool(
+            torch.equal(out_k, out_d) and torch.equal(tb_k[:n_laid], tb_d[:n_laid]))
+    log(f"{name} vs plain [{label}] max|diff| {json.dumps(errs)} walk "
+        f"{json.dumps(stats)}")
     bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN}
     if bad:
-        raise RuntimeError(f"K2 {label}: disagrees with its plain version {bad}")
+        raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     return max(errs.values()), stats, out_k, tb_k
 
 
@@ -230,11 +317,28 @@ def cotangent_tiles(out_t, width, height, tile_size, gen):
                            width, height, tile_size)
 
 
-def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str):
+def field_errors(g, ref, name: str, label: str):
+    """(largest abs difference, per-field difference relative to the
+    reference field's largest magnitude) of two [16, B_pad] gradients."""
+    rel, abs_err = {}, 0.0
+    for field, rows in GRAD_FIELDS.items():
+        diff = float((g[rows] - ref[rows]).abs().max())
+        scale = float(ref[rows].abs().max())
+        if scale == 0.0:
+            raise RuntimeError(f"{name} {label}: reference {field} gradient is "
+                               f"all zero")
+        rel[field] = diff / scale
+        abs_err = max(abs_err, diff)
+    return abs_err, rel
+
+
+def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
+               span=None):
     """(max abs difference of K3 and its plain version, per-field readings
     relative to the field's largest magnitude) on one pack, both fed K2's
     boundaries; raises above TOL_K3, on non-finite grads, or on nonzero
-    rows 10..15."""
+    rows 10..15. With ``span`` it is K4 against its plain version, and K4 is
+    also held to K3 at TOL_K4_K3 (a third value: those readings)."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
@@ -242,27 +346,37 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str):
         run_backward_plain,
     )
 
-    g_k = run_backward(packed, gimg_t, tb, width, height, tile_size, BG)
+    name = "K3" if span is None else "K4"
+    label += span_label(span)
+    opts = () if span is None else tuple(span)
+    n_before = run_backward.reverse_launches
+    g_k = run_backward(packed, gimg_t, tb, width, height, tile_size, BG, *opts)
     torch.cuda.synchronize()
-    g_p = run_backward_plain(packed, gimg_t, tb, width, height, tile_size, BG)
+    g_p = run_backward_plain(packed, gimg_t, tb, width, height, tile_size, BG,
+                             *opts)
     if not bool(torch.isfinite(g_k).all()):
-        raise RuntimeError(f"K3 {label}: non-finite gradients")
+        raise RuntimeError(f"{name} {label}: non-finite gradients")
     if float(g_k[10:].abs().max()) != 0.0:
-        raise RuntimeError(f"K3 {label}: rows 10..15 not zero")
-    rel, abs_err = {}, 0.0
-    for name, rows in GRAD_FIELDS.items():
-        diff = float((g_k[rows] - g_p[rows]).abs().max())
-        scale = float(g_p[rows].abs().max())
-        if scale == 0.0:
-            raise RuntimeError(f"K3 {label}: plain {name} gradient is all zero")
-        rel[name] = diff / scale
-        abs_err = max(abs_err, diff)
-    log(f"K3 vs plain [{label}] max|diff|/max|plain| {json.dumps(rel)} "
+        raise RuntimeError(f"{name} {label}: rows 10..15 not zero")
+    abs_err, rel = field_errors(g_k, g_p, name, label)
+    log(f"{name} vs plain [{label}] max|diff|/max|plain| {json.dumps(rel)} "
         f"max|diff| {abs_err:.4g}")
     bad = {k: e for k, e in rel.items() if not e <= TOL_K3}
     if bad:
-        raise RuntimeError(f"K3 {label}: disagrees with its plain version {bad}")
-    return abs_err, rel
+        raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
+    if span is None:
+        return abs_err, rel
+    if run_backward.reverse_launches != n_before + 1:
+        raise RuntimeError(f"K4 {label}: the reverse kernel was not launched")
+    n_tiles = (width // tile_size) * (height // tile_size)
+    g_3 = run_backward(packed, gimg_t, tb, width, height, tile_size, BG)
+    _, rel_k3 = field_errors(g_k, g_3, "K4 vs K3", label)
+    log(f"K4 vs K3 [{label}] max|diff|/max|K3| {json.dumps(rel_k3)} programs "
+        f"{json.dumps(span_counts(packed, n_tiles, span, 'bwd'))}")
+    bad = {k: e for k, e in rel_k3.items() if not e <= TOL_K4_K3}
+    if bad:
+        raise RuntimeError(f"K4 {label}: disagrees with K3 {bad}")
+    return abs_err, rel, rel_k3
 
 
 def profile_calls(fn, args) -> dict:
@@ -319,20 +433,24 @@ def deep_proj(n: int, width: int, height: int, gen, device):
         power_cut=torch.full((n,), -4.5, device=device))
 
 
-def oracle_grads(proj, width, height, gen):
-    """Gradients of one loss through ``rasterize_tiled_train`` (K2, K3) and
-    through the oracle under autograd, with respect to the projected
-    fields; raises above TOL_ORACLE_GRAD times each field's largest
-    magnitude. Returns the readings."""
+def oracle_grads(proj, width, height, gen, span=None):
+    """Gradients of one loss through ``rasterize_tiled_train`` (K2, K3; with
+    ``span`` = (tiles_per_program, span_cap): K2-span, K4) and through the
+    oracle under autograd, with respect to the projected fields; raises
+    above TOL_ORACLE_GRAD times each field's largest magnitude. Returns the
+    readings."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         rasterize_tiled_train,
+        run_backward,
     )
 
     names = ("xy", "conic", "color", "opacity", "depth")
     tgt = torch.rand(3, height, width, generator=gen, device=proj.xy.device)
+    tpp, cap = span if span is not None else (None, None)
+    k4_before = run_backward.reverse_launches
 
     def grads(raster):
         leaves = [getattr(proj, k).detach().clone().requires_grad_() for k in names]
@@ -340,7 +458,10 @@ def oracle_grads(proj, width, height, gen):
         loss = ((rgb - tgt) ** 2).mean() + 0.1 * dep.mean() + 0.05 * acc.mean()
         return loss, torch.autograd.grad(loss, leaves)
 
-    loss_k, g_k = grads(lambda q: rasterize_tiled_train(q, width, height, BG))
+    loss_k, g_k = grads(lambda q: rasterize_tiled_train(
+        q, width, height, BG, tiles_per_program=tpp, span_cap=cap))
+    if span is not None and run_backward.reverse_launches != k4_before + 1:
+        raise RuntimeError(f"autograd path with span {span}: K4 was not launched")
     loss_o, g_o = grads(lambda q: rasterize_reference(
         q, width, height, torch.tensor(BG, device=proj.xy.device)))
     rel = {}
@@ -352,19 +473,335 @@ def oracle_grads(proj, width, height, gen):
             raise RuntimeError(f"autograd path: oracle {name} gradient is zero")
         rel[name] = float((a - o).abs().max()) / scale
     rel["loss"] = abs(float(loss_k.detach()) - float(loss_o.detach())) / abs(float(loss_o.detach()))
-    log(f"{width}x{height} autograd grads vs oracle max|diff|/max|oracle| "
-        f"{json.dumps(rel)}")
+    log(f"{width}x{height} autograd grads{span_label(span)} vs oracle "
+        f"max|diff|/max|oracle| {json.dumps(rel)}")
     bad = {k: e for k, e in rel.items() if not e <= TOL_ORACLE_GRAD}
     if bad:
         raise RuntimeError(f"autograd path disagrees with the oracle: {bad}")
     return rel
 
 
+def span_phase(cases, gen):
+    """K1-span, K2-span and K4 against their plain versions (and K4 against
+    K3) on every (label, pack, width, height, tile size, spans) of
+    ``cases``. Returns the largest errors and the programs' branch counts
+    summed over the cases; raises if either branch was never taken."""
+    err = {"K1-span": 0.0, "K2-span": 0.0, "K4": 0.0, "K4_rel": 0.0,
+           "K4_vs_K3_rel": 0.0}
+    programs = {k: {"span": 0, "overflow": 0} for k in ("K1-span", "K2-span", "K4")}
+    identical = {"K1-span": True, "K2-span": True}
+
+    def count(kernel, c):
+        programs[kernel]["span"] += c["span"]
+        programs[kernel]["overflow"] += c["overflow"]
+
+    for label, packed, width, height, ts, spans in cases:
+        n_tiles = (width // ts) * (height // ts)
+        for span in spans:
+            e, stats = compare_k1(packed, width, height, ts, label, span)
+            err["K1-span"] = max(err["K1-span"], e)
+            count("K1-span", stats["programs"])
+            identical["K1-span"] &= stats["bit_identical_to_k1"]
+            e, stats, out_k, tb_k = compare_k2(packed, width, height, ts, label, span)
+            err["K2-span"] = max(err["K2-span"], e)
+            count("K2-span", stats["programs"])
+            identical["K2-span"] &= stats["bit_identical_to_k2"]
+            gimg = cotangent_tiles(out_k, width, height, ts, gen)
+            e, rel, rel_k3 = compare_k3(packed, gimg, tb_k, width, height, ts,
+                                        label, span)
+            err["K4"] = max(err["K4"], e)
+            err["K4_rel"] = max(err["K4_rel"], *rel.values())
+            err["K4_vs_K3_rel"] = max(err["K4_vs_K3_rel"], *rel_k3.values())
+            count("K4", span_counts(packed, n_tiles, span, "bwd"))
+    log(f"span: programs on the span branch / on the overflow walk "
+        f"{json.dumps(programs)}; bit-identical to the default kernels "
+        f"{json.dumps(identical)}; largest K4 vs K3 reading "
+        f"{err['K4_vs_K3_rel']:.4g} (limit {TOL_K4_K3})")
+    for kernel, c in programs.items():
+        if c["span"] == 0 or c["overflow"] == 0:
+            raise RuntimeError(f"span: {kernel} never took one of its branches {c}")
+    return err, programs, identical
+
+
+class span_options:
+    """Within the block, ``render`` rasterizes with the span options: its
+    two rasterizer entry points are re-bound with ``tiles_per_program`` and
+    ``span_cap`` set, which is how scripts/bench_span_ab.py of the JAX
+    package drives them (no config field sets them)."""
+
+    def __init__(self, span):
+        self.span = span
+
+    def __enter__(self):
+        import functools
+
+        from cloth_splatting_tpu_torch import render as R
+
+        self.module = R
+        self.saved = (R.rasterize_tiled_fwd, R.rasterize_tiled_train)
+        tpp, cap = self.span
+        R.rasterize_tiled_fwd = functools.partial(
+            self.saved[0], tiles_per_program=tpp, span_cap=cap)
+        R.rasterize_tiled_train = functools.partial(
+            self.saved[1], tiles_per_program=tpp, span_cap=cap)
+
+    def __exit__(self, *exc):
+        self.module.rasterize_tiled_fwd, self.module.rasterize_tiled_train = self.saved
+
+
+def launch_counts() -> dict:
+    """The six kernels' launch counters."""
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        run_backward,
+    )
+
+    return {"K1": raster_forward_tiles.launches,
+            "K1-span": raster_forward_tiles.span_launches,
+            "K2": raster_forward_train.launches,
+            "K2-span": raster_forward_train.span_launches,
+            "K3": run_backward.launches, "K4": run_backward.reverse_launches}
+
+
+def reset_launch_counts() -> None:
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        run_backward,
+    )
+
+    raster_forward_tiles.launches = raster_forward_tiles.span_launches = 0
+    raster_forward_train.launches = raster_forward_train.span_launches = 0
+    run_backward.launches = run_backward.reverse_launches = 0
+
+
+def timed_calls(fn, args):
+    """(device ms per call from CUDA events, host ms per call, results) of
+    ``fn(a)`` for each ``a``, one after another."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    results = [fn(a) for a in args]
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / len(args)
+    return start.elapsed_time(end) / len(args), host_ms, results
+
+
+def span_ab(run_default, run_span, span, what: str, n: int, expected: dict):
+    """The default path and the span path in turns (default, span, span,
+    default), ``n`` calls each; the launch counters are set to 0 just before
+    the first span turn and read just after the second. Returns (ms per call
+    of the four turns, the span kernels' launches in one span turn); raises
+    if the span turns launched anything but ``expected`` per turn."""
+    ms = {"default": [], "span": []}
+    ms["default"].append(run_default())
+    reset_launch_counts()
+    with span_options(span):
+        ms["span"].append(run_span())
+        ms["span"].append(run_span())
+    counts = launch_counts()
+    ms["default"].append(run_default())
+    want = {k: 2 * v for k, v in expected.items()}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise RuntimeError(f"span A/B {what}: launches {got}, expected {want}")
+    log(f"span A/B {what} tpp={span[0]} span_cap={span[1]}: default "
+        f"{ms['default'][0]:.4f} / {ms['default'][1]:.4f}, span "
+        f"{ms['span'][0]:.4f} / {ms['span'][1]:.4f} ms per {what} over {n} "
+        f"(device; order default, span, span, default); launches per span "
+        f"turn {json.dumps(expected)}")
+    return ms, expected
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a SplatTrainState by a flat name."""
+    out = {"step": state.step, "g_opt.count": state.g_opt.count,
+           "sim_opt.count": state.sim_opt.count}
+    for name, tree in (("params", state.params._asdict()),
+                       ("gstate", state.gstate._asdict()),
+                       ("g_opt.mu", state.g_opt.mu._asdict()),
+                       ("g_opt.nu", state.g_opt.nu._asdict()),
+                       ("sim_params", state.sim_params),
+                       ("sim_opt.mu", state.sim_opt.mu),
+                       ("sim_opt.nu", state.sim_opt.nu)):
+        out.update({f"{name}.{k}": v for k, v in tree.items()})
+    return out
+
+
+def fit_phase(mesh, tan, gpu):
+    """Fit a scene built in memory: the 65k mesh on the inextensible wave
+    over FIT_TIMES times, FIT_VIEWS orbit views rendered at 800x800 by the
+    serving path into uint8 banks, the true trajectory as the mesh
+    predictions; FIT_ITERATIONS iterations of ``fit_banks`` on
+    FIT_SCHEDULE with one held-out evaluation and one checkpoint at the
+    end. Returns (the {"fit": ...} record, the launch counts of the fit)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.scene import nerfpp_radius
+    from cloth_splatting_tpu_torch.data.synthetic import (
+        cloth_wave_isometric,
+        orbit_camera,
+        render_scene_banks,
+    )
+    from cloth_splatting_tpu_torch.models import gaussians as G
+    from cloth_splatting_tpu_torch.train.config import Config
+    from cloth_splatting_tpu_torch.train.loop import (
+        EvalFrame,
+        fit_banks,
+        load_train_checkpoint,
+    )
+    from cloth_splatting_tpu_torch.train.step import Trainer
+
+    dev = mesh.pos.device
+    t0 = time.time()
+    rest = mesh.pos.cpu().numpy()
+    traj = np.stack([cloth_wave_isometric(rest, t)
+                     for t in np.linspace(0.0, 1.0, FIT_TIMES)]).astype(np.float32)
+    cam_bank, gt_bank = render_scene_banks(mesh, traj, range(FIT_VIEWS), FIT_VIEWS,
+                                           WIDTH, fov=FOV, seed=SEED, device=dev)
+    # held out: the views half way between the training views, at every time
+    test_cams, test_gts = render_scene_banks(mesh, traj, [1], 2 * FIT_VIEWS, WIDTH,
+                                             fov=FOV, seed=SEED, device=dev)
+    test_frames = [EvalFrame(type(test_cams)(*(f[0, t] for f in test_cams)),
+                             test_gts[0, t], f"r_1_{t}") for t in range(FIT_TIMES)]
+    coverage = float((gt_bank.float().mean(dim=2) < 250).float().mean())
+    if tuple(gt_bank.shape) != (FIT_VIEWS, FIT_TIMES, 3, HEIGHT, WIDTH) \
+            or gt_bank.dtype != torch.uint8 or not 0.02 < coverage < 0.9:
+        raise RuntimeError(f"fit: ground-truth bank {tuple(gt_bank.shape)} "
+                           f"{gt_bank.dtype} coverage {coverage}")
+    scene_s = time.time() - t0
+
+    cfg = Config()
+    for key, value in FIT_SCHEDULE.items():
+        setattr(cfg.opt, key, value)
+    radius = nerfpp_radius([orbit_camera(v, FIT_VIEWS, FOV, WIDTH, HEIGHT, 0.0)
+                            for v in range(FIT_VIEWS)])
+    trainer = Trainer(cfg, mesh, torch.from_numpy(traj).to(dev), WIDTH, HEIGHT,
+                      tan, tan, radius)
+    rng = np.random.default_rng(SEED)
+    params, gstate = G.init_from_mesh(rng, mesh, cfg.model.sh_degree, 2,
+                                      capacity=TRAIN_CAPACITY, device=dev)
+    state = trainer.init_state(rng, params, gstate)
+    alive0, cap0 = int(state.gstate.alive.sum()), int(state.gstate.alive.numel())
+
+    # count the host events where they run
+    events = {"densify": 0, "prune": 0, "opacity_reset": 0, "cleanup": 0,
+              "grow_capacity": 0, "densify_overflow": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            events[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def counted_densify(fn):
+        def wrapper(*args, **kwargs):
+            events["densify"] += 1
+            new_state, overflow = fn(*args, **kwargs)
+            events["densify_overflow"] += int(overflow)
+            return new_state, overflow
+        return wrapper
+
+    trainer._densify = counted_densify(trainer._densify)
+    trainer._prune = counted("prune", trainer._prune)
+    trainer._reset_opacity = counted("opacity_reset", trainer._reset_opacity)
+    trainer.cleanup_barycentric = counted("cleanup", trainer.cleanup_barycentric)
+    trainer.grow_capacity = counted("grow_capacity", trainer.grow_capacity)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        (device_ms, host_ms, (final,)) = timed_calls(
+            lambda _: fit_banks(
+                trainer, state, cam_bank, gt_bank, None, out_dir=out_dir,
+                test_frames=test_frames, test_iterations=[FIT_ITERATIONS],
+                checkpoint_iterations=[FIT_ITERATIONS], seed=SEED,
+                progress_every=FIT_PROGRESS_EVERY), [0])
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            ticks = [json.loads(line) for line in f]
+        reloaded = load_train_checkpoint(
+            os.path.join(out_dir, f"chkpnt{FIT_ITERATIONS}.npz"), final)
+
+    expected = 3 * FIT_ITERATIONS
+    if counts["K2"] != expected or counts["K3"] != expected \
+            or counts["K1-span"] or counts["K2-span"] or counts["K4"]:
+        raise RuntimeError(f"fit: launches {counts}, expected K2 = K3 = {expected} "
+                           f"and no span kernel")
+    if counts["K1"] != FIT_TIMES:
+        raise RuntimeError(f"fit: the held-out evaluation launched K1 "
+                           f"{counts['K1']} times for {FIT_TIMES} frames")
+    for name, t in state_tensors(final).items():
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"fit: non-finite {name}")
+    for name in ("densify", "prune", "opacity_reset", "cleanup"):
+        if events[name] == 0:
+            raise RuntimeError(f"fit: {name} never ran {events}")
+    alive1, cap1 = int(final.gstate.alive.sum()), int(final.gstate.alive.numel())
+    if alive1 == alive0:
+        raise RuntimeError(f"fit: the alive count stayed at {alive0}")
+    if int(final.step) != FIT_ITERATIONS:
+        raise RuntimeError(f"fit: step counter {int(final.step)}")
+    train_ticks = {t["step"]: t for t in ticks if "ema_psnr" in t}
+    test_tick = [t for t in ticks if "test_psnr" in t]
+    if sorted(train_ticks) != list(range(FIT_PROGRESS_EVERY, FIT_ITERATIONS + 1,
+                                         FIT_PROGRESS_EVERY)) or not test_tick:
+        raise RuntimeError(f"fit: progress ticks {sorted(train_ticks)}, "
+                           f"{len(test_tick)} evaluations")
+    values = [v for t in ticks for k, v in t.items() if k not in ("step", "ts")]
+    if not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"fit: non-finite metrics {ticks}")
+    psnr_50 = train_ticks[FIT_PROGRESS_EVERY]["ema_psnr"]
+    psnr_end = train_ticks[FIT_ITERATIONS]["ema_psnr"]
+    if not psnr_end > psnr_50:
+        raise RuntimeError(f"fit: EMA PSNR {psnr_50:.3f} at iteration "
+                           f"{FIT_PROGRESS_EVERY}, {psnr_end:.3f} at {FIT_ITERATIONS}")
+    a, b = state_tensors(final), state_tensors(reloaded)
+    unequal = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    if unequal:
+        raise RuntimeError(f"fit: the checkpoint reloads unequal in {unequal}")
+
+    record = {
+        "iterations": FIT_ITERATIONS, "views": FIT_VIEWS, "times": FIT_TIMES,
+        "width": WIDTH, "height": HEIGHT,
+        "iterations_per_second": 1e3 / host_ms * FIT_ITERATIONS,
+        "device_ms_per_iteration": device_ms / FIT_ITERATIONS,
+        "host_ms_per_iteration": host_ms / FIT_ITERATIONS,
+        "scene_build_s": scene_s, "gt_bank_mb": gt_bank.numel() / 1e6,
+        "events": events, "alive_start": alive0, "alive_end": alive1,
+        "capacity_start": cap0, "capacity_end": cap1,
+        "grow_capacity_fired": events["grow_capacity"] > 0,
+        "ema_psnr": {str(k): v["ema_psnr"] for k, v in sorted(train_ticks.items())},
+        "test_psnr": test_tick[-1]["test_psnr"], "test_l1": test_tick[-1]["test_l1"],
+        "launches": counts, "peak_memory_gb": peak_gb,
+        "checkpoint_reloads_equal": True, "gpu": gpu}
+    log(f"fit: {FIT_ITERATIONS} iterations, {record['iterations_per_second']:.3f} "
+        f"it/s, {record['device_ms_per_iteration']:.3f} ms/iteration (device), "
+        f"{record['host_ms_per_iteration']:.3f} (host), events {json.dumps(events)}, "
+        f"alive {alive0} -> {alive1}, capacity {cap0} -> {cap1}, EMA PSNR "
+        f"{psnr_50:.3f} at {FIT_PROGRESS_EVERY} -> {psnr_end:.3f} at "
+        f"{FIT_ITERATIONS}, held-out PSNR "
+        f"{record['test_psnr']:.3f} [{gpu}]")
+    return record, counts
+
+
 def train_phase(mesh, tan, gpu):
     """bench.py's 65k training configuration through the port's Trainer:
     a warm-up step, then TRAIN_STEPS timed steps with the launch counters
-    set to 0 just before. Returns (the {"train": ...} record, K2 launches,
-    K3 launches)."""
+    set to 0 just before; then the span A/B over TRAIN_STEPS steps. Returns
+    (the {"train": ...} record, K2 launches, K3 launches, the A/B's ms per
+    step, the span kernels' launches in one span turn)."""
     import numpy as np
     import torch
 
@@ -453,6 +890,15 @@ def train_phase(mesh, tan, gpu):
         ev[3].synchronize()
         for i, k in enumerate(stages):
             stages[k] += ev[i].elapsed_time(ev[i + 1]) / 2
+    # the span A/B: the same steps with the rasterizer's span options on
+    def run_steps():
+        return timed_calls(lambda _: step(state), range(TRAIN_STEPS))[0]
+
+    n_cams = len(TRAIN_TIMES)
+    ab_ms, ab_launches = span_ab(
+        run_steps, run_steps, SPAN_32, "step", TRAIN_STEPS,
+        {"K2-span": n_cams * TRAIN_STEPS, "K4": n_cams * TRAIN_STEPS})
+
     trace = profile_calls(lambda _: step(state), [0])
     record = {
         "steps": TRAIN_STEPS, "cameras": len(TRAIN_TIMES), "gaussians": n_alive,
@@ -470,7 +916,7 @@ def train_phase(mesh, tan, gpu):
         f"parameter moves {json.dumps(moved)} simulator {json.dumps(sim_moved)} "
         f"[{gpu}]")
     log(f"profile of 1 train step: {json.dumps(trace)}")
-    return record, k2, k3
+    return record, k2, k3, ab_ms, ab_launches
 
 
 def main() -> int:
@@ -572,6 +1018,7 @@ def main() -> int:
     err, rel = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
                           "65k train cam 0")
     k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
+    deep_cases = []
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
         packed = sorted_pack(proj, size // ts, size // ts, ts,
@@ -588,6 +1035,27 @@ def main() -> int:
         err, rel = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
                               tb_k, size, size, ts, label)
         k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
+        deep_cases.append((label, packed, size, size, ts,
+                           (SPAN_DEEP, (SPAN_DEEP[0], 1))))
+
+    # the span forms: the same packs at 32 px tiles, the same scenes packed
+    # at 16 px tiles, and the deep packs; a window most programs fit and a
+    # window of one chunk (mostly the overflow walk)
+    def both_spans(span):
+        return (span, (span[0], 1))
+
+    serve_proj = project(cams[0])
+    span_cases = [
+        ("65k view 0", packs[0][0], WIDTH, HEIGHT, tile, both_spans(SPAN_32)),
+        ("65k train cam 0", train_pack, WIDTH, HEIGHT, tile, both_spans(SPAN_32)),
+        ("65k view 0 at 16 px",
+         sorted_pack(serve_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused"),
+         WIDTH, HEIGHT, 16, both_spans(SPAN_16)),
+        ("65k train cam 0 at 16 px",
+         sorted_pack(t_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused"),
+         WIDTH, HEIGHT, 16, both_spans(SPAN_16)),
+        *deep_cases]
+    span_err, span_programs_taken, span_identical = span_phase(span_cases, gen)
 
     # 3. times at the main paths' shapes ---------------------------------------
     packed, stats = packs[0]
@@ -624,6 +1092,31 @@ def main() -> int:
                      + 16 * train_pack.rows16.shape[1] * 4)
     log(f"K3 65k train cam 0: {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
         f"{json.dumps(k3_bound)} [{gpu}]")
+
+    # the span kernels at the same shapes: the same pairs, so K1-span's and
+    # K2-span's bounds are K1's and K2's; K4 walks every pair twice, does not
+    # read U_tot's column (p floats a tile less) and is bound as K3 otherwise
+    k1s_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG,
+                                                  *SPAN_32), 50)
+    k1s_plain_ms = time_ms(lambda: raster_forward_tiles_plain(
+        packed, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
+    k2s_ms = time_ms(lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile,
+                                                  BG, *SPAN_32), 50)
+    k2s_plain_ms = time_ms(lambda: raster_forward_train_plain(
+        train_pack, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
+    k4_ms = time_ms(lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH,
+                                         HEIGHT, tile, BG, *SPAN_32), 50)
+    k4_plain_ms = time_ms(lambda: run_backward_plain(
+        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
+    k4_bound = bound(train_stats, "K4", train_stats["instances_walked"] * 11 * 4
+                     + n_tiles * 3 * 4 + n_tiles * p * 7 * 4
+                     + train_stats["chunks_started"] * p * 4
+                     + 16 * train_pack.rows16.shape[1] * 4)
+    log(f"span kernels at tpp={SPAN_32[0]} span_cap={SPAN_32[1]}: K1-span "
+        f"{k1s_ms:.4f} ms (K1 {k1_ms:.4f}), plain {k1s_plain_ms:.3f}; K2-span "
+        f"{k2s_ms:.4f} ms (K2 {k2_ms:.4f}), plain {k2s_plain_ms:.3f}; K4 "
+        f"{k4_ms:.4f} ms (K3 {k3_ms:.4f}), plain {k4_plain_ms:.3f}, bound "
+        f"{json.dumps(k4_bound)} [{gpu}]")
 
     proj0 = project(cams[0])
     stage_ms = {
@@ -680,6 +1173,13 @@ def main() -> int:
         "device_busy_share": trace["device_busy_share"],
         "kernels_per_frame": trace["kernels_per_call"], "gpu": gpu}}))
 
+    # the span A/B of the serving path: the same frames with K1-span
+    def run_frames():
+        return timed_calls(frame, cams)[0]
+
+    serve_ab_ms, serve_ab_launches = span_ab(
+        run_frames, run_frames, SPAN_32, "frame", N_FRAMES, {"K1-span": N_FRAMES})
+
     # 5. a small render and its gradients against the oracle -------------------
     small_mesh = grid_cloth_mesh(8, 8, size=1.2, device=dev)
     s_params, s_state = target_gaussians(small_mesh, 3, seed=SEED, device=dev)
@@ -698,10 +1198,23 @@ def main() -> int:
     if float(out.alpha.mean()) <= 0.0:
         raise RuntimeError("small render has no coverage")
     oracle_grads(proj, 64, 64, gen)
+    oracle_grads(proj, 64, 64, gen, span=(4, 8))
 
     # 6. the training path: steps of the Trainer -------------------------------
-    train, k2_launches, k3_launches = train_phase(mesh, tan, gpu)
+    train, k2_launches, k3_launches, train_ab_ms, train_ab_launches = \
+        train_phase(mesh, tan, gpu)
     print(json.dumps({"train": train}))
+    print(json.dumps({"span_ab": {
+        "tiles_per_program": SPAN_32[0], "span_cap": SPAN_32[1],
+        "order": "default, span, span, default",
+        "serving_ms_per_frame": serve_ab_ms, "frames": N_FRAMES,
+        "train_ms_per_step": train_ab_ms, "steps": TRAIN_STEPS,
+        "programs": span_programs_taken,
+        "bit_identical_to_default": span_identical, "gpu": gpu}}))
+
+    # 7. the full fit ----------------------------------------------------------
+    fit, fit_launches = fit_phase(mesh, tan, gpu)
+    print(json.dumps({"fit": fit}))
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
@@ -710,7 +1223,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None}
+                "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
+                "library_ms": None}
 
     # K3's cotangent is scaled by 1 / numel, so its absolute error is small
     # whatever the agreement; its entry also carries the relative reading
@@ -718,18 +1232,40 @@ def main() -> int:
     k3_entry = entry("K3 tiled_bwd forward-order gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
-                     k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound)
+                     k3_launches + fit_launches["K3"], k3_err, k3_ms, k3_plain_ms,
+                     k3_bound)
     k3_entry["max_rel_err"] = k3_rel
+    k4_entry = entry("K4 tiled_bwd_reverse reverse gradient sweep",
+                     "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+                     "cloth_splatting_tpu/ops/rasterize/pallas_train.py:655",
+                     train_ab_launches["K4"], span_err["K4"], k4_ms, k4_plain_ms,
+                     k4_bound)
+    k4_entry["max_rel_err"] = span_err["K4_rel"]
+    k4_entry["max_rel_err_vs_k3"] = span_err["K4_vs_K3_rel"]
+    # launches: K1, K2, K3 over the serving frames or the Trainer steps plus
+    # the fit; the span kernels over one span turn of the A/B
     print(json.dumps({"kernels": [
         entry("K1 tiled_fwd compositor",
               "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
-              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+              k1_launches + fit_launches["K1"], k1_err, k1_ms, k1_plain_ms,
+              k1_bound),
+        entry("K1-span tiled_fwd_span compositor, one window per program",
+              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
+              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
+              serve_ab_launches["K1-span"], span_err["K1-span"], k1s_ms,
+              k1s_plain_ms, k1_bound),
         entry("K2 tiled_fwd_train compositor + boundaries",
               "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
-              k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
-        k3_entry,
+              k2_launches + fit_launches["K2"], k2_err, k2_ms, k2_plain_ms,
+              k2_bound),
+        entry("K2-span tiled_fwd_train_span, one window per program",
+              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",
+              train_ab_launches["K2-span"], span_err["K2-span"], k2s_ms,
+              k2s_plain_ms, k2_bound),
+        k3_entry, k4_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,3 +111,25 @@ def train_state(arrays: Mapping, device: str | torch.device = "cuda"
         sim_params=simulator_params(arrays["sim_params"], dev),
         sim_opt=adam_state(arrays["sim_opt"], dict, dev),
         step=_counter(arrays["step"], dev))
+
+
+def nest(flat: Mapping[str, np.ndarray]) -> dict:
+    """A flat ``{"a/b/c": array}`` dict, as the checkpoints of both packages
+    store a tree in an npz file, as nested dicts."""
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def train_state_from_checkpoint(path: str, device: str | torch.device = "cuda"
+                                ) -> SplatTrainState:
+    """A ``chkpnt<iteration>.npz`` written by either package's
+    ``save_train_checkpoint`` as the port's state, at whatever capacity it
+    was saved."""
+    with np.load(path) as data:
+        return train_state(nest({k: data[k] for k in data.files}), device)

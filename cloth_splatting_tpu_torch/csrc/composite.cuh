@@ -1,5 +1,6 @@
-// Shared by the tile kernels K1 (tiled_fwd.cu), K2 and K3 (tiled_train.cu):
-// the per-pair classification and the front-to-back tile walk.
+// Shared by the tile kernels K1 and K1-span (tiled_fwd.cu), K2, K2-span, K3
+// and K4 (tiled_train.cu): the per-pair classification, the front-to-back
+// tile walk and the span window of a multi-tile program.
 //
 // The packed parameter array is rows16 f32 [16, b_pad], param-major and
 // tile-grouped (rows x, y, conic a/b/c, r, g, b, opacity, depth, power_cut,
@@ -91,6 +92,53 @@ __device__ __forceinline__ void load_chunk(float (*sh)[kChunk],
   }
 }
 
+// One chunk's staged rows, [kRows][kChunk].
+using ChunkRows = const float (*)[kChunk];
+
+// Chunk slot `rel` of a window staged by load_span.
+__device__ __forceinline__ ChunkRows span_chunk(const float* span, int rel) {
+  return reinterpret_cast<ChunkRows>(span + rel * (kRows * kChunk));
+}
+
+// A program of `tpp` consecutive tiles [i0, i0 + tpp) and the window of
+// `span_cap` chunks it may stage at once (the span path of K1-span, K2-span
+// and K4). The tiles' segments are contiguous in the sorted array, so their
+// chunks are [k0, k_end); the window starts at k0c = min(k0, C - span_cap),
+// shifted down at the end of the array, and the program `fits` when the
+// window holds k_end. A chunk k of a fitting program sits at slot k - k0c.
+struct SpanProgram {
+  int k0, k_end, k0c;
+  bool fits;
+};
+
+__device__ __forceinline__ SpanProgram span_program(
+    const int* __restrict__ starts, const int* __restrict__ counts, int i0,
+    int tpp, int span_cap, int n_chunks_arr) {
+  SpanProgram s;
+  const int last = i0 + tpp - 1;
+  s.k0 = starts[i0] / kChunk;
+  s.k_end = (starts[last] + counts[last] + kChunk - 1) / kChunk;  // exclusive
+  s.k0c = min(s.k0, n_chunks_arr - span_cap);
+  s.fits = (s.k_end - s.k0c) <= span_cap;
+  return s;
+}
+
+// Stages the 11 used rows of the program's chunks [k0, k_end) at their
+// window slots (the window's other slots are never read); the caller
+// synchronises before reading them.
+__device__ __forceinline__ void load_span(float* span,
+                                          const float* __restrict__ rows16,
+                                          int64_t b_pad, SpanProgram s) {
+  const int n = (s.k_end - s.k0) * (kRows * kChunk);
+  float* dst = span + (s.k0 - s.k0c) * (kRows * kChunk);
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const int c = e / (kRows * kChunk);
+    const int r = (e / kChunk) % kRows;
+    const int l = e % kChunk;
+    dst[e] = rows16[r * b_pad + static_cast<int64_t>(s.k0 + c) * kChunk + l];
+  }
+}
+
 // The forward walk of one tile (one 256-thread block, PPT pixels per
 // thread; tile_size^2 == PPT * 256): for every pixel
 //   w = alpha T;  T *= 1 - alpha;  sum w * (r, g, b, depth, 1)
@@ -99,18 +147,25 @@ __device__ __forceinline__ void load_chunk(float (*sh)[kChunk],
 // Writes out [n_tiles, 8, p]: r, g, b + bg (1 - sum w), depth, alpha =
 // sum w, then three zero rows.
 //
+// Where a chunk's rows come from is the only difference between the
+// kernels' default and span forms: with kSpan false each chunk is staged in
+// `sh` (load_chunk) before it is walked; with kSpan true the chunk kt + ci
+// is read at slot kt + ci - k0c of `span`, which the block staged once.
+//
 // kRecord (K2) also stores every pixel's T at the start of each chunk it
 // walks to tb[(offset + ci) * p + pixel], and zeros for the tile's chunks
 // after the exit, so "never started" reads as "max boundary is 0".
-template <int PPT, bool kRecord>
+//
+// A block may walk several tiles one after another: every chunk ends in a
+// barrier (the vote), so no thread still reads `sh` when the next tile's
+// first chunk is staged, and a tile keeps nothing else in shared memory.
+template <int PPT, bool kRecord, bool kSpan>
 __device__ __forceinline__ void composite_tile(
-    const int* __restrict__ starts, const int* __restrict__ counts,
+    int tile, const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ offsets, const float* __restrict__ rows16,
     float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
-    int tile_size, float bg0, float bg1, float bg2) {
-  __shared__ float sh[kRows][kChunk];
-
-  const int tile = blockIdx.x;
+    int tile_size, float bg0, float bg1, float bg2, float (*sh)[kChunk],
+    const float* span, int k0c) {
   const int p = tile_size * tile_size;
   const int start = starts[tile];
   const int count = counts[tile];
@@ -141,16 +196,22 @@ __device__ __forceinline__ void composite_tile(
         tb_tile[static_cast<int64_t>(ci) * p + threadIdx.x + i * kThreads] = T[i];
     }
     const int64_t base = static_cast<int64_t>(kt + ci) * kChunk;
-    load_chunk(sh, rows16, b_pad, base);
-    __syncthreads();
+    ChunkRows rows;
+    if (kSpan) {
+      rows = span_chunk(span, kt - k0c + ci);
+    } else {
+      load_chunk(sh, rows16, b_pad, base);
+      __syncthreads();
+      rows = const_cast<ChunkRows>(sh);
+    }
 
     const int lo = chunk_lo(start, kt, ci);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
     for (int j = lo; j < hi; ++j) {
-      const float gx = sh[kX][j], gy = sh[kY][j];
-      const float ca = sh[kA][j], cb = sh[kB][j], cc = sh[kC][j];
-      const float cr = sh[kR][j], cg = sh[kG][j], cbl = sh[kBl][j];
-      const float op = sh[kOp][j], dep = sh[kDepth][j], cut = sh[kCut][j];
+      const float gx = rows[kX][j], gy = rows[kY][j];
+      const float ca = rows[kA][j], cb = rows[kB][j], cc = rows[kC][j];
+      const float cr = rows[kR][j], cg = rows[kG][j], cbl = rows[kBl][j];
+      const float op = rows[kOp][j], dep = rows[kDepth][j], cut = rows[kCut][j];
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
         float a_raw, alpha;
@@ -198,6 +259,43 @@ __device__ __forceinline__ void composite_tile(
     o[6 * p + pix] = 0.0f;
     o[7 * p + pix] = 0.0f;
   }
+}
+
+// One program of the span forms K1-span (kRecord false) and K2-span: `tpp`
+// consecutive tiles per block. When the tiles' chunks fit the window, the
+// block stages them once in `span` (dynamic shared memory, span_cap chunks)
+// and every tile composites from there; otherwise every tile takes the
+// per-chunk walk, staging each chunk in the window's first slot. `fits` is
+// uniform over the block, so the barriers inside the walks are too.
+template <int PPT, bool kRecord>
+__device__ __forceinline__ void composite_program(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const int* __restrict__ offsets, const float* __restrict__ rows16,
+    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
+    int tile_size, float bg0, float bg1, float bg2, int tpp, int span_cap,
+    float* span) {
+  const int i0 = blockIdx.x * tpp;
+  const SpanProgram s = span_program(starts, counts, i0, tpp, span_cap,
+                                     static_cast<int>(b_pad / kChunk));
+  if (s.fits) {
+    load_span(span, rows16, b_pad, s);
+    __syncthreads();
+    for (int t = 0; t < tpp; ++t)
+      composite_tile<PPT, kRecord, true>(i0 + t, starts, counts, offsets,
+                                         rows16, out, tb, tw, b_pad, tile_size,
+                                         bg0, bg1, bg2, nullptr, span, s.k0c);
+  } else {
+    float (*sh)[kChunk] = reinterpret_cast<float (*)[kChunk]>(span);
+    for (int t = 0; t < tpp; ++t)
+      composite_tile<PPT, kRecord, false>(i0 + t, starts, counts, offsets,
+                                          rows16, out, tb, tw, b_pad, tile_size,
+                                          bg0, bg1, bg2, sh, nullptr, 0);
+  }
+}
+
+// Bytes of dynamic shared memory for a window of span_cap chunks.
+inline size_t span_bytes(int span_cap) {
+  return static_cast<size_t>(span_cap) * kRows * kChunk * sizeof(float);
 }
 
 }  // namespace composite

@@ -1,8 +1,11 @@
-// K1: per-tile front-to-back alpha compositor for the serving rasterizer.
+// K1 and K1-span: per-tile front-to-back alpha compositor for the serving
+// rasterizer.
 //
-// Replaces the TPU kernel cloth_splatting_tpu/ops/rasterize/pallas_tiled.py
-// ::_kernel (tile walk _one_tile, per-chunk math _composite_chunk). Python
-// wrapper and plain PyTorch version: ops/rasterize/tiled_fwd.py
+// K1 replaces the TPU kernel cloth_splatting_tpu/ops/rasterize/
+// pallas_tiled.py::_kernel (tile walk _one_tile, per-chunk math
+// _composite_chunk); K1-span replaces the same kernel's span branch
+// (tiles_per_program > 1 with span_cap > 0, _one_tile_vmem). Python wrapper
+// and plain PyTorch version: ops/rasterize/tiled_fwd.py
 // (raster_forward_tiles, raster_forward_tiles_plain).
 //
 // What it computes, per tile of tile_size^2 pixels: the tile's instances are
@@ -33,11 +36,24 @@
 // pixels of one thread are independent chains, which gives the FMA pipes
 // instruction-level parallelism. No tensor cores, TMA or double buffering
 // yet.
+//
+// K1-span gives one block `tpp` consecutive tiles. Their instances are one
+// contiguous run of the sorted array, so when the run's chunks fit a window
+// of span_cap chunks the block stages them once in dynamic shared memory
+// (5,632 bytes a chunk, at most 41 chunks under the 227 KB a block may opt
+// in to) and composites its tiles one after another from there; a program
+// that does not fit walks chunk by chunk as K1 does. The walk is the same
+// function either way, so the values are K1's. It trades blocks in flight
+// (n_tiles / tpp) and occupancy (one block per SM at a large window) for
+// one fetch per program; whether that pays on this card is measured, not
+// assumed.
 
 #include "composite.cuh"
 
 namespace {
 
+using composite::kChunk;
+using composite::kRows;
 using composite::kThreads;
 
 template <int PPT>
@@ -46,9 +62,37 @@ tiled_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
                  const float* __restrict__ rows16, float* __restrict__ out,
                  int tw, int64_t b_pad, int tile_size, float bg0, float bg1,
                  float bg2) {
-  composite::composite_tile<PPT, false>(starts, counts, nullptr, rows16, out,
-                                        nullptr, tw, b_pad, tile_size, bg0,
-                                        bg1, bg2);
+  __shared__ float sh[kRows][kChunk];
+  composite::composite_tile<PPT, false, false>(
+      blockIdx.x, starts, counts, nullptr, rows16, out, nullptr, tw, b_pad,
+      tile_size, bg0, bg1, bg2, sh, nullptr, 0);
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(kThreads)
+tiled_fwd_span_kernel(const int* __restrict__ starts,
+                      const int* __restrict__ counts,
+                      const float* __restrict__ rows16, float* __restrict__ out,
+                      int tw, int64_t b_pad, int tile_size, float bg0,
+                      float bg1, float bg2, int tpp, int span_cap) {
+  extern __shared__ float span[];
+  composite::composite_program<PPT, false>(starts, counts, nullptr, rows16, out,
+                                           nullptr, tw, b_pad, tile_size, bg0,
+                                           bg1, bg2, tpp, span_cap, span);
+}
+
+template <int PPT>
+int launch_span(const int* st, const int* ct, const float* rows, float* o,
+                int n_tiles, int tw, int64_t b_pad, int tile_size, float bg0,
+                float bg1, float bg2, int tpp, int span_cap, cudaStream_t s) {
+  const size_t smem = composite::span_bytes(span_cap);
+  cudaError_t err = cudaFuncSetAttribute(
+      tiled_fwd_span_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tiled_fwd_span_kernel<PPT><<<n_tiles / tpp, kThreads, smem, s>>>(
+      st, ct, rows, o, tw, b_pad, tile_size, bg0, bg1, bg2, tpp, span_cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -77,4 +121,31 @@ extern "C" int tiled_fwd_launch(const void* starts, const void* counts,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K1-span on `stream`: as tiled_fwd_launch, with n_tiles / tpp
+// blocks of tpp tiles and a window of span_cap chunks (1 <= span_cap <=
+// b_pad / 128, tpp dividing n_tiles; the window's bytes must fit a block's
+// shared memory). Returns the CUDA error of the attribute call or of the
+// launch (cudaErrorInvalidValue for unsupported arguments).
+extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
+                                     const void* rows16, void* out, int n_tiles,
+                                     int tw, int64_t b_pad, int tile_size,
+                                     float bg0, float bg1, float bg2, int tpp,
+                                     int span_cap, void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (tpp < 1 || n_tiles % tpp || span_cap < 1 || span_cap > b_pad / kChunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* st = static_cast<const int*>(starts);
+  const int* ct = static_cast<const int*>(counts);
+  const float* rows = static_cast<const float*>(rows16);
+  float* o = static_cast<float*>(out);
+  if (tile_size == 32)
+    return launch_span<4>(st, ct, rows, o, n_tiles, tw, b_pad, tile_size, bg0,
+                          bg1, bg2, tpp, span_cap, s);
+  if (tile_size == 16)
+    return launch_span<1>(st, ct, rows, o, n_tiles, tw, b_pad, tile_size, bg0,
+                          bg1, bg2, tpp, span_cap, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

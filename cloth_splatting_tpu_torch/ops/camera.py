@@ -48,6 +48,14 @@ def projection_matrix(znear: float, zfar: float, fovx: float,
     return P
 
 
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 @dataclasses.dataclass(frozen=True)
 class Camera:
     """A pinhole camera with ROW-VECTOR (transposed) transforms."""

@@ -23,6 +23,15 @@ instance-pixel pair, against tens of MB of traffic); the design keeps each
 chunk's 11 parameter rows in shared memory, where every thread of the
 block reads the same instance at once (a broadcast), and each thread keeps
 its pixels' T and sums in registers.
+
+The span options of the JAX rasterizer, ``tiles_per_program`` and
+``span_cap``, select K1-span (same source): one block owns
+``tiles_per_program`` consecutive tiles and, when their chunks fit a window
+of ``span_cap`` chunks, stages them once and composites every tile from
+shared memory; a program that does not fit walks chunk by chunk. Which
+branch a program takes never changes what it computes. ``resolve_span`` is
+the one place where the options are resolved, for this kernel and for the
+training tier's K2-span and K4.
 """
 
 from __future__ import annotations
@@ -44,6 +53,12 @@ PACK16 = 16      # param rows: x y conic(3) rgb(3) opacity depth cut pad(5)
 CHUNK = 128      # instances per compositing chunk
 TRANS_EPS = 1e-4
 WIN_SMALL = 2    # slot window (tiles per axis) of the small-splat stream
+# shared memory of one H100 block: the 227 KB opt-in limit, one chunk's 11
+# used rows, and what each span kernel keeps statically beside its window
+# (K4: the reduction scratch red[10][8][128])
+SMEM_LIMIT = 232_448
+CHUNK_BYTES = 11 * CHUNK * 4
+SPAN_STATIC_BYTES = {"fwd": 0, "fwd_train": 0, "bwd": 10 * 8 * CHUNK * 4}
 
 
 class RasterAux(NamedTuple):
@@ -240,6 +255,40 @@ def chunk_span(packed: PackedTiles):
     return starts, ends, kt, (ends - kt * CHUNK + CHUNK - 1) // CHUNK
 
 
+def max_span_cap(kernel: str) -> int:
+    """Chunks that fit one block's shared memory beside ``kernel``'s static
+    use: 41 for K1-span and K2-span, 34 for K4."""
+    return (SMEM_LIMIT - SPAN_STATIC_BYTES[kernel]) // CHUNK_BYTES
+
+
+def resolve_span(n_tiles: int, b_pad: int, tiles_per_program: int | None,
+                 span_cap: int | None, kernel: str) -> tuple[int, int]:
+    """(tpp, span_cap) as the kernels take them, by the JAX rasterizer's
+    rules: tpp = 1 when it is None or does not divide ``n_tiles``;
+    span_cap = 0 (the default kernels K1/K2/K3) when it is None or tpp is 1;
+    span_cap <= the array's chunk count. The card adds one: span_cap <=
+    ``max_span_cap(kernel)``. ``kernel`` is 'fwd', 'fwd_train' or 'bwd'."""
+    tpp = tiles_per_program
+    if tpp is None or tpp < 1 or n_tiles % tpp:
+        tpp = 1
+    if span_cap is None or tpp == 1:
+        return tpp, 0
+    return tpp, max(0, min(int(span_cap), b_pad // CHUNK, max_span_cap(kernel)))
+
+
+def span_programs(packed: PackedTiles, tpp: int, span_cap: int):
+    """Per program of ``tpp`` consecutive tiles: (k0c i64 [P], the first
+    chunk of its window of ``span_cap`` chunks, shifted down at the end of
+    the array; fits bool [P], whether the window holds all its tiles'
+    chunks). What the span kernels compute per block."""
+    starts = packed.starts.to(torch.int64)
+    ends = starts + packed.counts.to(torch.int64)
+    k0 = starts[0::tpp] // CHUNK
+    k_end = (ends[tpp - 1::tpp] + CHUNK - 1) // CHUNK
+    k0c = torch.clamp_max(k0, packed.rows16.shape[1] // CHUNK - span_cap)
+    return k0c, (k_end - k0c) <= span_cap
+
+
 def pixel_coords(width: int, tile_size: int, n_tiles: int, dev):
     """Absolute pixel coordinates (px, py), each f32 [T, p, 1]."""
     tw = width // tile_size
@@ -272,26 +321,74 @@ def chunk_alpha(blk: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
 def raster_forward_tiles_plain(
         packed: PackedTiles, width: int, height: int, tile_size: int,
-        bg: tuple[float, float, float]) -> tuple[torch.Tensor, PlainWalk]:
-    """Plain PyTorch version of K1, the CPU path and the on-card reference:
-    (out [T, 8, p], the walk's counters).
+        bg: tuple[float, float, float], tiles_per_program: int | None = None,
+        span_cap: int | None = None) -> tuple[torch.Tensor, PlainWalk]:
+    """Plain PyTorch version of K1 and, with the span options, of K1-span;
+    the CPU path and the on-card reference: (out [T, 8, p], the walk's
+    counters).
 
     All tiles advance together over chunk index ``ci``; a tile takes part
     while ``ci < n_chunks`` and the max of its T exceeds TRANS_EPS, exactly
     the loop condition of K1 and of the TPU kernel."""
-    out, walk, _ = plain_walk(packed, width, height, tile_size, bg)
+    n_tiles = (width // tile_size) * (height // tile_size)
+    span = resolve_span(n_tiles, packed.rows16.shape[1], tiles_per_program,
+                        span_cap, "fwd")
+    out, walk, _ = plain_walk(packed, width, height, tile_size, bg, span=span)
     return out, walk
+
+
+class SpanWindows(NamedTuple):
+    """The chunks the fitting programs of a span kernel stage: what
+    ``chunk_rows`` reads for their tiles."""
+
+    window: torch.Tensor   # [F, span_cap, 16, 128] one per fitting program
+    slot: torch.Tensor     # [T] the tile's window, -1 for overflow programs
+    k0c: torch.Tensor      # [T] first chunk of the tile's program's window
+
+
+def span_windows(packed: PackedTiles, rows3d: torch.Tensor,
+                 span: tuple[int, int]) -> SpanWindows | None:
+    """Gathers ``rows3d[k0c : k0c + span_cap]`` per fitting program; None
+    when the span is off."""
+    tpp, span_cap = span
+    if not span_cap:
+        return None
+    k0c, fits = span_programs(packed, tpp, span_cap)
+    dev = rows3d.device
+    window = rows3d[k0c[fits][:, None]
+                    + torch.arange(span_cap, device=dev)[None, :]]
+    slot = torch.where(fits, torch.cumsum(fits, 0) - 1,
+                       torch.full_like(k0c, -1))
+    return SpanWindows(window, slot.repeat_interleave(tpp),
+                       k0c.repeat_interleave(tpp))
+
+
+def chunk_rows(rows3d: torch.Tensor, windows: SpanWindows | None,
+               tiles: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """[A, 16, 128] rows of global chunk ``chunk[a]`` for tile ``tiles[a]``:
+    from the global array, or, for tiles of fitting span programs, from
+    their program's window at slot chunk - k0c (as the span kernels read)."""
+    blk = rows3d[chunk]
+    if windows is not None:
+        in_span = windows.slot[tiles] >= 0
+        ts = tiles[in_span]
+        blk[in_span] = windows.window[windows.slot[ts],
+                                      chunk[in_span] - windows.k0c[ts]]
+    return blk
 
 
 def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
                bg: tuple[float, float, float],
-               boundaries: tuple[torch.Tensor, int] | None = None):
+               boundaries: tuple[torch.Tensor, int] | None = None,
+               span: tuple[int, int] = (1, 0)):
     """The walk of ``raster_forward_tiles_plain``: (out, counters, tbounds).
 
     ``boundaries`` = (per-tile flat chunk offsets [T], number of rows) also
     records, as K2 does, every pixel's T at the start of each chunk a tile
     walks into tbounds [rows, p] at row offset + ci; rows of chunks never
-    started stay zero. tbounds is None without it."""
+    started stay zero. tbounds is None without it. ``span`` is a resolved
+    (tpp, span_cap): tiles of programs that fit read their chunks from the
+    program's window."""
     tw, th = width // tile_size, height // tile_size
     n_tiles = tw * th
     p = tile_size * tile_size
@@ -302,6 +399,7 @@ def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
     starts, ends, kt, n_chunks = chunk_span(packed)
     px, py = pixel_coords(width, tile_size, n_tiles, dev)            # [T, p, 1]
     lane = torch.arange(CHUNK, device=dev)
+    windows = span_windows(packed, rows3d, span)
 
     trans = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
     acc = torch.zeros((n_tiles, 5, p), dtype=torch.float32, device=dev)
@@ -320,7 +418,7 @@ def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
         if tbounds is not None:
             tbounds[offsets[ta] + ci] = trans[ta]
         walked[ta] += 1
-        blk = rows3d[kt[ta] + ci]                                    # [A, 16, 128]
+        blk = chunk_rows(rows3d, windows, ta, kt[ta] + ci)           # [A, 16, 128]
         pos = (kt[ta] + ci)[:, None] * CHUNK + lane[None, :]
         live = (pos >= starts[ta, None]) & (pos < ends[ta, None])    # [A, 128]
         _, _, _, alpha, dead = chunk_alpha(blk, px[ta], py[ta], live)
@@ -384,50 +482,60 @@ def check_packed(packed: PackedTiles, width: int, height: int, tile_size: int) -
 
 
 @functools.cache
-def _launcher():
+def _launchers():
     lib = kernels.load("tiled_fwd")
-    fn = lib.tiled_fwd_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    fn, span = lib.tiled_fwd_launch, lib.tiled_fwd_span_launch
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    head = [ptr, ptr, ptr, ptr, i32, i32, ctypes.c_int64, i32, f32, f32, f32]
+    fn.argtypes = head + [ptr]
+    span.argtypes = head + [i32, i32, ptr]
+    fn.restype = span.restype = ctypes.c_int
+    return fn, span
 
 
 def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
-                         tile_size: int,
-                         bg: tuple[float, float, float]) -> torch.Tensor:
+                         tile_size: int, bg: tuple[float, float, float],
+                         tiles_per_program: int | None = None,
+                         span_cap: int | None = None) -> torch.Tensor:
     """Composite every tile; returns [n_tiles, 8, tile_size^2] with channels
     (r, g, b with background, depth, alpha, 0, 0, 0).
 
-    A CUDA ``packed`` launches K1 on the current stream (or raises); a CPU
-    one runs the plain version. ``raster_forward_tiles.launches`` counts K1
-    launches."""
+    A CUDA ``packed`` launches K1 or, when ``resolve_span`` leaves a span,
+    K1-span on the current stream (or raises); a CPU one runs the plain
+    version. ``raster_forward_tiles.launches`` counts K1 launches and
+    ``raster_forward_tiles.span_launches`` K1-span launches."""
     check_packed(packed, width, height, tile_size)
     dev = packed.rows16.device
     if dev.type == "cpu":
-        return raster_forward_tiles_plain(packed, width, height, tile_size, bg)[0]
+        return raster_forward_tiles_plain(packed, width, height, tile_size, bg,
+                                          tiles_per_program, span_cap)[0]
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     tw = width // tile_size
     n_tiles = tw * (height // tile_size)
     p = tile_size * tile_size
+    b_pad = packed.rows16.shape[1]
+    tpp, cap = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap, "fwd")
     out = torch.empty((n_tiles, 8, p), dtype=torch.float32, device=dev)
-    launch = _launcher()
+    args = [packed.starts.data_ptr(), packed.counts.data_ptr(),
+            packed.rows16.data_ptr(), out.data_ptr(), n_tiles, tw, b_pad,
+            tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
+    launch = _launchers()[1 if cap else 0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(packed.starts.data_ptr(), packed.counts.data_ptr(),
-                     packed.rows16.data_ptr(), out.data_ptr(), n_tiles, tw,
-                     packed.rows16.shape[1], tile_size, float(bg[0]),
-                     float(bg[1]), float(bg[2]), stream)
+        err = launch(*args, tpp, cap, stream) if cap else launch(*args, stream)
     if err != 0:
-        raise RuntimeError(f"tiled_fwd kernel launch failed: CUDA error {err}")
-    raster_forward_tiles.launches += 1
+        raise RuntimeError(f"tiled_fwd{'_span' if cap else ''} kernel launch "
+                           f"failed: CUDA error {err}")
+    if cap:
+        raster_forward_tiles.span_launches += 1
+    else:
+        raster_forward_tiles.launches += 1
     return out
 
 
 raster_forward_tiles.launches = 0
+raster_forward_tiles.span_launches = 0
 
 
 def tiles_to_images(out_t: torch.Tensor, width: int, height: int,
@@ -445,14 +553,18 @@ def tiles_to_images(out_t: torch.Tensor, width: int, height: int,
 
 def rasterize_tiled_fwd(proj: ProjectedGaussians, width: int, height: int,
                         bg: tuple[float, float, float] = (1.0, 1.0, 1.0),
-                        pack_order: str = "exact"):
+                        pack_order: str = "exact",
+                        tiles_per_program: int | None = None,
+                        span_cap: int | None = None):
     """Pack + composite at ``tile_and_win``'s tiling; returns
-    (rgb [3,H,W], depth [1,H,W], alpha [1,H,W], aux)."""
+    (rgb [3,H,W], depth [1,H,W], alpha [1,H,W], aux). ``tiles_per_program``
+    and ``span_cap`` are the JAX ``rasterize_pallas``'s span options."""
     tile_size, win = tile_and_win(width, height)
     if width % tile_size or height % tile_size:
         raise ValueError("width/height must be multiples of tile_size")
     tw, th = width // tile_size, height // tile_size
     packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
-    out_t = raster_forward_tiles(packed, width, height, tile_size, bg)
+    out_t = raster_forward_tiles(packed, width, height, tile_size, bg,
+                                 tiles_per_program, span_cap)
     rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
     return rgb, dep, acc, packed.aux

@@ -1,6 +1,7 @@
 """Differentiable rasterizer, the training tier: sort binning, the forward
-K2 and the backward K3 behind one ``torch.autograd.Function``; counterpart
-of ``cloth_splatting_tpu/ops/rasterize/pallas_train.py``.
+K2 and the backward K3 (or, with the span options, K2-span and K4) behind
+one ``torch.autograd.Function``; counterpart of
+``cloth_splatting_tpu/ops/rasterize/pallas_train.py``.
 
 1. ``sorted_pack`` (from ``tiled_fwd``) bins and orders the instances.
 2. ``raster_forward_train`` composites every tile like K1 and also records
@@ -23,6 +24,13 @@ U_tot = sum_c g_c (out_c - bg_c T_N) + g_dep out_dep with T_N = 1 - acc
 (the JAX package's forward-order sweep), and every pair is classified by
 the one rule of ``tiled_fwd.chunk_alpha`` / ``csrc/composite.cuh``, so the
 backward sees exactly the instances the forward composited.
+
+With ``tiles_per_program`` and ``span_cap`` (``tiled_fwd.resolve_span``)
+the forward is K2-span, K2 for blocks of several tiles that stage their
+chunks once, and the backward is K4, the JAX package's reverse sweep: per
+tile the chunks go last to first with a per-pixel carry of the later
+chunks' sum of u w, S_i = (chunk total - prefix) + carry, chunks the forward
+never started are skipped, and U_tot is not read.
 """
 
 from __future__ import annotations
@@ -45,8 +53,11 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
     chunk_alpha,
     chunk_span,
     pixel_coords,
+    chunk_rows,
     plain_walk,
+    resolve_span,
     sorted_pack,
+    span_windows,
     tile_and_win,
     tiles_to_images,
 )
@@ -66,26 +77,38 @@ def chunk_layout(packed: PackedTiles, n_tiles: int):
 
 
 def raster_forward_train_plain(packed: PackedTiles, width: int, height: int,
-                               tile_size: int, bg: tuple[float, float, float]):
-    """Plain PyTorch version of K2: (out [T, 8, p], tbounds [rows, p], the
-    walk's counters). K1's plain walk, recording the boundaries."""
+                               tile_size: int, bg: tuple[float, float, float],
+                               tiles_per_program: int | None = None,
+                               span_cap: int | None = None):
+    """Plain PyTorch version of K2 and, with the span options, of K2-span:
+    (out [T, 8, p], tbounds [rows, p], the walk's counters). K1's plain
+    walk, recording the boundaries."""
     n_tiles = (width // tile_size) * (height // tile_size)
+    span = resolve_span(n_tiles, packed.rows16.shape[1], tiles_per_program,
+                        span_cap, "fwd_train")
     out, walk, tbounds = plain_walk(packed, width, height, tile_size, bg,
-                                    boundaries=chunk_layout(packed, n_tiles))
+                                    boundaries=chunk_layout(packed, n_tiles),
+                                    span=span)
     return out, tbounds, walk
 
 
 @functools.cache
 def _launchers():
+    """(K2, K3, K2-span, K4) launch functions."""
     lib = kernels.load("tiled_train")
     fwd, bwd = lib.tiled_fwd_train_launch, lib.tiled_bwd_launch
+    fwd_span, bwd_rev = (lib.tiled_fwd_train_span_launch,
+                         lib.tiled_bwd_reverse_launch)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [i32, i32, ctypes.c_int64, i32, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ptr]
-    fwd.argtypes = [ptr] * 6 + tail
-    bwd.argtypes = [ptr] * 7 + tail
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    geom = [i32, i32, ctypes.c_int64, i32, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float]
+    fwd.argtypes = [ptr] * 6 + geom + [ptr]
+    bwd.argtypes = [ptr] * 7 + geom + [ptr]
+    fwd_span.argtypes = [ptr] * 6 + geom + [i32, i32, ptr]
+    bwd_rev.argtypes = [ptr] * 7 + geom + [i32, i32, ptr]
+    for fn in (fwd, bwd, fwd_span, bwd_rev):
+        fn.restype = ctypes.c_int
+    return fwd, bwd, fwd_span, bwd_rev
 
 
 def _launch(fn, name: str, dev, *args) -> None:
@@ -104,50 +127,114 @@ def _device(packed: PackedTiles) -> torch.device:
 
 
 def raster_forward_train(packed: PackedTiles, width: int, height: int,
-                         tile_size: int, bg: tuple[float, float, float]):
+                         tile_size: int, bg: tuple[float, float, float],
+                         tiles_per_program: int | None = None,
+                         span_cap: int | None = None):
     """Composite every tile and record the chunk boundaries: (out_t
     [T, 8, p] as ``raster_forward_tiles``, tbounds [rows, p]).
 
-    A CUDA ``packed`` launches K2 (or raises): rows of tbounds past the sum
-    of the tiles' chunk counts are left unwritten, and K3 never reads them.
-    A CPU one runs the plain version. ``raster_forward_train.launches``
-    counts K2 launches."""
+    A CUDA ``packed`` launches K2 or, when ``resolve_span`` leaves a span,
+    K2-span (or raises): rows of tbounds past the sum of the tiles' chunk
+    counts are left unwritten, and the backward never reads them. A CPU one
+    runs the plain version. ``raster_forward_train.launches`` counts K2
+    launches and ``raster_forward_train.span_launches`` K2-span launches."""
     check_packed(packed, width, height, tile_size)
     dev = _device(packed)
     if dev.type == "cpu":
-        return raster_forward_train_plain(packed, width, height, tile_size, bg)[:2]
+        return raster_forward_train_plain(packed, width, height, tile_size, bg,
+                                          tiles_per_program, span_cap)[:2]
     tw = width // tile_size
     n_tiles = tw * (height // tile_size)
     p = tile_size * tile_size
+    b_pad = packed.rows16.shape[1]
+    tpp, cap = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap,
+                            "fwd_train")
     offsets, n_rows = chunk_layout(packed, n_tiles)
     out = torch.empty((n_tiles, 8, p), dtype=torch.float32, device=dev)
     tbounds = torch.empty((n_rows, p), dtype=torch.float32, device=dev)
-    _launch(_launchers()[0], "tiled_fwd_train", dev, packed.starts.data_ptr(),
-            packed.counts.data_ptr(), offsets.data_ptr(),
-            packed.rows16.data_ptr(), out.data_ptr(), tbounds.data_ptr(),
-            n_tiles, tw, packed.rows16.shape[1], tile_size, float(bg[0]),
-            float(bg[1]), float(bg[2]))
-    raster_forward_train.launches += 1
+    args = [packed.starts.data_ptr(), packed.counts.data_ptr(),
+            offsets.data_ptr(), packed.rows16.data_ptr(), out.data_ptr(),
+            tbounds.data_ptr(), n_tiles, tw, b_pad, tile_size, float(bg[0]),
+            float(bg[1]), float(bg[2])]
+    if cap:
+        _launch(_launchers()[2], "tiled_fwd_train_span", dev, *args, tpp, cap)
+        raster_forward_train.span_launches += 1
+    else:
+        _launch(_launchers()[0], "tiled_fwd_train", dev, *args)
+        raster_forward_train.launches += 1
     return out, tbounds
 
 
 raster_forward_train.launches = 0
+raster_forward_train.span_launches = 0
+
+
+def chunk_grads_plain(blk, px, py, live, g4, kk, t_start, suffix,
+                      suffix_is_remainder: bool):
+    """One chunk's gradient block [A, 16, 128] and its total of u w per
+    pixel [A, p], for A tiles at once: blk [A, 16, 128], px/py [A, p, 1],
+    live [A, 128], g4 [A, p, 4], kk/t_start/suffix [A, p].
+
+    With ``suffix_is_remainder`` the suffix is U_tot minus the EARLIER
+    chunks' totals and S_i = suffix - prefix (K3's forward sweep); without
+    it the suffix is the carry of the LATER chunks and S_i = (chunk total -
+    prefix) + suffix (K4's reverse sweep)."""
+    dx, dy, a_raw, alpha, dead = chunk_alpha(blk, px, py, live)
+    incl = torch.cumprod(1.0 - alpha, dim=2)
+    excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=2)
+    t_i = t_start[..., None] * excl                                   # [A, p, 128]
+    w = alpha * t_i
+    ch4 = torch.cat([blk[:, 5:8], blk[:, 9:10]], dim=1)               # [A, 4, 128]
+    u = torch.einsum("apc,acl->apl", g4, ch4)
+    cum = torch.cumsum(u * w, dim=2)
+    chunk_total = cum[..., -1]
+    if suffix_is_remainder:
+        s_i = suffix[..., None] - cum
+    else:
+        s_i = (chunk_total[..., None] - cum) + suffix[..., None]
+    dl_da = u * t_i + ((kk[..., None] - s_i)
+                       / torch.clamp_min(1.0 - alpha, 1e-3))
+    dpow = torch.where(dead | (a_raw > ALPHA_MAX), torch.zeros_like(dl_da),
+                       dl_da * a_raw)
+
+    ca, cb, cc = blk[:, 2], blk[:, 3], blk[:, 4]                      # [A, 128]
+    sdx = (dpow * dx).sum(1)
+    sdy = (dpow * dy).sum(1)
+    gblk = torch.zeros_like(blk)
+    gblk[:, 0] = ca * sdx + cb * sdy
+    gblk[:, 1] = cc * sdy + cb * sdx
+    gblk[:, 2] = -0.5 * (dpow * dx * dx).sum(1)
+    gblk[:, 3] = -(dpow * dx * dy).sum(1)
+    gblk[:, 4] = -0.5 * (dpow * dy * dy).sum(1)
+    cg = torch.einsum("apc,apl->acl", g4, w)                          # [A, 4, 128]
+    gblk[:, 5:8] = cg[:, 0:3]
+    gblk[:, 8] = dpow.sum(1) / torch.clamp_min(blk[:, 8], 1e-30)
+    gblk[:, 9] = cg[:, 3]
+    return gblk, chunk_total
 
 
 def run_backward_plain(packed: PackedTiles, gimg_t: torch.Tensor,
                        tbounds: torch.Tensor, width: int, height: int,
-                       tile_size: int, bg: tuple[float, float, float]
-                       ) -> torch.Tensor:
-    """Plain PyTorch version of K3: per-instance grads [16, B_pad].
+                       tile_size: int, bg: tuple[float, float, float],
+                       tiles_per_program: int | None = None,
+                       span_cap: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K3 and, when the span options leave a span,
+    of K4: per-instance grads [16, B_pad].
 
-    All tiles advance together over chunk index ``ci``, as the forward's
-    plain walk does; a tile takes part while ``ci < n_chunks`` and its
-    saved boundary at ci is not all zero (K2 started the chunk)."""
+    All tiles advance together over a step k. K3's sweep takes chunk ci = k:
+    a tile takes part while ``ci < n_chunks`` and its saved boundary at ci
+    is not all zero (K2 started the chunk). K4's sweep takes ci =
+    n_chunks - 1 - k per tile, skips chunks never started, and carries the
+    later chunks' totals instead of reading U_tot; tiles of programs that
+    fit read their chunks from the program's window."""
     tw, th = width // tile_size, height // tile_size
     n_tiles = tw * th
     dev = packed.rows16.device
     b_pad = packed.rows16.shape[1]
+    span = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap, "bwd")
+    reverse = span[1] > 0
     rows3d = packed.rows16.reshape(PACK16, b_pad // CHUNK, CHUNK).permute(1, 0, 2)
+    windows = span_windows(packed, rows3d, span)
     starts, ends, kt, n_chunks = chunk_span(packed)
     offsets = chunk_layout(packed, n_tiles)[0].to(torch.int64)
     px, py = pixel_coords(width, tile_size, n_tiles, dev)
@@ -160,47 +247,26 @@ def run_backward_plain(packed: PackedTiles, gimg_t: torch.Tensor,
     u_tot = gimg_t[..., 6]
     carry = torch.zeros_like(u_tot)
     grads = torch.zeros((PACK16, b_pad), dtype=torch.float32, device=dev)
-    for ci in range(int(n_chunks.max()) if n_tiles else 0):
-        cand = (ci < n_chunks).nonzero().squeeze(1)
+    for k in range(int(n_chunks.max()) if n_tiles else 0):
+        cand = (k < n_chunks).nonzero().squeeze(1)
+        ci = n_chunks[cand] - 1 - k if reverse else torch.full_like(cand, k)
         t_start = tbounds[offsets[cand] + ci]                         # [A, p]
         started = t_start.amax(dim=1) > 0.0
-        ta, t_start = cand[started], t_start[started]
+        ta, ci, t_start = cand[started], ci[started], t_start[started]
         if ta.numel() == 0:
+            if reverse:
+                continue
             break
-        blk = rows3d[kt[ta] + ci]                                     # [A, 16, 128]
+        blk = chunk_rows(rows3d, windows, ta, kt[ta] + ci)            # [A, 16, 128]
         pos = (kt[ta] + ci)[:, None] * CHUNK + lane[None, :]
         live = (pos >= starts[ta, None]) & (pos < ends[ta, None])     # [A, 128]
-        dx, dy, a_raw, alpha, dead = chunk_alpha(blk, px[ta], py[ta], live)
-
-        incl = torch.cumprod(1.0 - alpha, dim=2)
-        excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=2)
-        t_i = t_start[..., None] * excl                               # [A, p, 128]
-        w = alpha * t_i
-        ch4 = torch.cat([blk[:, 5:8], blk[:, 9:10]], dim=1)           # [A, 4, 128]
-        u = torch.einsum("apc,acl->apl", g4[ta], ch4)
-        cum = torch.cumsum(u * w, dim=2)
-        s_i = (u_tot[ta] - carry[ta])[..., None] - cum
-        dl_da = u * t_i + ((kk[ta][..., None] - s_i)
-                           / torch.clamp_min(1.0 - alpha, 1e-3))
-        dpow = torch.where(dead | (a_raw > ALPHA_MAX), torch.zeros_like(dl_da),
-                           dl_da * a_raw)
-
-        ca, cb, cc = blk[:, 2], blk[:, 3], blk[:, 4]                  # [A, 128]
-        sdx = (dpow * dx).sum(1)
-        sdy = (dpow * dy).sum(1)
-        gblk = torch.zeros_like(blk)
-        gblk[:, 0] = ca * sdx + cb * sdy
-        gblk[:, 1] = cc * sdy + cb * sdx
-        gblk[:, 2] = -0.5 * (dpow * dx * dx).sum(1)
-        gblk[:, 3] = -(dpow * dx * dy).sum(1)
-        gblk[:, 4] = -0.5 * (dpow * dy * dy).sum(1)
-        cg = torch.einsum("apc,apl->acl", g4[ta], w)                  # [A, 4, 128]
-        gblk[:, 5:8] = cg[:, 0:3]
-        gblk[:, 8] = dpow.sum(1) / torch.clamp_min(blk[:, 8], 1e-30)
-        gblk[:, 9] = cg[:, 3]
+        suffix = carry[ta] if reverse else u_tot[ta] - carry[ta]
+        gblk, chunk_total = chunk_grads_plain(
+            blk, px[ta], py[ta], live, g4[ta], kk[ta], t_start, suffix,
+            suffix_is_remainder=not reverse)
         # every live slot belongs to exactly one tile: plain assignment
         grads[:, pos[live]] = gblk.permute(1, 0, 2)[:, live]
-        carry[ta] += cum[..., -1]
+        carry[ta] += chunk_total
     return grads
 
 
@@ -225,33 +291,42 @@ def check_backward_inputs(packed: PackedTiles, gimg_t: torch.Tensor,
 
 def run_backward(packed: PackedTiles, gimg_t: torch.Tensor,
                  tbounds: torch.Tensor, width: int, height: int,
-                 tile_size: int, bg: tuple[float, float, float]
-                 ) -> torch.Tensor:
+                 tile_size: int, bg: tuple[float, float, float],
+                 tiles_per_program: int | None = None,
+                 span_cap: int | None = None) -> torch.Tensor:
     """Per-instance grads [16, B_pad] from the grad image ``gimg_t``
     [T, p, 8] and the forward's boundaries.
 
-    A CUDA ``packed`` launches K3 (or raises); a CPU one runs the plain
-    version. ``run_backward.launches`` counts K3 launches."""
+    A CUDA ``packed`` launches K3 or, when ``resolve_span`` leaves a span,
+    K4 (or raises); a CPU one runs the plain version.
+    ``run_backward.launches`` counts K3 launches and
+    ``run_backward.reverse_launches`` K4 launches."""
     check_backward_inputs(packed, gimg_t, tbounds, width, height, tile_size)
     dev = _device(packed)
     if dev.type == "cpu":
         return run_backward_plain(packed, gimg_t, tbounds, width, height,
-                                  tile_size, bg)
+                                  tile_size, bg, tiles_per_program, span_cap)
     tw = width // tile_size
     n_tiles = tw * (height // tile_size)
+    b_pad = packed.rows16.shape[1]
+    tpp, cap = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap, "bwd")
     offsets, _ = chunk_layout(packed, n_tiles)
-    grads = torch.zeros((PACK16, packed.rows16.shape[1]), dtype=torch.float32,
-                        device=dev)
-    _launch(_launchers()[1], "tiled_bwd", dev, packed.starts.data_ptr(),
-            packed.counts.data_ptr(), offsets.data_ptr(),
-            packed.rows16.data_ptr(), gimg_t.data_ptr(), tbounds.data_ptr(),
-            grads.data_ptr(), n_tiles, tw, packed.rows16.shape[1], tile_size,
-            float(bg[0]), float(bg[1]), float(bg[2]))
-    run_backward.launches += 1
+    grads = torch.zeros((PACK16, b_pad), dtype=torch.float32, device=dev)
+    args = [packed.starts.data_ptr(), packed.counts.data_ptr(),
+            offsets.data_ptr(), packed.rows16.data_ptr(), gimg_t.data_ptr(),
+            tbounds.data_ptr(), grads.data_ptr(), n_tiles, tw, b_pad,
+            tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
+    if cap:
+        _launch(_launchers()[3], "tiled_bwd_reverse", dev, *args, tpp, cap)
+        run_backward.reverse_launches += 1
+    else:
+        _launch(_launchers()[1], "tiled_bwd", dev, *args)
+        run_backward.launches += 1
     return grads
 
 
 run_backward.launches = 0
+run_backward.reverse_launches = 0
 
 
 def images_to_tiles(img: torch.Tensor, width: int, height: int,
@@ -280,11 +355,12 @@ def grad_image(rgb, dep, acc, g_rgb, g_dep, g_acc,
 class _TiledTrainRaster(torch.autograd.Function):
     """(xy, depth, conic, color, opacity, valid, power_cut, radius) ->
     (rgb [3,H,W], depth [1,H,W], alpha [1,H,W]) through K2, with K3 as its
-    backward."""
+    backward; with span options, through K2-span and K4."""
 
     @staticmethod
     def forward(ctx, xy, depth, conic, color, opacity, valid, power_cut,
-                radius, width, height, bg, pack_order):
+                radius, width, height, bg, pack_order, tiles_per_program,
+                span_cap):
         tile_size, win = tile_and_win(width, height)
         tw, th = width // tile_size, height // tile_size
         proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic,
@@ -292,40 +368,44 @@ class _TiledTrainRaster(torch.autograd.Function):
                                   valid=valid, power_cut=power_cut)
         packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
         out_t, tbounds = raster_forward_train(packed, width, height, tile_size,
-                                              bg)
+                                              bg, tiles_per_program, span_cap)
         rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
         ctx.save_for_backward(packed.rows16, packed.starts, packed.counts,
                               packed.gauss_idx, tbounds, rgb, dep, acc)
-        ctx.geometry = (width, height, tile_size, bg, xy.shape[0])
+        ctx.geometry = (width, height, tile_size, bg, xy.shape[0],
+                        tiles_per_program, span_cap)
         return rgb, dep, acc
 
     @staticmethod
     def backward(ctx, g_rgb, g_dep, g_acc):
         rows16, starts, counts, gauss_idx, tbounds, rgb, dep, acc = \
             ctx.saved_tensors
-        width, height, tile_size, bg, n = ctx.geometry
+        width, height, tile_size, bg, n, tiles_per_program, span_cap = \
+            ctx.geometry
         packed = PackedTiles(rows16, starts, counts, gauss_idx, aux=None)
         gimg_t = images_to_tiles(grad_image(rgb, dep, acc, g_rgb, g_dep, g_acc,
                                             bg), width, height, tile_size)
         grads16 = run_backward(packed, gimg_t, tbounds, width, height,
-                               tile_size, bg)
+                               tile_size, bg, tiles_per_program, span_cap)
         per_gauss = grads16.new_zeros((n + 1, PACK16)).index_add_(
             0, gauss_idx, grads16.T)[:n]
         return (per_gauss[:, 0:2], per_gauss[:, 9], per_gauss[:, 2:5],
                 per_gauss[:, 5:8], per_gauss[:, 8],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 def rasterize_tiled_train(proj: ProjectedGaussians, width: int, height: int,
                           bg: tuple[float, float, float] = (1.0, 1.0, 1.0),
-                          pack_order: str = "exact"):
+                          pack_order: str = "exact",
+                          tiles_per_program: int | None = None,
+                          span_cap: int | None = None):
     """Differentiable rasterization at ``tile_and_win``'s tiling: (rgb
     [3,H,W], depth [1,H,W], alpha [1,H,W]); counterpart of JAX
-    ``rasterize_pallas_grad``."""
+    ``rasterize_pallas_grad``, span options included."""
     tile_size, _ = tile_and_win(width, height)
     if width % tile_size or height % tile_size:
         raise ValueError("width/height must be multiples of tile_size")
     return _TiledTrainRaster.apply(
         proj.xy, proj.depth, proj.conic, proj.color, proj.opacity, proj.valid,
         proj.power_cut, proj.radius, width, height,
-        tuple(float(c) for c in bg), pack_order)
+        tuple(float(c) for c in bg), pack_order, tiles_per_program, span_cap)

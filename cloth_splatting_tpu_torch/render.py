@@ -43,8 +43,7 @@ from cloth_splatting_tpu_torch.ops.sh import eval_sh
 SERVING_BACKEND = "tiled_fwd"
 TRAIN_BACKEND = "tiled_train"
 # backends of the JAX package that later slices of the port bring
-_LATER = {"tiled": "slice 3 (the full fit: the dense XLA tier that eval's "
-                   "k_cap doubling uses)"}
+_LATER = {"tiled": "slice 4 (the dense tier and its k_cap)"}
 
 
 class CameraArrays(NamedTuple):

@@ -2,9 +2,10 @@
 ``cloth_splatting_tpu/train/config.py`` that the port reads, under the same
 group and field names, with the same defaults.
 
-The port has only the fields its code reads; density control, the loop,
-data loading and the dense tier bring theirs with slice 3. So an override
-of a field the port does not have raises instead of doing nothing.
+The port has only the fields its code reads (the train step, density
+control, the loop and its command line); the dense tier's ``raster_k_cap``
+and ``raster_k_chunk`` come with that tier. So an override of a field the
+port does not have raises instead of doing nothing.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ class ModelConfig:
 
     sh_degree: int = 3
     simulator: str = "mlp"          # 'mlp' residual MLP | 'embedding' table
+    source_path: str = ""
+    model_path: str = ""
     white_background: bool = True
+    eval: bool = True               # keep the test split out of training
 
 
 @dataclasses.dataclass
@@ -27,6 +31,7 @@ class OptimizationConfig:
     """Reference OptimizationParams plus the JAX package's additions."""
 
     iterations: int = 8_000
+    coarse_iterations: int = 3000
     position_lr_init: float = 0.00016
     position_lr_final: float = 0.0000016
     position_lr_delay_mult: float = 0.01
@@ -39,6 +44,10 @@ class OptimizationConfig:
     # iterations down to lr_tail_floor * lr; 1.0 = off
     lr_tail_start: float = 1.0
     lr_tail_floor: float = 0.01
+    # 3-step window placement: 'interior' draws the mid time over [1, T-2]
+    # (the reference regime), 'balanced' over [0, T-1] and clamps
+    time_sample: str = "interior"
+    percent_dense: float = 0.01
     lambda_dssim: float = 0.1
     lambda_rigid: float = 0.3
     lambda_deform_mag: float = 0.01
@@ -50,11 +59,30 @@ class OptimizationConfig:
     lambda_rigidity: float = 0.0
     lambda_w: float = 2000.0
     k_nearest: int = 20
+    reg_iter: int = 5000
+    knn_update_iter: int = 1000
+    opacity_reset_interval: int = 3000
+    densification_interval: int = 100
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold_fine_init: float = 0.0002
+    densify_grad_threshold_after: float = 0.0002
+    pruning_from_iter: int = 500
+    pruning_interval: int = 100
+    opacity_threshold_fine_init: float = 0.005
+    opacity_threshold_fine_after: float = 0.005
+    static_reconst: bool = False
+    static_reconst_iteration: int = 2000
+    bary_cleanup: int = 200
     gaussian_init_factor: int = 2
+    no_coarse: bool = False
     # "auto" and "pallas" both render through K2/K3 in the port; the dense
-    # tier "tiled" comes with slice 3
+    # tier "tiled" comes with slice 4
     raster_backend: str = "auto"
     raster_pack_order: str = "fused"
+    # evaluate and save an exponential moving average of (Gaussian,
+    # simulator) parameters with this decay; 0 = off
+    param_ema: float = 0.0
 
 
 @dataclasses.dataclass
@@ -90,3 +118,4 @@ def apply_overrides(cfg: Config, group_dicts: dict[str, dict[str, Any]]) -> Conf
                 raise KeyError(f"{group_name} has no field {key!r} in the port")
             setattr(group, key, value)
     return cfg
+

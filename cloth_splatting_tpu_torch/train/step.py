@@ -1,6 +1,5 @@
-"""The splat train step; counterpart of ``cloth_splatting_tpu/train/step.py``
-(``SplatTrainState``, ``StepMetrics``, ``Trainer.step`` and
-``compute_knn_state``).
+"""The splat train step and the host-side density schedule; counterpart of
+``cloth_splatting_tpu/train/step.py``.
 
 One step renders the camera batch (one camera after another, each through
 the differentiable backend ``tiled_train``: K2 forward, K3 backward), sums
@@ -13,13 +12,22 @@ gradient norms feed the density-control statistics.
 
 ``Trainer.step`` is ``forward`` -> ``backward`` -> ``update``; the three
 are public so that a caller can time the stages. The step is functional:
-it returns a new state and leaves the old one as it was. Density control,
-the banked step and the loop come with slice 3.
+it returns a new state and leaves the old one as it was.
+
+``step_banked`` addresses (view x time) banks of cameras and uint8 images
+that live on the device, so an iteration moves nothing from the host, and
+threads a ``StepCarry`` of running statistics that the loop reads only at
+its progress ticks. ``density_control`` runs densify (clone + split), prune
+and the opacity reset on the reference's schedule, at fixed capacity;
+``grow_capacity`` pads the state after a densify overflow, and
+``cleanup_barycentric`` moves Gaussians whose barycentric coordinates went
+negative to the neighbouring face (numpy, on the host, infrequent).
 """
 
 from __future__ import annotations
 
 import math
+from collections import defaultdict
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -107,6 +115,21 @@ class StepMetrics(NamedTuple):
     n_dropped: torch.Tensor
 
 
+class StepCarry(NamedTuple):
+    """Running statistics threaded through the banked step on the device, so
+    the per-iteration smoothing costs no device-to-host fetch."""
+
+    ema_loss: torch.Tensor    # per-iteration 0.4 / 0.6 exponential average
+    ema_psnr: torch.Tensor
+    drop_accum: torch.Tensor  # sum of n_dropped since the last fetch
+
+    @staticmethod
+    def zeros(device: str | torch.device = "cuda") -> "StepCarry":
+        return StepCarry(torch.zeros((), device=device),
+                         torch.zeros((), device=device),
+                         torch.zeros((), dtype=torch.int32, device=device))
+
+
 class Forward(NamedTuple):
     """What ``Trainer.forward`` hands to ``backward`` and ``update``: the
     loss with its graph, the leaves it was taken at, and the statistics."""
@@ -141,7 +164,7 @@ class Trainer:
         backend = cfg.opt.raster_backend
         if backend == "tiled":
             raise NotImplementedError(
-                "raster_backend 'tiled' comes with slice 3 of the port")
+                "raster_backend 'tiled' comes with slice 4 of the port")
         if backend not in ("auto", "pallas"):
             raise ValueError(f"unknown raster_backend {backend!r}")
         self.backend = TRAIN_BACKEND
@@ -309,6 +332,29 @@ class Trainer:
                            knn_state)
         return self.update(state, fwd, self.backward(fwd))
 
+    def step_banked(self, state: SplatTrainState, cam_bank: CameraArrays,
+                    gt_bank: torch.Tensor, mask_bank: torch.Tensor | None,
+                    view_idx: int, time_ids, sh_degree: int, static: bool,
+                    knn_state: KnnState | None = None,
+                    carry: StepCarry | None = None):
+        """A step on the cameras ``(view_idx, t)`` for t in ``time_ids`` of
+        device banks: ``cam_bank`` fields [V, T, ...], ``gt_bank`` uint8
+        [V, T, 3, H, W], ``mask_bank`` float [V, T, 1, H, W] or None. With
+        ``carry`` also returns the updated carry."""
+        t_ids = torch.as_tensor(time_ids, dtype=torch.int64, device=self.device)
+        cams = CameraArrays(*(f[view_idx, t_ids] for f in cam_bank))
+        gts = gt_bank[view_idx, t_ids].to(torch.float32) / 255.0
+        masks = None if mask_bank is None else mask_bank[view_idx, t_ids]
+        new_state, metrics = self.step(state, cams, gts, masks, sh_degree,
+                                       static, knn_state)
+        if carry is None:
+            return new_state, metrics
+        new_carry = StepCarry(
+            ema_loss=0.4 * metrics.loss + 0.6 * carry.ema_loss,
+            ema_psnr=0.4 * metrics.psnr + 0.6 * carry.ema_psnr,
+            drop_accum=carry.drop_accum + metrics.n_dropped.to(torch.int32))
+        return new_state, metrics, new_carry
+
     # ------------------------------------------------------------------- knn
 
     @torch.no_grad()
@@ -334,3 +380,176 @@ class Trainer:
         valid = alive[:, None] & alive[idx] & finite
         w = torch.where(valid, torch.exp(-o.lambda_w * d2), torch.zeros_like(d2))
         return KnnState(idx=idx, d0=torch.sqrt(d2), w=w, valid=valid)
+
+    # ------------------------------------------------------- density control
+
+    @torch.no_grad()
+    def _densify(self, state: SplatTrainState, grad_threshold: float,
+                 eps: torch.Tensor):
+        """Clone, then split (``eps`` [2, C, 3]: the split's normal jitter);
+        zero the touched slots' moments and reset the statistics. Returns
+        (state, overflow)."""
+        o = self.cfg.opt
+        gs = state.gstate
+        grads = gs.grad_accum / torch.clamp_min(gs.denom, 1e-12)
+        grads = torch.where(torch.isnan(grads), torch.zeros_like(grads), grads)
+        res_c = G.densify_clone(state.params, gs, grads, grad_threshold,
+                                o.percent_dense, self.spatial_lr_scale)
+        res_s = G.densify_split(res_c.params, res_c.state, self.mesh, grads,
+                                grad_threshold, o.percent_dense,
+                                self.spatial_lr_scale, eps)
+        cap = state.params.face_bary.shape[0]
+        g_opt = G.zero_opt_rows(state.g_opt, res_c.touched | res_s.touched, cap)
+        gstate = res_s.state._replace(
+            grad_accum=torch.zeros_like(gs.grad_accum),
+            denom=torch.zeros_like(gs.denom),
+            max_radii2d=torch.zeros_like(gs.max_radii2d))
+        return (state._replace(params=res_s.params, gstate=gstate, g_opt=g_opt),
+                res_c.overflow + res_s.overflow)
+
+    @torch.no_grad()
+    def _prune(self, state: SplatTrainState, min_opacity: float,
+               use_size_threshold: bool) -> SplatTrainState:
+        return state._replace(gstate=G.prune(
+            state.params, state.gstate, min_opacity, self.spatial_lr_scale,
+            20.0 if use_size_threshold else None))
+
+    @torch.no_grad()
+    def _reset_opacity(self, state: SplatTrainState) -> SplatTrainState:
+        """Clamp the opacities and clear the opacity leaf's moments."""
+        params, _ = G.reset_opacity(state.params)
+        g_opt = state.g_opt._replace(
+            mu=state.g_opt.mu._replace(opacity=torch.zeros_like(params.opacity)),
+            nu=state.g_opt.nu._replace(opacity=torch.zeros_like(params.opacity)))
+        return state._replace(params=params, g_opt=g_opt)
+
+    @staticmethod
+    def density_control_due(cfg: Config, iteration: int) -> bool:
+        """True iff ``density_control`` would act at this iteration."""
+        o = cfg.opt
+        if iteration >= o.densify_until_iter:
+            return False
+        return (
+            (iteration > o.densify_from_iter
+             and iteration % o.densification_interval == 0)
+            or (iteration > o.pruning_from_iter
+                and iteration % o.pruning_interval == 0)
+            or iteration % o.opacity_reset_interval == 0
+            or (cfg.model.white_background
+                and iteration == o.densify_from_iter))
+
+    def density_thresholds(self, iteration: int) -> tuple[float, float]:
+        """(opacity, densify-gradient) thresholds at ``iteration``: linear
+        from the ``_init`` value to the ``_after`` value at
+        ``densify_until_iter``."""
+        o = self.cfg.opt
+        opacity = o.opacity_threshold_fine_init - iteration * (
+            o.opacity_threshold_fine_init - o.opacity_threshold_fine_after
+        ) / o.densify_until_iter
+        densify = o.densify_grad_threshold_fine_init - iteration * (
+            o.densify_grad_threshold_fine_init - o.densify_grad_threshold_after
+        ) / o.densify_until_iter
+        return opacity, densify
+
+    def density_control(self, state: SplatTrainState, iteration: int,
+                        generator: torch.Generator | None = None,
+                        eps: torch.Tensor | None = None
+                        ) -> tuple[SplatTrainState, int]:
+        """The host-side schedule of one iteration: densify (growing the
+        capacity after an overflow), prune, opacity reset. The split's
+        standard-normal jitter is ``eps`` [2, C, 3] when given, else drawn
+        from ``generator`` (on the trainer's device). Returns (state,
+        overflow count)."""
+        o = self.cfg.opt
+        overflow = 0
+        if iteration >= o.densify_until_iter:
+            return state, overflow
+        opacity_threshold, densify_threshold = self.density_thresholds(iteration)
+
+        if iteration > o.densify_from_iter and iteration % o.densification_interval == 0:
+            if eps is None:
+                eps = torch.randn((2,) + tuple(state.params.scaling.shape),
+                                  generator=generator, device=self.device)
+            state, ovf = self._densify(state, densify_threshold, eps)
+            overflow = int(ovf)
+            if overflow > 0:
+                state = self.grow_capacity(state)
+        if iteration > o.pruning_from_iter and iteration % o.pruning_interval == 0:
+            state = self._prune(state, opacity_threshold,
+                                iteration > o.opacity_reset_interval)
+        if iteration % o.opacity_reset_interval == 0 or (
+                self.cfg.model.white_background
+                and iteration == o.densify_from_iter):
+            state = self._reset_opacity(state)
+        return state, overflow
+
+    def grow_capacity(self, state: SplatTrainState,
+                      factor: float = 2.0) -> SplatTrainState:
+        """Pad every capacity-leading tensor (parameters, bookkeeping, Adam
+        moments) with dead slots after a densify overflow."""
+        old_cap = state.params.face_bary.shape[0]
+        new_cap = G.round_capacity(int(old_cap * factor))
+        if new_cap <= old_cap:
+            return state
+        print(f"[density] growing gaussian capacity {old_cap} -> {new_cap}")
+        params, gstate, g_opt = G.grow_state_arrays(
+            state.params, state.gstate, state.g_opt, new_cap)
+        return state._replace(params=params, gstate=gstate, g_opt=g_opt)
+
+    # --------------------------------------------------- barycentric cleanup
+
+    def cleanup_barycentric(self, state: SplatTrainState) -> SplatTrainState:
+        """Reassign Gaussians with a negative barycentric coordinate to the
+        adjacent face (on the host, infrequent)."""
+        params, gstate = cleanup_barycentric_host(state.params, state.gstate,
+                                                  self.mesh)
+        return state._replace(params=params, gstate=gstate)
+
+
+def cleanup_barycentric_host(params: G.GaussianParams, gstate: G.GaussianState,
+                             mesh: G.Mesh
+                             ) -> tuple[G.GaussianParams, G.GaussianState]:
+    """Numpy implementation of the barycentric cleanup.
+
+    Each alive Gaussian with a negative barycentric coordinate moves to the
+    neighbouring face that shares the edge opposite the offending vertex; at
+    the mesh boundary, where there is none, the coordinate is nudged back
+    inside."""
+    dev = params.face_bary.device
+    bary = params.face_bary.cpu().numpy().copy()
+    face_ids = gstate.face_ids.cpu().numpy().copy()
+    alive = gstate.alive.cpu().numpy()
+    faces = mesh.faces.cpu().numpy()
+    pos = mesh.pos.cpu().numpy()
+
+    affected = np.argwhere((bary < 0) & alive[:, None])
+    if affected.size == 0:
+        return params, gstate
+
+    # edge (min(v1, v2), max(v1, v2)) -> faces containing it
+    edge2faces = defaultdict(list)
+    for f_idx, f in enumerate(faces):
+        for k in range(3):
+            e = (min(f[k], f[(k + 1) % 3]), max(f[k], f[(k + 1) % 3]))
+            edge2faces[e].append(f_idx)
+
+    xyz = np.einsum("cb,cbx->cx",
+                    bary / np.maximum(bary.sum(1, keepdims=True), 1e-8),
+                    pos[faces[face_ids]])
+    for gi, bi in affected:
+        f = faces[face_ids[gi]]
+        others = np.delete(f, bi)
+        e = (min(others[0], others[1]), max(others[0], others[1]))
+        candidates = [c for c in edge2faces[e] if c != face_ids[gi]]
+        if not candidates:
+            bary[gi, bi] = 0.005
+            bary[gi] = bary[gi] / bary[gi].sum()
+        else:
+            new_face = candidates[0]
+            face_ids[gi] = new_face
+            tri = pos[faces[new_face]]
+            d = np.linalg.norm(xyz[gi][None] - tri, axis=1)
+            bary[gi] = d / d.sum()
+
+    return (params._replace(face_bary=torch.from_numpy(bary).to(dev)),
+            gstate._replace(face_ids=torch.from_numpy(face_ids).to(dev)))

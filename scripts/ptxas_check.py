@@ -1,11 +1,14 @@
-"""Checks how the port's tile kernels (K1, K2, K3) come out of ptxas.
+"""Checks how the port's tile kernels (K1, K2, K3 and the span forms
+K1-span, K2-span, K4) come out of ptxas.
 
 Builds ``cloth_splatting_tpu_torch/csrc`` at ptxas -O0, -O1 and -O3 (the
 default), once from the sources as they are and once with one rewrite of
 ``composite.cuh``'s tile walk that is the same C++ function: the chunk loop's
 own index carried past the loop (``++ci; break;``) instead of the separate
 ``walked`` counter. Each build's K1, K2 and K3 are held against their plain
-versions on chip_smoke's deep synthetic packs at 32 px and 16 px tiles.
+versions on chip_smoke's deep synthetic packs at 32 px and 16 px tiles, and
+so are K1-span, K2-span and K4 with a window most programs fit and with a
+window of one chunk (mostly the overflow walk).
 Before that it compares the PTX of every kernel between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
@@ -30,6 +33,7 @@ sys.path.insert(0, str(ROOT))
 LEVELS = (0, 1, 3)
 FORMS = ("as-is", "loop-index")
 PACKS = ((32, 256, 20000), (16, 128, 6000), (16, 128, 300))
+SPANS = ((2, 41), (2, 1))   # (tiles_per_program, span_cap)
 _WALKED = (
     ("  int walked = n_chunks;\n  for (int ci = 0; ci < n_chunks; ++ci) {",
      "  int ci = 0;\n  for (; ci < n_chunks; ++ci) {"),
@@ -99,20 +103,27 @@ def check(form: str, level: int) -> bool:
                              size // ts, ts, 3 if ts == 32 else 5, order="exact")
         label = f"{size}px/{ts}px n={n}"
         results = {}
-        try:
-            cs.compare_k1(packed, size, size, ts, label)
-            results["K1"] = None
-        except RuntimeError as e:
-            results["K1"] = str(e)
-        try:
-            _, _, out_k, tb_k = cs.compare_k2(packed, size, size, ts, label)
-            results["K2"] = None
-            cs.compare_k3(packed, cs.cotangent_tiles(out_k, size, size, ts, gen),
-                          tb_k, size, size, ts, label)
-            results["K3"] = None
-        except RuntimeError as e:
-            results.setdefault("K2", str(e))
-            results.setdefault("K3", str(e) if results["K2"] is None else "not run")
+        for span in (None, *SPANS):
+            k1, k2, k3 = (("K1", "K2", "K3") if span is None else
+                          tuple(f"{k} {span[0]}/{span[1]}"
+                                for k in ("K1-span", "K2-span", "K4")))
+            try:
+                cs.compare_k1(packed, size, size, ts, label, span)
+                results[k1] = None
+            except RuntimeError as e:
+                results[k1] = str(e)
+            try:
+                _, _, out_k, tb_k = cs.compare_k2(packed, size, size, ts, label,
+                                                  span)
+                results[k2] = None
+                cs.compare_k3(packed,
+                              cs.cotangent_tiles(out_k, size, size, ts, gen),
+                              tb_k, size, size, ts, label, span)
+                results[k3] = None
+            except RuntimeError as e:
+                results.setdefault(k2, str(e))
+                results.setdefault(k3, str(e) if results[k2] is None
+                                   else "not run")
         for kernel, err in results.items():
             ok = ok and err is None
             print(json.dumps({"form": form, "ptxas": f"-O{level}", "pack": label,

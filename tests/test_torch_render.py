@@ -114,7 +114,7 @@ def test_render_other_backends_raise(tiny):
     tcam = convert.camera_arrays(arrays(jcamera_arrays(cam)), "cpu")
     args = (tcam, cam.width, cam.height, cam.tanfovx, cam.tanfovy, ps["params"],
             ps["state"], ps["mesh"], ps["simulator"], ps["preds"], BG, 3)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         trender(*args, backend="tiled", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         trender(*args, backend="nope", device="cpu")

@@ -313,7 +313,7 @@ def test_trainer_backend_choice():
     for backend in ("auto", "pallas"):
         _, _, ttr = trainers({"OptimizationParams": {"raster_backend": backend}})
         assert ttr.backend == "tiled_train"
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         trainers({"OptimizationParams": {"raster_backend": "tiled"}})
     with pytest.raises(ValueError, match="unknown raster_backend"):
         trainers({"OptimizationParams": {"raster_backend": "nope"}})
@@ -330,7 +330,7 @@ def test_config_defaults_match_jax():
 def test_apply_overrides_rejects_fields_the_port_lacks():
     tcfg = apply_overrides(TConfig(), {"MeshnetParams": {"lr_init": 1e-3}})
     assert tcfg.meshnet.lr_init == 1e-3
-    with pytest.raises(KeyError, match="densify_from_iter"):
-        apply_overrides(TConfig(), {"OptimizationParams": {"densify_from_iter": 1}})
+    with pytest.raises(KeyError, match="raster_k_cap"):
+        apply_overrides(TConfig(), {"OptimizationParams": {"raster_k_cap": 1}})
     with pytest.raises(KeyError, match="PipelineParams"):
         apply_overrides(TConfig(), {"PipelineParams": {"debug": True}})
