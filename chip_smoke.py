@@ -74,8 +74,11 @@ FIT_PROGRESS_EVERY = 50
 FIT_VIEWS = 4
 FIT_SCHEDULE = dict(iterations=FIT_ITERATIONS, densify_from_iter=100,
                     densification_interval=50, pruning_from_iter=100,
-                    pruning_interval=50, opacity_reset_interval=150,
+                    pruning_interval=50, opacity_reset_interval=120,
                     bary_cleanup=100)
+# The last opacity reset (iteration 240) leaves 60 iterations before the
+# held-out evaluation at FIT_ITERATIONS: evaluated right after a reset, every
+# opacity is at its floor and the reading says nothing about the fit.
 FOV = 2.0 * math.atan(0.4)
 BG = (1.0, 1.0, 1.0)
 # K1 and K2 against their plain versions: both walk the same chunks in the
@@ -122,12 +125,12 @@ PEAK_HBM_BYTES = 3.35e12
 # and depth sums (8), dL/dalpha (7), dpow (1), six moment sums (14) and the
 # T update (2): 42.
 OPS_PER_WALKED_PAIR = 14
-# K4 walks every started pair twice: the first pass repeats the 14 and, for
-# a contributing pair, w, u, the running total and the T update (12); the
-# second pass does K3's work on the chunk's total and a carry.
-OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42, "K4": 42 + 12}
-WALKS_PER_PAIR = {"K1": 1, "K2": 1, "K3": 1, "K4": 2}
-
+# K4 computes K3's function on the same pairs; only the occlusion suffix
+# differs, S_i = (chunk_total - cum_i) + carry against K3's U_tot - prefix,
+# one addition more per contributing pair (43). That a thread per pixel
+# walks each chunk twice to know chunk_total first is this kernel's way, not
+# the function's: the second walk shows in its time, not in its bound.
+OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42, "K4": 43}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -161,7 +164,7 @@ def bound(stats: dict, kernel: str, n_bytes: int) -> dict:
     """The least time the card could take for ``kernel``'s work on a pack:
     the larger of its fp32 operations at the fp32 peak and its bytes at the
     memory rate."""
-    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR * WALKS_PER_PAIR[kernel]
+    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR
            + stats["pairs_contributing"] * OPS_PER_CONTRIBUTING_PAIR[kernel])
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
     return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -485,7 +488,8 @@ def span_phase(cases, gen):
     """K1-span, K2-span and K4 against their plain versions (and K4 against
     K3) on every (label, pack, width, height, tile size, spans) of
     ``cases``. Returns the largest errors and the programs' branch counts
-    summed over the cases; raises if either branch was never taken."""
+    summed over the cases; raises if either branch was never taken, or if
+    K1-span or K2-span is not bit-identical to K1 or K2 on any case."""
     err = {"K1-span": 0.0, "K2-span": 0.0, "K4": 0.0, "K4_rel": 0.0,
            "K4_vs_K3_rel": 0.0}
     programs = {k: {"span": 0, "overflow": 0} for k in ("K1-span", "K2-span", "K4")}
@@ -520,6 +524,11 @@ def span_phase(cases, gen):
     for kernel, c in programs.items():
         if c["span"] == 0 or c["overflow"] == 0:
             raise RuntimeError(f"span: {kernel} never took one of its branches {c}")
+    # the span forms run the default kernels' walk on the same rows in the
+    # same order, so they owe the same bits
+    if not all(identical.values()):
+        raise RuntimeError(f"span: a span form is not bit-identical to its "
+                           f"default kernel {identical}")
     return err, programs, identical
 
 
@@ -597,8 +606,9 @@ def span_ab(run_default, run_span, span, what: str, n: int, expected: dict):
     """The default path and the span path in turns (default, span, span,
     default), ``n`` calls each; the launch counters are set to 0 just before
     the first span turn and read just after the second. Returns (ms per call
-    of the four turns, the span kernels' launches in one span turn); raises
-    if the span turns launched anything but ``expected`` per turn."""
+    of the four turns, the launches counted in one span turn: half of what
+    the two turns counted); raises if the span turns launched anything but
+    ``expected`` per turn."""
     ms = {"default": [], "span": []}
     ms["default"].append(run_default())
     reset_launch_counts()
@@ -611,12 +621,13 @@ def span_ab(run_default, run_span, span, what: str, n: int, expected: dict):
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         raise RuntimeError(f"span A/B {what}: launches {got}, expected {want}")
+    per_turn = {k: v // 2 for k, v in got.items()}
     log(f"span A/B {what} tpp={span[0]} span_cap={span[1]}: default "
         f"{ms['default'][0]:.4f} / {ms['default'][1]:.4f}, span "
         f"{ms['span'][0]:.4f} / {ms['span'][1]:.4f} ms per {what} over {n} "
         f"(device; order default, span, span, default); launches per span "
-        f"turn {json.dumps(expected)}")
-    return ms, expected
+        f"turn {json.dumps(per_turn)}")
+    return ms, per_turn
 
 
 def state_tensors(state) -> dict:
@@ -656,6 +667,7 @@ def fit_phase(mesh, tan, gpu):
     from cloth_splatting_tpu_torch.train.config import Config
     from cloth_splatting_tpu_torch.train.loop import (
         EvalFrame,
+        evaluate_split,
         fit_banks,
         load_train_checkpoint,
     )
@@ -692,6 +704,9 @@ def fit_phase(mesh, tan, gpu):
                                       capacity=TRAIN_CAPACITY, device=dev)
     state = trainer.init_state(rng, params, gstate)
     alive0, cap0 = int(state.gstate.alive.sum()), int(state.gstate.alive.numel())
+    held_out_start = evaluate_split(trainer, state, test_frames,
+                                    cfg.model.white_background,
+                                    cfg.model.sh_degree)
 
     # count the host events where they run
     events = {"densify": 0, "prune": 0, "opacity_reset": 0, "cleanup": 0,
@@ -767,6 +782,9 @@ def fit_phase(mesh, tan, gpu):
     if not psnr_end > psnr_50:
         raise RuntimeError(f"fit: EMA PSNR {psnr_50:.3f} at iteration "
                            f"{FIT_PROGRESS_EVERY}, {psnr_end:.3f} at {FIT_ITERATIONS}")
+    if not test_tick[-1]["test_psnr"] > held_out_start["psnr"]:
+        raise RuntimeError(f"fit: held-out PSNR {held_out_start['psnr']:.3f} before "
+                           f"the fit, {test_tick[-1]['test_psnr']:.3f} after")
     a, b = state_tensors(final), state_tensors(reloaded)
     unequal = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
     if unequal:
@@ -783,6 +801,7 @@ def fit_phase(mesh, tan, gpu):
         "capacity_start": cap0, "capacity_end": cap1,
         "grow_capacity_fired": events["grow_capacity"] > 0,
         "ema_psnr": {str(k): v["ema_psnr"] for k, v in sorted(train_ticks.items())},
+        "test_psnr_before_fit": held_out_start["psnr"],
         "test_psnr": test_tick[-1]["test_psnr"], "test_l1": test_tick[-1]["test_l1"],
         "launches": counts, "peak_memory_gb": peak_gb,
         "checkpoint_reloads_equal": True, "gpu": gpu}
@@ -791,8 +810,8 @@ def fit_phase(mesh, tan, gpu):
         f"{record['host_ms_per_iteration']:.3f} (host), events {json.dumps(events)}, "
         f"alive {alive0} -> {alive1}, capacity {cap0} -> {cap1}, EMA PSNR "
         f"{psnr_50:.3f} at {FIT_PROGRESS_EVERY} -> {psnr_end:.3f} at "
-        f"{FIT_ITERATIONS}, held-out PSNR "
-        f"{record['test_psnr']:.3f} [{gpu}]")
+        f"{FIT_ITERATIONS}, held-out PSNR {held_out_start['psnr']:.3f} before the "
+        f"fit -> {record['test_psnr']:.3f} [{gpu}]")
     return record, counts
 
 
@@ -1094,8 +1113,9 @@ def main() -> int:
         f"{json.dumps(k3_bound)} [{gpu}]")
 
     # the span kernels at the same shapes: the same pairs, so K1-span's and
-    # K2-span's bounds are K1's and K2's; K4 walks every pair twice, does not
-    # read U_tot's column (p floats a tile less) and is bound as K3 otherwise
+    # K2-span's bounds are K1's and K2's; K4 is bound as K3 with one more
+    # addition per contributing pair and without U_tot's column (p floats a
+    # tile less)
     k1s_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG,
                                                   *SPAN_32), 50)
     k1s_plain_ms = time_ms(lambda: raster_forward_tiles_plain(
@@ -1219,9 +1239,13 @@ def main() -> int:
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
+    def entry(name, source, replaces, by_path, err, ms, plain_ms, b):
+        # launches_by_path: each main path's own count, read just after the
+        # path was driven from counters set to 0 just before; launches: their
+        # sum
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
                 "library_ms": None}
@@ -1232,38 +1256,41 @@ def main() -> int:
     k3_entry = entry("K3 tiled_bwd forward-order gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
-                     k3_launches + fit_launches["K3"], k3_err, k3_ms, k3_plain_ms,
+                     {"train": k3_launches, "fit": fit_launches["K3"]}, k3_err, k3_ms, k3_plain_ms,
                      k3_bound)
     k3_entry["max_rel_err"] = k3_rel
     k4_entry = entry("K4 tiled_bwd_reverse reverse gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:655",
-                     train_ab_launches["K4"], span_err["K4"], k4_ms, k4_plain_ms,
+                     {"span_train": train_ab_launches["K4"]}, span_err["K4"],
+                     k4_ms, k4_plain_ms,
                      k4_bound)
     k4_entry["max_rel_err"] = span_err["K4_rel"]
     k4_entry["max_rel_err_vs_k3"] = span_err["K4_vs_K3_rel"]
-    # launches: K1, K2, K3 over the serving frames or the Trainer steps plus
-    # the fit; the span kernels over one span turn of the A/B
+    # K1, K2, K3 over the serving frames, the Trainer steps and the fit; the
+    # span kernels over one span turn of the A/B's frames and steps
     print(json.dumps({"kernels": [
         entry("K1 tiled_fwd compositor",
               "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
-              k1_launches + fit_launches["K1"], k1_err, k1_ms, k1_plain_ms,
+              {"serving": k1_launches, "fit": fit_launches["K1"]}, k1_err, k1_ms, k1_plain_ms,
               k1_bound),
         entry("K1-span tiled_fwd_span compositor, one window per program",
               "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
-              serve_ab_launches["K1-span"], span_err["K1-span"], k1s_ms,
+              {"span_serving": serve_ab_launches["K1-span"]},
+              span_err["K1-span"], k1s_ms,
               k1s_plain_ms, k1_bound),
         entry("K2 tiled_fwd_train compositor + boundaries",
               "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
-              k2_launches + fit_launches["K2"], k2_err, k2_ms, k2_plain_ms,
+              {"train": k2_launches, "fit": fit_launches["K2"]}, k2_err, k2_ms, k2_plain_ms,
               k2_bound),
         entry("K2-span tiled_fwd_train_span, one window per program",
               "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",
-              train_ab_launches["K2-span"], span_err["K2-span"], k2s_ms,
+              {"span_train": train_ab_launches["K2-span"]},
+              span_err["K2-span"], k2s_ms,
               k2s_plain_ms, k2_bound),
         k3_entry, k4_entry,
     ]}))

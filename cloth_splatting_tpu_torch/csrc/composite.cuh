@@ -261,19 +261,24 @@ __device__ __forceinline__ void composite_tile(
   }
 }
 
-// One program of the span forms K1-span (kRecord false) and K2-span: `tpp`
-// consecutive tiles per block. When the tiles' chunks fit the window, the
-// block stages them once in `span` (dynamic shared memory, span_cap chunks)
-// and every tile composites from there; otherwise every tile takes the
-// per-chunk walk, staging each chunk in the window's first slot. `fits` is
+// Says at compile time which walk a tile of a program takes.
+template <bool kSpan>
+struct SpanTag {
+  static constexpr bool value = kSpan;
+};
+
+// One program of a span kernel (K1-span, K2-span, K4): `tpp` consecutive
+// tiles per block. When the tiles' chunks fit the window, the block stages
+// them once in `span` (dynamic shared memory, span_cap chunks) and calls
+// tile_fn(tile, SpanTag<true>, nullptr, span, k0c) for each tile; otherwise
+// every tile takes the per-chunk walk, tile_fn(tile, SpanTag<false>, sh,
+// nullptr, 0), staging each chunk in the window's first slot `sh`. `fits` is
 // uniform over the block, so the barriers inside the walks are too.
-template <int PPT, bool kRecord>
-__device__ __forceinline__ void composite_program(
+template <typename TileFn>
+__device__ __forceinline__ void for_each_tile_of_program(
     const int* __restrict__ starts, const int* __restrict__ counts,
-    const int* __restrict__ offsets, const float* __restrict__ rows16,
-    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
-    int tile_size, float bg0, float bg1, float bg2, int tpp, int span_cap,
-    float* span) {
+    const float* __restrict__ rows16, int64_t b_pad, int tpp, int span_cap,
+    float* span, TileFn tile_fn) {
   const int i0 = blockIdx.x * tpp;
   const SpanProgram s = span_program(starts, counts, i0, tpp, span_cap,
                                      static_cast<int>(b_pad / kChunk));
@@ -281,21 +286,53 @@ __device__ __forceinline__ void composite_program(
     load_span(span, rows16, b_pad, s);
     __syncthreads();
     for (int t = 0; t < tpp; ++t)
-      composite_tile<PPT, kRecord, true>(i0 + t, starts, counts, offsets,
-                                         rows16, out, tb, tw, b_pad, tile_size,
-                                         bg0, bg1, bg2, nullptr, span, s.k0c);
+      tile_fn(i0 + t, SpanTag<true>{}, nullptr, span, s.k0c);
   } else {
     float (*sh)[kChunk] = reinterpret_cast<float (*)[kChunk]>(span);
     for (int t = 0; t < tpp; ++t)
-      composite_tile<PPT, kRecord, false>(i0 + t, starts, counts, offsets,
-                                          rows16, out, tb, tw, b_pad, tile_size,
-                                          bg0, bg1, bg2, sh, nullptr, 0);
+      tile_fn(i0 + t, SpanTag<false>{}, sh, nullptr, 0);
   }
 }
 
-// Bytes of dynamic shared memory for a window of span_cap chunks.
-inline size_t span_bytes(int span_cap) {
-  return static_cast<size_t>(span_cap) * kRows * kChunk * sizeof(float);
+// One program of the span forms K1-span (kRecord false) and K2-span.
+template <int PPT, bool kRecord>
+__device__ __forceinline__ void composite_program(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const int* __restrict__ offsets, const float* __restrict__ rows16,
+    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
+    int tile_size, float bg0, float bg1, float bg2, int tpp, int span_cap,
+    float* span) {
+  for_each_tile_of_program(
+      starts, counts, rows16, b_pad, tpp, span_cap, span,
+      [&](int tile, auto in_span, float (*sh)[kChunk], const float* window,
+          int k0c) {
+        composite_tile<PPT, kRecord, decltype(in_span)::value>(
+            tile, starts, counts, offsets, rows16, out, tb, tw, b_pad,
+            tile_size, bg0, bg1, bg2, sh, window, k0c);
+      });
+}
+
+// Launches a span kernel on `stream`: n_tiles / tpp blocks with a window of
+// span_cap chunks of dynamic shared memory, which the kernel must opt in to
+// above 48 KB. `args` are the kernel's parameters before (tpp, span_cap).
+// Returns the CUDA error of the attribute call or of the launch.
+template <typename... Params, typename... Args>
+int launch_span(void (*kernel)(Params...), int n_tiles, int tpp, int span_cap,
+                cudaStream_t stream, Args... args) {
+  const size_t smem =
+      static_cast<size_t>(span_cap) * kRows * kChunk * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_tiles / tpp, kThreads, smem, stream>>>(args..., tpp, span_cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether (tpp, span_cap) are arguments a span kernel can be launched with.
+inline bool span_args_ok(int n_tiles, int64_t b_pad, int tpp, int span_cap) {
+  return tpp >= 1 && n_tiles % tpp == 0 && span_cap >= 1 &&
+         span_cap <= b_pad / kChunk;
 }
 
 }  // namespace composite

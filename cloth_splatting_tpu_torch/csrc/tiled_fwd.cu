@@ -81,20 +81,6 @@ tiled_fwd_span_kernel(const int* __restrict__ starts,
                                            bg1, bg2, tpp, span_cap, span);
 }
 
-template <int PPT>
-int launch_span(const int* st, const int* ct, const float* rows, float* o,
-                int n_tiles, int tw, int64_t b_pad, int tile_size, float bg0,
-                float bg1, float bg2, int tpp, int span_cap, cudaStream_t s) {
-  const size_t smem = composite::span_bytes(span_cap);
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_fwd_span_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tiled_fwd_span_kernel<PPT><<<n_tiles / tpp, kThreads, smem, s>>>(
-      st, ct, rows, o, tw, b_pad, tile_size, bg0, bg1, bg2, tpp, span_cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Launches K1 on `stream`. Pointers are device pointers to contiguous
@@ -134,7 +120,7 @@ extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
                                      float bg0, float bg1, float bg2, int tpp,
                                      int span_cap, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (tpp < 1 || n_tiles % tpp || span_cap < 1 || span_cap > b_pad / kChunk)
+  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* st = static_cast<const int*>(starts);
@@ -142,10 +128,12 @@ extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
   const float* rows = static_cast<const float*>(rows16);
   float* o = static_cast<float*>(out);
   if (tile_size == 32)
-    return launch_span<4>(st, ct, rows, o, n_tiles, tw, b_pad, tile_size, bg0,
-                          bg1, bg2, tpp, span_cap, s);
+    return composite::launch_span(tiled_fwd_span_kernel<4>, n_tiles, tpp,
+                                  span_cap, s, st, ct, rows, o, tw, b_pad,
+                                  tile_size, bg0, bg1, bg2);
   if (tile_size == 16)
-    return launch_span<1>(st, ct, rows, o, n_tiles, tw, b_pad, tile_size, bg0,
-                          bg1, bg2, tpp, span_cap, s);
+    return composite::launch_span(tiled_fwd_span_kernel<1>, n_tiles, tpp,
+                                  span_cap, s, st, ct, rows, o, tw, b_pad,
+                                  tile_size, bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -430,23 +430,14 @@ tiled_bwd_reverse_kernel(const int* __restrict__ starts,
   extern __shared__ float span[];
   __shared__ float red[kSums][kWarps][kChunk];
 
-  const int i0 = blockIdx.x * tpp;
-  const SpanProgram s = span_program(starts, counts, i0, tpp, span_cap,
-                                     static_cast<int>(b_pad / kChunk));
-  if (s.fits) {
-    load_span(span, rows16, b_pad, s);
-    __syncthreads();
-    for (int t = 0; t < tpp; ++t)
-      reverse_tile<PPT, true>(i0 + t, starts, counts, offsets, rows16, gimg, tb,
-                              grads, tw, b_pad, tile_size, bg0, bg1, bg2, red,
-                              nullptr, span, s.k0c);
-  } else {
-    float (*sh)[kChunk] = reinterpret_cast<float (*)[kChunk]>(span);
-    for (int t = 0; t < tpp; ++t)
-      reverse_tile<PPT, false>(i0 + t, starts, counts, offsets, rows16, gimg,
-                               tb, grads, tw, b_pad, tile_size, bg0, bg1, bg2,
-                               red, sh, nullptr, 0);
-  }
+  for_each_tile_of_program(
+      starts, counts, rows16, b_pad, tpp, span_cap, span,
+      [&](int tile, auto in_span, float (*sh)[kChunk], const float* window,
+          int k0c) {
+        reverse_tile<PPT, decltype(in_span)::value>(
+            tile, starts, counts, offsets, rows16, gimg, tb, grads, tw, b_pad,
+            tile_size, bg0, bg1, bg2, red, sh, window, k0c);
+      });
 }
 
 struct Args {
@@ -460,41 +451,6 @@ Args unpack(const void* starts, const void* counts, const void* offsets,
   return {static_cast<const int*>(starts), static_cast<const int*>(counts),
           static_cast<const int*>(offsets), static_cast<const float*>(rows16),
           static_cast<cudaStream_t>(stream)};
-}
-
-bool span_args_ok(int n_tiles, int64_t b_pad, int tpp, int span_cap) {
-  return tpp >= 1 && n_tiles % tpp == 0 && span_cap >= 1 &&
-         span_cap <= b_pad / kChunk;
-}
-
-template <int PPT>
-int launch_fwd_span(const Args& a, float* o, float* t, int n_tiles, int tw,
-                    int64_t b_pad, int tile_size, float bg0, float bg1,
-                    float bg2, int tpp, int span_cap) {
-  const size_t smem = composite::span_bytes(span_cap);
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_fwd_train_span_kernel<PPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tiled_fwd_train_span_kernel<PPT><<<n_tiles / tpp, kThreads, smem, a.s>>>(
-      a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, tile_size, bg0, bg1, bg2, tpp,
-      span_cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int PPT>
-int launch_bwd_reverse(const Args& a, const float* gi, const float* t, float* g,
-                       int n_tiles, int tw, int64_t b_pad, int tile_size,
-                       float bg0, float bg1, float bg2, int tpp, int span_cap) {
-  const size_t smem = composite::span_bytes(span_cap);
-  cudaError_t err = cudaFuncSetAttribute(
-      tiled_bwd_reverse_kernel<PPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tiled_bwd_reverse_kernel<PPT><<<n_tiles / tpp, kThreads, smem, a.s>>>(
-      a.st, a.ct, a.of, a.rows, gi, t, g, tw, b_pad, tile_size, bg0, bg1, bg2,
-      tpp, span_cap);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -534,17 +490,19 @@ extern "C" int tiled_fwd_train_span_launch(
     int tile_size, float bg0, float bg1, float bg2, int tpp, int span_cap,
     void* stream) {
   if (n_tiles <= 0) return 0;
-  if (!span_args_ok(n_tiles, b_pad, tpp, span_cap))
+  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = unpack(starts, counts, offsets, rows16, stream);
   float* o = static_cast<float*>(out);
   float* t = static_cast<float*>(tb);
   if (tile_size == 32)
-    return launch_fwd_span<4>(a, o, t, n_tiles, tw, b_pad, tile_size, bg0, bg1,
-                              bg2, tpp, span_cap);
+    return composite::launch_span(tiled_fwd_train_span_kernel<4>, n_tiles, tpp,
+                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, o, t,
+                                  tw, b_pad, tile_size, bg0, bg1, bg2);
   if (tile_size == 16)
-    return launch_fwd_span<1>(a, o, t, n_tiles, tw, b_pad, tile_size, bg0, bg1,
-                              bg2, tpp, span_cap);
+    return composite::launch_span(tiled_fwd_train_span_kernel<1>, n_tiles, tpp,
+                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, o, t,
+                                  tw, b_pad, tile_size, bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -583,17 +541,19 @@ extern "C" int tiled_bwd_reverse_launch(
     int n_tiles, int tw, int64_t b_pad, int tile_size, float bg0, float bg1,
     float bg2, int tpp, int span_cap, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (!span_args_ok(n_tiles, b_pad, tpp, span_cap))
+  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = unpack(starts, counts, offsets, rows16, stream);
   const float* gi = static_cast<const float*>(gimg);
   const float* t = static_cast<const float*>(tb);
   float* g = static_cast<float*>(grads);
   if (tile_size == 32)
-    return launch_bwd_reverse<4>(a, gi, t, g, n_tiles, tw, b_pad, tile_size,
-                                 bg0, bg1, bg2, tpp, span_cap);
+    return composite::launch_span(tiled_bwd_reverse_kernel<4>, n_tiles, tpp,
+                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, gi,
+                                  t, g, tw, b_pad, tile_size, bg0, bg1, bg2);
   if (tile_size == 16)
-    return launch_bwd_reverse<1>(a, gi, t, g, n_tiles, tw, b_pad, tile_size,
-                                 bg0, bg1, bg2, tpp, span_cap);
+    return composite::launch_span(tiled_bwd_reverse_kernel<1>, n_tiles, tpp,
+                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, gi,
+                                  t, g, tw, b_pad, tile_size, bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
