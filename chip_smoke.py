@@ -5,13 +5,16 @@
 
 Phases, each of which raises on failure:
   1. build every kernel of the port from ``cloth_splatting_tpu_torch/csrc``
-     (one ``nvcc`` per source, all started together) and print the card's
-     name and power limit;
+     (one ``nvcc`` per source, all started together), read each kernel's
+     registers, shared memory and spills from the build log, and print the
+     card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card: K1 on
      the packs of the 65k-Gaussian 800x800 serving scene for two orbit
      views, and K2 and K3 on the pack of the 65k training scene; all three
      also on deep synthetic packs (thousands of instances per tile, so the
-     transmittance exit fires) at both tile sizes; then the span forms
+     transmittance exit fires) at both tile sizes; K3 and K4 also against a
+     second launch of themselves, bit for bit; audit K3's footprint cull on
+     those packs (no pair it skips may be alive); then the span forms
      K1-span, K2-span and K4 (the rasterizer's ``tiles_per_program`` and
      ``span_cap`` options) on the same packs at 32 px and 16 px tiles, with
      a window most programs fit and with a window of one chunk, K4 also
@@ -118,12 +121,15 @@ TOL_ORACLE_GRAD = 2e-4
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# fp32 operations per instance-pixel pair. Every walked pair computes dx, dy
-# and the quadratic form (11) and alpha (exp, scale, min: 3). A pair with
-# nonzero alpha also does, in K1 and K2, w = alpha T, five multiply-adds and
-# the T update (13); in K3, w, u = g . c (7), the prefix (2), four colour
-# and depth sums (8), dL/dalpha (7), dpow (1), six moment sums (14) and the
-# T update (2): 42.
+# fp32 operations of the function per contributing instance-pixel pair (one
+# the classification finds alive). Its classification is dx, dy and the
+# quadratic form (11) and alpha (exp, scale, min: 3). It then does, in K1
+# and K2, w = alpha T, five multiply-adds and the T update (13); in K3,
+# w, u = g . c (7), the prefix (2), four colour and depth sums (8),
+# dL/dalpha (7), dpow (1), six moment sums (14) and the T update (2): 42.
+# A pair the function finds dead adds nothing to any output: classifying it
+# is a kernel's way of finding its live pairs and shows in its time, not in
+# its bound (K3 now skips most of them).
 OPS_PER_WALKED_PAIR = 14
 # K4 computes K3's function on the same pairs; only the occlusion suffix
 # differs, S_i = (chunk_total - cum_i) + carry against K3's U_tot - prefix,
@@ -143,6 +149,38 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# each kernel's entry function at 32 px tiles (PPT = 4), the main path's
+KERNEL_ENTRIES = {"K1": "tiled_fwd_kernel<4>", "K1-span": "tiled_fwd_span_kernel<4>",
+                  "K2": "tiled_fwd_train_kernel<4>",
+                  "K2-span": "tiled_fwd_train_span_kernel<4>",
+                  "K3": "tiled_bwd_kernel<4>", "K4": "tiled_bwd_reverse_kernel<4>"}
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """Registers, static shared memory and spills of each entry function,
+    from an ``nvcc -Xptxas -v`` log, keyed as ``name<PPT>``."""
+    import re
+
+    usage, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)ILi(\d+)E", line)
+        if m:
+            entry = usage.setdefault(f"{m.group(1)}<{m.group(2)}>", {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            entry["smem_bytes"] = int(m.group(1))
+    return usage
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
     import torch
@@ -160,12 +198,37 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of ``kernel`` (a KERNEL_ENTRIES key)
+    over ``iters`` calls of ``fn``, from torch.profiler's kernel records: the
+    kernel alone, without its wrapper's small kernels and host time. The
+    profiler can drop records in a process that profiles many times; the
+    mean is over the records it kept, and fewer than half raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    entry = KERNEL_ENTRIES[kernel]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and entry in e.key]
+    count = sum(e.count for e in hits)
+    if not iters // 2 <= count <= iters:
+        raise RuntimeError(f"profiler saw {count} launches of {entry} in {iters} calls")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count
+
+
 def bound(stats: dict, kernel: str, n_bytes: int) -> dict:
-    """The least time the card could take for ``kernel``'s work on a pack:
-    the larger of its fp32 operations at the fp32 peak and its bytes at the
-    memory rate."""
-    ops = (stats["pairs_walked"] * OPS_PER_WALKED_PAIR
-           + stats["pairs_contributing"] * OPS_PER_CONTRIBUTING_PAIR[kernel])
+    """The least time the card could take for ``kernel``'s function on a
+    pack: the larger of its fp32 operations (on the pairs this pack's data
+    finds alive) at the fp32 peak and its bytes at the memory rate."""
+    ops = stats["pairs_contributing"] * (OPS_PER_WALKED_PAIR
+                                         + OPS_PER_CONTRIBUTING_PAIR[kernel])
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
     return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -339,9 +402,11 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
                span=None):
     """(max abs difference of K3 and its plain version, per-field readings
     relative to the field's largest magnitude) on one pack, both fed K2's
-    boundaries; raises above TOL_K3, on non-finite grads, or on nonzero
-    rows 10..15. With ``span`` it is K4 against its plain version, and K4 is
-    also held to K3 at TOL_K4_K3 (a third value: those readings)."""
+    boundaries; raises above TOL_K3, on non-finite grads, on nonzero rows
+    10..15, or when a second launch on the same inputs does not give the
+    same bits (no atomics, sums in a fixed order). With ``span`` it is K4
+    against its plain version, and K4 is also held to K3 at TOL_K4_K3 (a
+    third value: those readings)."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
@@ -354,7 +419,11 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
     opts = () if span is None else tuple(span)
     n_before = run_backward.reverse_launches
     g_k = run_backward(packed, gimg_t, tb, width, height, tile_size, BG, *opts)
+    g_again = run_backward(packed, gimg_t, tb, width, height, tile_size, BG, *opts)
     torch.cuda.synchronize()
+    if not torch.equal(g_k, g_again):
+        raise RuntimeError(f"{name} {label}: two launches on the same inputs "
+                           f"differ (largest {float((g_k - g_again).abs().max()):.3g})")
     g_p = run_backward_plain(packed, gimg_t, tb, width, height, tile_size, BG,
                              *opts)
     if not bool(torch.isfinite(g_k).all()):
@@ -363,13 +432,13 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
         raise RuntimeError(f"{name} {label}: rows 10..15 not zero")
     abs_err, rel = field_errors(g_k, g_p, name, label)
     log(f"{name} vs plain [{label}] max|diff|/max|plain| {json.dumps(rel)} "
-        f"max|diff| {abs_err:.4g}")
+        f"max|diff| {abs_err:.4g}; a second launch bit-identical")
     bad = {k: e for k, e in rel.items() if not e <= TOL_K3}
     if bad:
         raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     if span is None:
         return abs_err, rel
-    if run_backward.reverse_launches != n_before + 1:
+    if run_backward.reverse_launches != n_before + 2:
         raise RuntimeError(f"K4 {label}: the reverse kernel was not launched")
     n_tiles = (width // tile_size) * (height // tile_size)
     g_3 = run_backward(packed, gimg_t, tb, width, height, tile_size, BG)
@@ -380,6 +449,32 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
     if bad:
         raise RuntimeError(f"K4 {label}: disagrees with K3 {bad}")
     return abs_err, rel, rel_k3
+
+
+def cull_phase(cases) -> dict:
+    """K3's footprint cull on the card, from the plain box and the plain
+    classification (``tiled_train.cull_audit``) over the chunks K3 walks,
+    for each (label, pack, width, height, tile size, K2's boundaries) of
+    ``cases``; raises if a pair the cull skips is alive. Returns the counts
+    by label."""
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import cull_audit
+
+    out = {}
+    for label, packed, width, height, ts, tb in cases:
+        a = cull_audit(packed, width, height, ts, tb)
+        log(f"K3 cull audit [{label}]: pairs classified {a['pairs_classified']} "
+            f"of {a['pairs_walked']} walked "
+            f"({a['pairs_classified'] / a['pairs_walked']:.4f}), "
+            f"{a['pairs_contributing']} contributing; (warp, instance) pairs "
+            f"walked {a['warp_instances_walked']} of {a['warp_instances']}; "
+            f"reductions {a['reductions_row_layout']} with warps of tile rows "
+            f"(K3's first form) -> {a['reductions_patch_layout']} in patches "
+            f"after the cull; culled pairs alive {a['culled_pairs_alive']}")
+        if a["culled_pairs_alive"]:
+            raise RuntimeError(f"K3 cull audit [{label}]: "
+                               f"{a['culled_pairs_alive']} culled pairs are alive")
+        out[label] = a
+    return out
 
 
 def profile_calls(fn, args) -> dict:
@@ -938,78 +1033,42 @@ def train_phase(mesh, tan, gpu):
     return record, k2, k3, ab_ms, ab_launches
 
 
-def main() -> int:
+def build_scenes(dev):
+    """The main paths' scenes at full width: bench.py's 65k serving scene
+    (mesh, Gaussians, a seeded residual simulator, N_FRAMES orbit cameras at
+    times 0..1, ``project(cam)``) and its 65k training configuration's pack
+    for the first camera (``t_proj``, ``train_pack``; the step renders with
+    the fused pack order), at the tiling render's rasterizer picks."""
+    import types
+
+    import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; nothing was run",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
-
-    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
     from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
     from cloth_splatting_tpu_torch.models import gaussians as G
-    from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
-        raster_forward_tiles,
-        raster_forward_tiles_plain,
-        sorted_pack,
-        tile_and_win,
-        tiles_to_images,
-    )
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
-        raster_forward_train,
-        raster_forward_train_plain,
-        run_backward,
-        run_backward_plain,
-    )
     from cloth_splatting_tpu_torch.models.deform import init_residual_simulator
     from cloth_splatting_tpu_torch.ops.camera import Camera
-    from cloth_splatting_tpu_torch.render import camera_arrays, project_view, render
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_and_win
+    from cloth_splatting_tpu_torch.render import camera_arrays, project_view
 
-    t_start = time.time()
-    dev = torch.device("cuda")
-
-    # 1. build ---------------------------------------------------------------
-    t0 = time.time()
-    for name, text in kernels.build_all().items():
-        if text is not None:
-            log(f"nvcc {name}:\n{text.strip()}")
-    log(f"build: {time.time() - t0:.1f} s")
-    gpu = gpu_line()
-    log(f"gpu: {gpu}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-
-    # the serving scene (bench.py's 65k headline scene)
     tan = math.tan(FOV / 2.0)
     mesh = grid_cloth_mesh(MESH_RES, MESH_RES, size=1.4, device=dev)
     params, state = target_gaussians(mesh, 3, seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
     simulator = init_residual_simulator(rng, int(mesh.pos.shape[0]), device=dev)
     preds = mesh.pos[None].repeat(3, 1, 1)
-    n_alive = int(state.alive.sum())
-    log(f"scene: {n_alive} Gaussians (capacity {state.alive.numel()}), "
-        f"{mesh.pos.shape[0]} vertices, {WIDTH}x{HEIGHT}")
     times = np.linspace(0.0, 1.0, N_FRAMES)
     cams = [camera_arrays(orbit_camera(v, N_FRAMES, FOV, WIDTH, HEIGHT,
                                        float(times[v])), device=dev)
             for v in range(N_FRAMES)]
-    tile, win = tile_and_win(WIDTH, HEIGHT)   # as render's rasterizer picks
-    tw, th = WIDTH // tile, HEIGHT // tile
-    n_tiles = tw * th
-    p = tile * tile
+    tile, win = tile_and_win(WIDTH, HEIGHT)
 
     def project(cam):
         with torch.no_grad():
             return project_view(cam, WIDTH, HEIGHT, tan, tan, params, state, mesh,
                                 simulator, preds, 3)[0]
 
-    # the training scene's pack for its first camera (bench.py's 65k train
-    # configuration; the step renders with the fused pack order)
     t_params, t_state = G.init_from_mesh(np.random.default_rng(SEED), mesh, 3, 2,
                                          capacity=TRAIN_CAPACITY, device=dev)
     t_cam = camera_arrays(Camera.create(
@@ -1018,7 +1077,67 @@ def main() -> int:
     with torch.no_grad():
         t_proj = project_view(t_cam, WIDTH, HEIGHT, tan, tan, t_params, t_state,
                               mesh, simulator, preds, 1)[0]
-    train_pack = sorted_pack(t_proj, tw, th, tile, win, order="fused")
+    train_pack = sorted_pack(t_proj, WIDTH // tile, HEIGHT // tile, tile, win,
+                             order="fused")
+    return types.SimpleNamespace(
+        tan=tan, mesh=mesh, params=params, state=state, simulator=simulator,
+        preds=preds, cams=cams, project=project, tile=tile, win=win,
+        t_proj=t_proj, train_pack=train_pack)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+    from cloth_splatting_tpu_torch import kernels
+    from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
+    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
+    from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        raster_forward_tiles,
+        raster_forward_tiles_plain,
+        sorted_pack,
+        tiles_to_images,
+    )
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        raster_forward_train_plain,
+        run_backward,
+        run_backward_plain,
+    )
+    from cloth_splatting_tpu_torch.render import camera_arrays, project_view, render
+
+    t_start = time.time()
+    dev = torch.device("cuda")
+
+    # 1. build ---------------------------------------------------------------
+    t0 = time.time()
+    usage = {}
+    for name, text in kernels.build_all().items():
+        if text is not None:
+            log(f"nvcc {name}:\n{text.strip()}")
+            usage.update(ptxas_usage(text))
+    log(f"build: {time.time() - t0:.1f} s; ptxas {json.dumps(usage)}")
+    gpu = gpu_line()
+    log(f"gpu: {gpu}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    sc = build_scenes(dev)
+    tan, mesh, params, state = sc.tan, sc.mesh, sc.params, sc.state
+    simulator, preds, cams, project = sc.simulator, sc.preds, sc.cams, sc.project
+    tile, win, t_proj, train_pack = sc.tile, sc.win, sc.t_proj, sc.train_pack
+    tw, th = WIDTH // tile, HEIGHT // tile
+    n_tiles = tw * th
+    p = tile * tile
+    n_alive = int(state.alive.sum())
+    log(f"scene: {n_alive} Gaussians (capacity {state.alive.numel()}), "
+        f"{mesh.pos.shape[0]} vertices, {WIDTH}x{HEIGHT}")
 
     # 2. kernels against their plain versions ----------------------------------
     k1_err = k2_err = k3_err = k3_rel = 0.0
@@ -1037,6 +1156,7 @@ def main() -> int:
     err, rel = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
                           "65k train cam 0")
     k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
+    cull_cases = [("65k train cam 0", train_pack, WIDTH, HEIGHT, tile, train_tb)]
     deep_cases = []
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
@@ -1054,8 +1174,10 @@ def main() -> int:
         err, rel = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
                               tb_k, size, size, ts, label)
         k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
+        cull_cases.append((label, packed, size, size, ts, tb_k))
         deep_cases.append((label, packed, size, size, ts,
                            (SPAN_DEEP, (SPAN_DEEP[0], 1))))
+    cull = cull_phase(cull_cases)
 
     # the span forms: the same packs at 32 px tiles, the same scenes packed
     # at 16 px tiles, and the deep packs; a window most programs fit and a
@@ -1079,6 +1201,8 @@ def main() -> int:
     # 3. times at the main paths' shapes ---------------------------------------
     packed, stats = packs[0]
     k1_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG), 50)
+    alone = {"K1": kernel_alone_ms(
+        lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG), "K1")}
     k1_plain_ms = time_ms(
         lambda: raster_forward_tiles_plain(packed, WIDTH, HEIGHT, tile, BG), 3, 1)
     k1_bound = bound(stats, "K1", stats["instances_walked"] * 11 * 4
@@ -1088,6 +1212,8 @@ def main() -> int:
 
     k2_ms = time_ms(lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile,
                                                  BG), 50)
+    alone["K2"] = kernel_alone_ms(
+        lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile, BG), "K2")
     k2_plain_ms = time_ms(lambda: raster_forward_train_plain(
         train_pack, WIDTH, HEIGHT, tile, BG), 3, 1)
     # K2 reads K1's inputs plus the offsets and writes K1's output plus one
@@ -1100,6 +1226,8 @@ def main() -> int:
 
     k3_ms = time_ms(lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH,
                                          HEIGHT, tile, BG), 50)
+    alone["K3"] = kernel_alone_ms(lambda: run_backward(
+        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), "K3")
     k3_plain_ms = time_ms(lambda: run_backward_plain(
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), 3, 1)
     # K3 reads the walked instances' rows, the three per-tile ints, the
@@ -1126,6 +1254,13 @@ def main() -> int:
         train_pack, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
     k4_ms = time_ms(lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH,
                                          HEIGHT, tile, BG, *SPAN_32), 50)
+    alone["K1-span"] = kernel_alone_ms(lambda: raster_forward_tiles(
+        packed, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K1-span")
+    alone["K2-span"] = kernel_alone_ms(lambda: raster_forward_train(
+        train_pack, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K2-span")
+    alone["K4"] = kernel_alone_ms(lambda: run_backward(
+        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K4")
+    log(f"kernels alone (torch.profiler, ms): {json.dumps(alone)} [{gpu}]")
     k4_plain_ms = time_ms(lambda: run_backward_plain(
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
     k4_bound = bound(train_stats, "K4", train_stats["instances_walked"] * 11 * 4
@@ -1242,13 +1377,18 @@ def main() -> int:
     def entry(name, source, replaces, by_path, err, ms, plain_ms, b):
         # launches_by_path: each main path's own count, read just after the
         # path was driven from counters set to 0 just before; launches: their
-        # sum
+        # sum; ms: the wrapper call, kernel_ms: the kernel alone; ptxas: the
+        # entry function's registers, shared memory and spills from this
+        # run's build log (None when it was built before)
+        key = name.split()[0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
-                "library_ms": None}
+                "library_ms": None, "kernel_ms": alone[key],
+                "kernel_share_of_bound": b["bound_ms"] / alone[key],
+                "ptxas": usage.get(KERNEL_ENTRIES[key])}
 
     # K3's cotangent is scaled by 1 / numel, so its absolute error is small
     # whatever the agreement; its entry also carries the relative reading
@@ -1259,6 +1399,7 @@ def main() -> int:
                      {"train": k3_launches, "fit": fit_launches["K3"]}, k3_err, k3_ms, k3_plain_ms,
                      k3_bound)
     k3_entry["max_rel_err"] = k3_rel
+    k3_entry["cull_audit"] = cull["65k train cam 0"]
     k4_entry = entry("K4 tiled_bwd_reverse reverse gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:655",

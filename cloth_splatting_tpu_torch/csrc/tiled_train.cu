@@ -32,19 +32,48 @@
 // into grads [16, b_pad] (rows as rows16; rows 10..15 stay zero).
 //
 // What bounds them on the H100: fp32 arithmetic, as K1 (~14 operations per
-// walked pair; ~42 more per contributing pair in K3), against tens of MB of
-// traffic. K3 also reduces ten sums per instance over the tile's pixels.
+// classified pair; ~42 more per contributing pair in K3), against tens of
+// MB of traffic. K3 also reduces ten sums per instance over the tile's
+// pixels.
 //
-// What the design does about it: K2 is K1 plus one coalesced store of p
-// floats per chunk. K3 keeps K1's layout (256-thread block per tile, PPT
-// pixels per thread, the chunk's rows in shared memory) and carries each
-// pixel's T, prefix and cotangents in registers. Each instance's ten sums
-// are reduced per warp with shuffles (skipped when no pixel of the warp
-// sees the instance), parked in shared memory [10][8 warps][128], and
-// summed over the warps after the chunk by one thread per instance. The
-// pack is tile-grouped and only live lanes [start, start + count) are
+// K2 is K1 plus one coalesced store of p floats per chunk.
+//
+// K3 (one 256-thread block per tile, the chunk's rows in shared memory,
+// each pixel's T, prefix and cotangents in registers). What bounds it on
+// the H100 is the walk: per chunk, each warp steps through the instances it
+// walks one after another (classify its pixels, their terms, the warp's
+// reduction), and the chunk's barrier waits for the slowest warp. Its first
+// form made that walk long: threads owned pixels t + i*256, so a warp held
+// four rows spread over the whole tile and saw nearly every instance of it;
+// all 8 warps classified every instance on all their pixels and reduced
+// its ten sums with 50 shuffles. What the design does about it:
+//   - compact warp patches: warp w owns a 16x8 rectangle of a 32 px tile
+//     (8x4 of a 16 px tile) and each lane a 2x2 quad of it (a single pixel
+//     at 16 px); patch_pixel is the one map from (warp, lane, i) to the
+//     pixel;
+//   - exact footprint culling: when a chunk is staged, each instance also
+//     gets a conservative box (footprint_box) that holds every pixel where
+//     splat_alpha can find the pair alive; a warp tests its patch against
+//     the 128 boxes with 4 ballots and walks only the instances that hit
+//     it, in lane order. A skipped instance is dead at every pixel of the
+//     warp, where the full walk changes no T, prefix or sum, so each
+//     pixel's values are the same float operations as without the cull;
+//   - no branch per pixel: a lane classifies its pixels first and then runs
+//     their terms with a dead pixel's alpha at 0, which changes its T,
+//     prefix and sums by exact zeros, so the pixels' chains interleave
+//     (a branch per pixel ran each pixel's terms in turn for the whole warp
+//     whenever one lane's pixel was alive);
+//   - a cheaper reduction: a warp reduces only the instances it walked and
+//     some pixel of it saw, with a reduce-scatter butterfly (12 shuffles
+//     for ten sums, each sum ending at one lane), records which in a
+//     per-warp mask, and after the chunk all 256 threads (two an instance,
+//     five sums each) add the warps that reduced it in warp order;
+//   - registers capped for kBwdBlocksPerSm blocks an SM (3 blocks spilled
+//     and ran slower).
+// The pack is tile-grouped and only live lanes [start, start + count) are
 // written, so every slot belongs to exactly one tile: plain stores, no
-// atomics, and the result does not depend on block order. The TPU kernel's
+// atomics, and the sums go in a fixed order, so the result is the same bits
+// from run to run and does not depend on block order. The TPU kernel's
 // rolling accumulator and read-modify-write (pallas_train.py:401-449), and
 // its tile-local moments (an MXU device), have no counterpart here.
 //
@@ -78,7 +107,7 @@ constexpr int kWarps = kThreads / 32;
 // dpow dx dy, w g_r, w g_g, w g_b, w g_dep
 constexpr int kSums = 10;
 
-// What a backward thread keeps per pixel of its tile.
+// What a K4 thread keeps per pixel of its tile.
 template <int PPT>
 struct PixelFields {
   float px[PPT], py[PPT], gr[PPT], gg[PPT], gb[PPT], gd[PPT], kk[PPT];
@@ -131,8 +160,8 @@ __device__ __forceinline__ void pair_grad(float* s, float dx, float dy,
   }
 }
 
-// Sums instance j's ten sums over the warp and parks them in red; a warp
-// none of whose pixels saw the instance parks zeros.
+// K4: sums instance j's ten sums over the warp and parks them in red; a
+// warp none of whose pixels saw the instance parks zeros.
 __device__ __forceinline__ void park_warp_sums(
     float (*red)[kWarps][kChunk], const float* s, bool seen, int warp,
     int lane, int j) {
@@ -151,8 +180,8 @@ __device__ __forceinline__ void park_warp_sums(
   }
 }
 
-// One thread per live instance of the chunk: sum over the warps, form the
-// parameter gradients and store them (coalesced along the chunk).
+// One thread per live instance of the chunk (K4): sum over the warps, form
+// the parameter gradients and store them (coalesced along the chunk).
 __device__ __forceinline__ void store_chunk_grads(
     float (*red)[kWarps][kChunk], composite::ChunkRows rows,
     float* __restrict__ grads, int64_t b_pad, int64_t base, int lo, int hi) {
@@ -211,20 +240,201 @@ tiled_fwd_train_span_kernel(const int* __restrict__ starts,
                                           bg2, tpp, span_cap, span);
 }
 
+// K3's blocks an SM: the register cap of __launch_bounds__.
+constexpr int kBwdBlocksPerSm = 2;
+
+// K3's pixel map. A tile of 16 * kQ px (PPT = kQ * kQ pixels a thread) is
+// cut into 2 x 4 warp patches of 8 kQ x 4 kQ pixels, and a patch into
+// 8 x 4 lane quads of kQ x kQ; pixel i of a quad is its row-major i-th.
+// tiled_train.py::patch_pixel is its plain copy.
 template <int PPT>
-__global__ void __launch_bounds__(kThreads)
+struct PatchMap {
+  static_assert(PPT == 1 || PPT == 4, "K3 takes 16 px and 32 px tiles");
+  static constexpr int kQ = PPT == 4 ? 2 : 1;
+  static constexpr int kTile = 16 * kQ;
+  static constexpr int kW = 8 * kQ, kH = 4 * kQ;
+  // the warp's patch and the lane's quad, in tile coordinates
+  static __device__ __forceinline__ int patch_x(int warp) {
+    return (warp & 1) * kW;
+  }
+  static __device__ __forceinline__ int patch_y(int warp) {
+    return (warp >> 1) * kH;
+  }
+  static __device__ __forceinline__ int quad_x(int warp, int lane) {
+    return patch_x(warp) + (lane & 7) * kQ;
+  }
+  static __device__ __forceinline__ int quad_y(int warp, int lane) {
+    return patch_y(warp) + (lane >> 3) * kQ;
+  }
+};
+
+template <int PPT>
+__device__ __forceinline__ int patch_pixel(int warp, int lane, int i) {
+  using M = PatchMap<PPT>;
+  return (M::quad_y(warp, lane) + i / M::kQ) * M::kTile + M::quad_x(warp, lane) +
+         i % M::kQ;
+}
+
+// The footprint box's margins (tiled_train.py holds the same literals).
+// The box bounds {power >= tau} under the exact quadratic form of the conic
+// with ac scaled by kCullDetScale in its determinant, which covers the
+// kernel's rounded form (off by a few ulp of a dx^2 + c dy^2, i.e. a conic
+// shrunk by ~1e-6) and the determinant's own rounding; it is then widened
+// by kCullWiden, kCullAbs px and kCullMeanRel of |mean| (sqrt and division,
+// the rounding of dx and of the mean plus the half-width). tau is lowered
+// by kCullLogMargin for expf, logf and the rounding of op e^power against
+// 1/255 (each a few ulp).
+constexpr float kCullLogMargin = 1e-3f;
+constexpr float kCullDetScale = 0.99998f;
+constexpr float kCullWiden = 1.001f;
+constexpr float kCullAbs = 1e-2f;
+constexpr float kCullMeanRel = 1e-6f;
+
+// A box (x_lo, x_hi, y_lo, y_hi) in pixel coordinates that holds every
+// pixel at which splat_alpha can find this instance alive; plain copy:
+// tiled_train.py::footprint_boxes. A live pair has cut <= power <= 0 and
+// op e^power >= 1/255 (min(0.99, raw) >= 1/255 iff raw >= 1/255), so
+// power >= tau = max(cut, log(1 / (255 op))). For a positive definite
+// conic [[a, b], [b, c]] with det = ac - b^2, the offsets with power >= tau
+// lie in |dx| <= sqrt(-2 tau c / det), |dy| <= sqrt(-2 tau a / det). An
+// instance whose conic is not positive definite, or whose determinant or
+// box is not finite, gets the whole plane.
+__device__ __forceinline__ float4 footprint_box(float x, float y, float a,
+                                                float b, float c, float op,
+                                                float cut) {
+  const float tau = fmaxf(cut, -logf(255.0f * op) - kCullLogMargin);
+  const float r2 = tau >= 0.0f ? 0.0f : -2.0f * tau;  // NaN stays NaN
+  const float det = a * c * kCullDetScale - b * b;
+  const float rx = sqrtf(r2 * c / det) * kCullWiden + kCullAbs +
+                   kCullMeanRel * fabsf(x);
+  const float ry = sqrtf(r2 * a / det) * kCullWiden + kCullAbs +
+                   kCullMeanRel * fabsf(y);
+  const float inf = __int_as_float(0x7f800000);
+  // NaN fails every comparison, so `< inf` also tests for NaN
+  if (a > 0.0f && det > 0.0f && det < inf && fabsf(x) + rx < inf &&
+      fabsf(y) + ry < inf)
+    return make_float4(x - rx, x + rx, y - ry, y + ry);
+  return make_float4(-inf, inf, -inf, inf);
+}
+
+// Stages chunk `base`'s 11 rows in sh and each instance's footprint box in
+// boxes: thread j < 128 owns instance j. The caller synchronises.
+__device__ __forceinline__ void load_chunk_boxes(
+    float (*sh)[kChunk], float4* boxes, const float* __restrict__ rows16,
+    int64_t b_pad, int64_t base) {
+  using namespace composite;
+  const int j = threadIdx.x;
+  if (j >= kChunk) return;
+  float v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    v[r] = rows16[r * b_pad + base + j];
+    sh[r][j] = v[r];
+  }
+  boxes[j] = footprint_box(v[kX], v[kY], v[kA], v[kB], v[kC], v[kOp], v[kCut]);
+}
+
+// One step of the reduce-scatter butterfly: lanes l and l ^ kOff hold the
+// same n sums; the lower keeps the first ceil(n / 2), the upper the rest
+// (a zero in its last slot when n is odd), each adding the partner's copy.
+template <int N, int kOff>
+__device__ __forceinline__ void scatter_step(float* v, int lane) {
+  constexpr int H = (N + 1) / 2;
+  const bool upper = lane & kOff;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float hi = k < N - H ? v[H + k] : 0.0f;
+    const float recv =
+        __shfl_xor_sync(0xffffffffu, upper ? v[k] : hi, kOff);
+    v[k] = (upper ? hi : v[k]) + recv;
+  }
+}
+
+// Sums the warp's ten per-lane sums: afterwards the lane that
+// scatter_owner names holds sum k in v[0] (12 shuffles; the tree is
+// fixed, so the result is deterministic).
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  static_assert(kSums == 10, "the butterfly's steps are written for ten sums");
+  scatter_step<10, 16>(v, lane);
+  scatter_step<5, 8>(v, lane);
+  scatter_step<3, 4>(v, lane);
+  scatter_step<2, 2>(v, lane);
+  scatter_step<1, 1>(v, lane);
+}
+
+// The sum reduce_scatter leaves at `lane`, or -1. Every lane runs each step
+// on the same number of slots; a lane's slots hold the sums [first, first +
+// n) and zeros after them.
+__device__ __forceinline__ int scatter_owner(int lane) {
+  int first = 0, n = kSums, slots = kSums;
+  for (int off = 16; off > 0; off /= 2) {
+    const int h = (slots + 1) / 2;
+    if (lane & off) {
+      first += h;
+      n = max(n - h, 0);
+    } else {
+      n = min(n, h);
+    }
+    slots = h;
+  }
+  return n == 1 ? first : -1;
+}
+
+// Two threads per live instance of the chunk, five sums each: add the warps
+// that reduced the instance, in warp order, form the parameter gradients
+// and store them (coalesced along the chunk).
+__device__ __forceinline__ void store_reduced_grads(
+    float (*red)[kWarps][kChunk], unsigned (*reduced)[kChunk / 32],
+    composite::ChunkRows rows, float* __restrict__ grads, int64_t b_pad,
+    int64_t base, int lo, int hi) {
+  using namespace composite;
+  const int j = threadIdx.x % kChunk;
+  const int half = threadIdx.x / kChunk;  // sums 0..4 or 5..9
+  if (j < lo || j >= hi) return;
+  float t[kSums / 2];
+#pragma unroll
+  for (int k = 0; k < kSums / 2; ++k) t[k] = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (!((reduced[w][j / 32] >> (j % 32)) & 1u)) continue;
+#pragma unroll
+    for (int k = 0; k < kSums / 2; ++k) t[k] += red[half * 5 + k][w][j];
+  }
+  float* g = grads + base + j;
+  if (half == 0) {  // dpow, dpow dx, dpow dy, dpow dx^2, dpow dy^2
+    const float ca = rows[kA][j], cb = rows[kB][j], cc = rows[kC][j];
+    g[0 * b_pad] = ca * t[1] + cb * t[2];
+    g[1 * b_pad] = cc * t[2] + cb * t[1];
+    g[2 * b_pad] = -0.5f * t[3];
+    g[4 * b_pad] = -0.5f * t[4];
+    g[8 * b_pad] = t[0] / fmaxf(rows[kOp][j], 1e-30f);
+  } else {  // dpow dx dy, w g_r, w g_g, w g_b, w g_dep
+    g[3 * b_pad] = -t[0];
+    g[5 * b_pad] = t[1];
+    g[6 * b_pad] = t[2];
+    g[7 * b_pad] = t[3];
+    g[9 * b_pad] = t[4];
+  }
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 tiled_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
                  const int* __restrict__ offsets,
                  const float* __restrict__ rows16,
                  const float* __restrict__ gimg, const float* __restrict__ tb,
-                 float* __restrict__ grads, int tw, int64_t b_pad,
-                 int tile_size, float bg0, float bg1, float bg2) {
+                 float* __restrict__ grads, int tw, int64_t b_pad, float bg0,
+                 float bg1, float bg2) {
   using namespace composite;
+  using M = PatchMap<PPT>;
+  constexpr int kQ = M::kQ;
+  constexpr int p = M::kTile * M::kTile;
   __shared__ float sh[kRows][kChunk];
+  __shared__ float4 boxes[kChunk];
   __shared__ float red[kSums][kWarps][kChunk];
+  __shared__ unsigned reduced[kWarps][kChunk / 32];
 
   const int tile = blockIdx.x;
-  const int p = tile_size * tile_size;
   const int start = starts[tile];
   const int count = counts[tile];
   const int kt = start / kChunk;
@@ -232,68 +442,136 @@ tiled_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
   const float* tb_tile = tb + static_cast<int64_t>(offsets[tile]) * p;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int owner = scatter_owner(lane);
 
-  PixelFields<PPT> f;
-  load_pixel_fields(f, gimg, tile, tw, tile_size, bg0, bg1, bg2);
-  float carry[PPT];
+  // the lane's quad (pixel i at column i % kQ, row i / kQ) and the warp's
+  // patch, in pixel coordinates
+  const int ox = (tile % tw) * M::kTile;
+  const int oy = (tile / tw) * M::kTile;
+  float qx[kQ], qy[kQ];
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) carry[i] = 0.0f;
+  for (int k = 0; k < kQ; ++k) {
+    qx[k] = static_cast<float>(ox + M::quad_x(warp, lane) + k);
+    qy[k] = static_cast<float>(oy + M::quad_y(warp, lane) + k);
+  }
+  const float patch_x0 = static_cast<float>(ox + M::patch_x(warp));
+  const float patch_x1 = patch_x0 + static_cast<float>(M::kW - 1);
+  const float patch_y0 = static_cast<float>(oy + M::patch_y(warp));
+  const float patch_y1 = patch_y0 + static_cast<float>(M::kH - 1);
+
+  float gr[PPT], gg[PPT], gb[PPT], gd[PPT], kk[PPT], u_tot[PPT], carry[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const float* g =
+        gimg + (static_cast<int64_t>(tile) * p + patch_pixel<PPT>(warp, lane, i)) * 8;
+    gr[i] = g[0];
+    gg[i] = g[1];
+    gb[i] = g[2];
+    gd[i] = g[3];
+    kk[i] = (g[4] - (gr[i] * bg0 + gg[i] * bg1 + gb[i] * bg2)) * (1.0f - g[5]);
+    u_tot[i] = g[6];
+    carry[i] = 0.0f;
+  }
 
   for (int ci = 0; ci < n_chunks; ++ci) {
     float T[PPT];
     bool started = false;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      T[i] = tb_tile[static_cast<int64_t>(ci) * p + threadIdx.x + i * kThreads];
+      T[i] = tb_tile[static_cast<int64_t>(ci) * p + patch_pixel<PPT>(warp, lane, i)];
       started |= T[i] > 0.0f;
     }
-    // barrier (the previous chunk's reduction has read sh and red) and the
-    // vote: a chunk K2 never started has an all-zero boundary, and so has
-    // every later chunk of the tile; their slots keep the wrapper's zeros
+    // barrier (the previous chunk's reduction has read sh, boxes, red and
+    // reduced) and the vote: a chunk K2 never started has an all-zero
+    // boundary, and so has every later chunk of the tile; their slots keep
+    // the wrapper's zeros
     if (!__syncthreads_or(started)) break;
     const int64_t base = static_cast<int64_t>(kt + ci) * kChunk;
-    load_chunk(sh, rows16, b_pad, base);
+    load_chunk_boxes(sh, boxes, rows16, b_pad, base);
     __syncthreads();
+
+    const int lo = chunk_lo(start, kt, ci);
+    const int hi = min(static_cast<int>(start + count - base), kChunk);
+    // the live instances whose box meets the warp's patch, 32 per word
+    unsigned hit[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = k * 32 + lane;
+      const float4 b = boxes[j];
+      hit[k] = __ballot_sync(0xffffffffu, j >= lo && j < hi &&
+                                              b.x <= patch_x1 && b.y >= patch_x0 &&
+                                              b.z <= patch_y1 && b.w >= patch_y0);
+    }
 
     float rem[PPT], cum[PPT];
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      rem[i] = f.u_tot[i] - carry[i];
+      rem[i] = u_tot[i] - carry[i];
       cum[i] = 0.0f;
     }
-    const int lo = chunk_lo(start, kt, ci);
-    const int hi = min(static_cast<int>(start + count - base), kChunk);
-    for (int j = lo; j < hi; ++j) {
+    // bit k of `mine`: this warp reduced instance 32 k + lane
+    unsigned mine = 0u;
+    int word_base = 0;
+    unsigned m = hit[0], m1 = hit[1], m2 = hit[2], m3 = hit[3];
+    while (true) {
+      if (m == 0u) {
+        if ((m1 | m2 | m3) == 0u) break;
+        m = m1;
+        m1 = m2;
+        m2 = m3;
+        m3 = 0u;
+        word_base += 32;
+        continue;
+      }
+      const int j = word_base + __ffs(m) - 1;
+      m &= m - 1u;
       const float gx = sh[kX][j], gy = sh[kY][j];
       const float ca = sh[kA][j], cb = sh[kB][j], cc = sh[kC][j];
       const float cr = sh[kR][j], cg = sh[kG][j], cbl = sh[kBl][j];
       const float op = sh[kOp][j], dep = sh[kDepth][j], cut = sh[kCut][j];
-      float s[kSums];
-#pragma unroll
-      for (int k = 0; k < kSums; ++k) s[k] = 0.0f;
+      // classify the lane's pixels first, then run their terms without a
+      // branch: a dead pixel takes alpha = 0, so its T, prefix and sums
+      // change by exact zeros, and the pixels' chains interleave
+      bool live[PPT];
+      float a_raw[PPT], alpha[PPT];
       bool seen = false;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        const float dx = f.px[i] - gx;
-        const float dy = f.py[i] - gy;
-        float a_raw, alpha;
-        if (!splat_alpha(dx, dy, ca, cb, cc, op, cut, &a_raw, &alpha)) continue;
-        seen = true;
-        const float w = alpha * T[i];
-        const float u =
-            f.gr[i] * cr + f.gg[i] * cg + f.gb[i] * cbl + f.gd[i] * dep;
-        cum[i] += u * w;
-        pair_grad(s, dx, dy, a_raw, alpha, T[i], w, u, f.kk[i],
-                  rem[i] - cum[i], f.gr[i], f.gg[i], f.gb[i], f.gd[i]);
-        T[i] *= 1.0f - alpha;
+        live[i] = splat_alpha(qx[i % kQ] - gx, qy[i / kQ] - gy, ca, cb, cc, op,
+                              cut, &a_raw[i], &alpha[i]);
+        seen |= live[i];
       }
-      park_warp_sums(red, s, seen, warp, lane, j);
+      if (!__any_sync(0xffffffffu, seen)) continue;
+      float s[kSums];
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) s[k] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const float dx = qx[i % kQ] - gx;
+        const float dy = qy[i / kQ] - gy;
+        const float al = live[i] ? alpha[i] : 0.0f;
+        const float ar = live[i] ? a_raw[i] : 0.0f;
+        const float w = al * T[i];
+        const float u = gr[i] * cr + gg[i] * cg + gb[i] * cbl + gd[i] * dep;
+        cum[i] += u * w;
+        pair_grad(s, dx, dy, ar, al, T[i], w, u, kk[i], rem[i] - cum[i],
+                  gr[i], gg[i], gb[i], gd[i]);
+        T[i] *= 1.0f - al;
+      }
+      reduce_scatter(s, lane);
+      if (owner >= 0) red[owner][warp][j] = s[0];
+      if (lane == j % 32) mine |= 1u << (j / 32);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned r = __ballot_sync(0xffffffffu, (mine >> k) & 1u);
+      if (lane == k) reduced[warp][k] = r;
     }
 #pragma unroll
     for (int i = 0; i < PPT; ++i) carry[i] += cum[i];
     __syncthreads();
-    store_chunk_grads(red, const_cast<ChunkRows>(sh), grads, b_pad, base, lo,
-                      hi);
+    store_reduced_grads(red, reduced, const_cast<ChunkRows>(sh), grads, b_pad,
+                        base, lo, hi);
   }
 }
 
@@ -522,10 +800,10 @@ extern "C" int tiled_bwd_launch(const void* starts, const void* counts,
   float* g = static_cast<float*>(grads);
   if (tile_size == 32) {
     tiled_bwd_kernel<4><<<n_tiles, kThreads, 0, a.s>>>(
-        a.st, a.ct, a.of, a.rows, gi, t, g, tw, b_pad, tile_size, bg0, bg1, bg2);
+        a.st, a.ct, a.of, a.rows, gi, t, g, tw, b_pad, bg0, bg1, bg2);
   } else if (tile_size == 16) {
     tiled_bwd_kernel<1><<<n_tiles, kThreads, 0, a.s>>>(
-        a.st, a.ct, a.of, a.rows, gi, t, g, tw, b_pad, tile_size, bg0, bg1, bg2);
+        a.st, a.ct, a.of, a.rows, gi, t, g, tw, b_pad, bg0, bg1, bg2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,7 +23,12 @@ The backward's suffix S_i = U_tot - prefix comes from the closed form
 U_tot = sum_c g_c (out_c - bg_c T_N) + g_dep out_dep with T_N = 1 - acc
 (the JAX package's forward-order sweep), and every pair is classified by
 the one rule of ``tiled_fwd.chunk_alpha`` / ``csrc/composite.cuh``, so the
-backward sees exactly the instances the forward composited.
+backward sees exactly the instances the forward composited. K3 gives each
+warp a compact patch of the tile (``patch_pixel``) and skips the instances
+whose conservative footprint box misses it; ``footprint_boxes`` is that
+box's plain copy and ``cull_audit`` counts, with it and ``chunk_alpha``,
+what the cull skips (no skipped pair may be alive). The plain version of K3
+needs neither: the skipped pairs are dead.
 
 With ``tiles_per_program`` and ``span_cap`` (``tiled_fwd.resolve_span``)
 the forward is K2-span, K2 for blocks of several tiles that stage their
@@ -65,15 +70,20 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
 GCH = 8  # grad-image channels: g_r g_g g_b g_dep g_acc acc u_tot pad
 
 
+def layout_rows(packed: PackedTiles, n_tiles: int) -> int:
+    """Rows of the boundary buffer: consecutive tiles overlap by at most one
+    chunk, so B_pad / 128 + T bounds the total without a device sync."""
+    return packed.rows16.shape[1] // CHUNK + n_tiles
+
+
 def chunk_layout(packed: PackedTiles, n_tiles: int):
-    """(offsets i32 [T], rows): tile t's boundary of its chunk ci lives at
-    row offsets[t] + ci. Consecutive tiles overlap by at most one chunk, so
-    ``rows`` = B_pad / 128 + T bounds the total without a device sync."""
+    """(offsets i32 [T], ``layout_rows``): tile t's boundary of its chunk ci
+    lives at row offsets[t] + ci."""
     starts = packed.starts
     astart = (starts // CHUNK) * CHUNK
     n_chunks = (starts - astart + packed.counts + CHUNK - 1) // CHUNK
     offsets = (torch.cumsum(n_chunks, 0) - n_chunks).to(torch.int32)
-    return offsets, packed.rows16.shape[1] // CHUNK + n_tiles
+    return offsets, layout_rows(packed, n_tiles)
 
 
 def raster_forward_train_plain(packed: PackedTiles, width: int, height: int,
@@ -270,13 +280,126 @@ def run_backward_plain(packed: PackedTiles, gimg_t: torch.Tensor,
     return grads
 
 
+# K3's footprint culling (csrc/tiled_train.cu::footprint_box): the same
+# margins as literals there
+CULL_LOG_MARGIN = 1e-3
+CULL_DET_SCALE = 0.99998
+CULL_WIDEN = 1.001
+CULL_ABS = 1e-2
+CULL_MEAN_REL = 1e-6
+K3_WARPS = 8
+
+
+def patch_pixel(warp, lane, i, tile_size: int):
+    """Plain copy of ``csrc/tiled_train.cu::patch_pixel``: the pixel (index
+    y * tile_size + x in its tile) that K3's lane ``lane`` of warp ``warp``
+    holds as its ``i``-th. Warps own 2 x 4 patches of (tile_size / 2) x
+    (tile_size / 4) pixels, lanes 8 x 4 quads of q x q (q = tile_size / 16)
+    of a patch, row-major. Takes ints or integer tensors."""
+    q = tile_size // 16
+    x = (warp & 1) * 8 * q + (lane & 7) * q + i % q
+    y = (warp >> 1) * 4 * q + (lane >> 3) * q + i // q
+    return y * tile_size + x
+
+
+def footprint_boxes(x, y, a, b, c, op, cut) -> torch.Tensor:
+    """Plain version of ``csrc/tiled_train.cu::footprint_box`` for tensors of
+    one shape S: [4, *S] boxes (x_lo, x_hi, y_lo, y_hi) that hold every
+    pixel at which ``tiled_fwd.chunk_alpha`` can find the instance alive.
+
+    A live pair has cut <= power <= 0 and op e^power >= 1/255, so power >=
+    tau = max(cut, log(1 / (255 op))); for a positive definite conic the
+    offsets with power >= tau lie in |dx| <= sqrt(-2 tau c / det), |dy| <=
+    sqrt(-2 tau a / det). The margins (CULL_*) cover the rounding of the
+    kernel's quadratic form, of exp and log and of the box itself. A conic
+    that is not positive definite, or a determinant or box that is not
+    finite, gives the whole plane. Nothing on the card path calls it; K3 computes its own."""
+    tau = torch.fmax(cut, -torch.log(255.0 * op) - CULL_LOG_MARGIN)
+    r2 = torch.where(tau >= 0.0, 0.0, -2.0 * tau)     # NaN stays NaN
+    det = a * c * CULL_DET_SCALE - b * b
+    rx = torch.sqrt(r2 * c / det) * CULL_WIDEN + CULL_ABS + CULL_MEAN_REL * x.abs()
+    ry = torch.sqrt(r2 * a / det) * CULL_WIDEN + CULL_ABS + CULL_MEAN_REL * y.abs()
+    box = torch.stack([x - rx, x + rx, y - ry, y + ry])
+    inf = float("inf")
+    # NaN fails every comparison, so `< inf` also tests for NaN
+    ok = ((a > 0.0) & (det > 0.0) & (det < inf) & (x.abs() + rx < inf)
+          & (y.abs() + ry < inf))
+    whole = torch.tensor([-inf, inf, -inf, inf], dtype=box.dtype,
+                         device=box.device).reshape(4, *([1] * x.dim()))
+    return torch.where(ok, box, whole)
+
+
+def cull_audit(packed: PackedTiles, width: int, height: int, tile_size: int,
+               tbounds: torch.Tensor | None = None) -> dict:
+    """What K3's culling does on ``packed``, from ``footprint_boxes`` and the
+    plain classification ``chunk_alpha``: over the chunks K3 walks (those
+    ``tbounds`` marks started; every chunk without it), the pairs a warp
+    skips that are alive (``culled_pairs_alive``, which must be 0), the
+    pairs classified against all walked pairs, and the (warp, instance)
+    reductions with all warps seeing every instance (K3's first form, row
+    layout) and in the patch layout after the cull."""
+    n_tiles = (width // tile_size) * (height // tile_size)
+    p = tile_size * tile_size
+    ppt = p // (K3_WARPS * 32)
+    dev = packed.rows16.device
+    b_pad = packed.rows16.shape[1]
+    rows3d = packed.rows16.reshape(PACK16, b_pad // CHUNK, CHUNK).permute(1, 0, 2)
+    starts, ends, kt, n_chunks = chunk_span(packed)
+    px, py = pixel_coords(width, tile_size, n_tiles, dev)
+    # the tile's pixels in (warp, lane, i) order of the patch layout
+    wli = torch.arange(p, device=dev)
+    pix = patch_pixel(wli // (32 * ppt), (wli // ppt) % 32, wli % ppt, tile_size)
+
+    tiles = torch.repeat_interleave(torch.arange(n_tiles, device=dev), n_chunks)
+    first = torch.cumsum(n_chunks, 0) - n_chunks
+    ci = torch.arange(tiles.numel(), device=dev) - first[tiles]
+    if tbounds is not None:
+        offsets = chunk_layout(packed, n_tiles)[0].to(torch.int64)
+        keep = tbounds[offsets[tiles] + ci].amax(dim=1) > 0.0
+        tiles, ci = tiles[keep], ci[keep]
+    out = dict.fromkeys(("instances_walked", "pairs_contributing",
+                         "warp_instances_walked", "culled_pairs_alive",
+                         "reductions_row_layout", "reductions_patch_layout"), 0)
+    lane = torch.arange(CHUNK, device=dev)
+    batch = max(1, (1 << 22) // (p * CHUNK))
+    for s in range(0, tiles.numel(), batch):
+        t, c = tiles[s:s + batch], ci[s:s + batch]
+        a = t.numel()
+        blk = rows3d[kt[t] + c]                                        # [A, 16, 128]
+        pos = (kt[t] + c)[:, None] * CHUNK + lane[None, :]
+        live = (pos >= starts[t, None]) & (pos < ends[t, None])       # [A, 128]
+        alive = ~chunk_alpha(blk, px[t], py[t], live)[4]              # [A, p, 128]
+        box = footprint_boxes(blk[:, 0], blk[:, 1], blk[:, 2], blk[:, 3],
+                              blk[:, 4], blk[:, 8], blk[:, 10])       # [4, A, 128]
+        wx = px[t][:, pix, 0].reshape(a, K3_WARPS, -1)                # [A, 8, p/8]
+        wy = py[t][:, pix, 0].reshape(a, K3_WARPS, -1)
+        hit = ((box[0][:, None] <= wx.amax(2, keepdim=True))
+               & (box[1][:, None] >= wx.amin(2, keepdim=True))
+               & (box[2][:, None] <= wy.amax(2, keepdim=True))
+               & (box[3][:, None] >= wy.amin(2, keepdim=True))
+               & live[:, None])                                       # [A, 8, 128]
+        alive_w = alive[:, pix].reshape(a, K3_WARPS, -1, CHUNK)       # [A, 8, p/8, 128]
+        seen = alive_w.any(dim=2)
+        out["instances_walked"] += int(live.sum())
+        out["pairs_contributing"] += int(alive.sum())
+        out["warp_instances_walked"] += int(hit.sum())
+        out["culled_pairs_alive"] += int((alive_w & ~hit[:, :, None]).sum())
+        out["reductions_patch_layout"] += int((seen & hit).sum())
+        out["reductions_row_layout"] += int(
+            alive.reshape(a, ppt, K3_WARPS, 32, CHUNK).any(dim=3).any(dim=1).sum())
+    out["pairs_walked"] = out["instances_walked"] * p
+    out["pairs_classified"] = out["warp_instances_walked"] * (p // K3_WARPS)
+    out["warp_instances"] = out["instances_walked"] * K3_WARPS
+    return out
+
+
 def check_backward_inputs(packed: PackedTiles, gimg_t: torch.Tensor,
                           tbounds: torch.Tensor, width: int, height: int,
                           tile_size: int) -> None:
     check_packed(packed, width, height, tile_size)
     n_tiles = (width // tile_size) * (height // tile_size)
     p = tile_size * tile_size
-    n_rows = chunk_layout(packed, n_tiles)[1]
+    n_rows = layout_rows(packed, n_tiles)
     for name, t, shape in (("gimg_t", gimg_t, (n_tiles, p, GCH)),
                            ("tbounds", tbounds, (n_rows, p))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:

@@ -6,9 +6,10 @@ default), once from the sources as they are and once with one rewrite of
 ``composite.cuh``'s tile walk that is the same C++ function: the chunk loop's
 own index carried past the loop (``++ci; break;``) instead of the separate
 ``walked`` counter. Each build's K1, K2 and K3 are held against their plain
-versions on chip_smoke's deep synthetic packs at 32 px and 16 px tiles, and
-so are K1-span, K2-span and K4 with a window most programs fit and with a
-window of one chunk (mostly the overflow walk).
+versions on chip_smoke's deep synthetic packs at 32 px and 16 px tiles (K3,
+with its warp patches, footprint cull and reduce-scatter, also against a
+second launch, bit for bit), and so are K1-span, K2-span and K4 with a window
+most programs fit and with a window of one chunk (mostly the overflow walk).
 Before that it compares the PTX of every kernel between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
