@@ -198,12 +198,14 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> float:
-    """Mean device time of one launch of ``kernel`` (a KERNEL_ENTRIES key)
-    over ``iters`` calls of ``fn``, from torch.profiler's kernel records: the
-    kernel alone, without its wrapper's small kernels and host time. The
-    profiler can drop records in a process that profiles many times; the
-    mean is over the records it kept, and fewer than half raises."""
+def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
+    """(mean device time of one launch of ``kernel``, a KERNEL_ENTRIES key,
+    over ``iters`` calls of ``fn``; the launch records it is the mean of),
+    from torch.profiler's kernel records: the kernel alone, without its
+    wrapper's small kernels and host time. The profiler can drop records in
+    a process that profiles many times: it profiles again, up to three
+    times, until it keeps a record of every launch, takes the session that
+    kept the most, and raises when that is fewer than half."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -211,24 +213,58 @@ def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> float:
     entry = KERNEL_ENTRIES[kernel]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and entry in e.key]
-    count = sum(e.count for e in hits)
-    if not iters // 2 <= count <= iters:
+    count, total_us = 0, 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and entry in e.key]
+        seen = sum(e.count for e in hits)
+        if seen > iters:
+            raise RuntimeError(f"profiler saw {seen} launches of {entry} in "
+                               f"{iters} calls")
+        if seen > count:
+            count, total_us = seen, sum(e.self_device_time_total for e in hits)
+        if count == iters:
+            break
+    if count < iters // 2:
         raise RuntimeError(f"profiler saw {count} launches of {entry} in {iters} calls")
-    return sum(e.self_device_time_total for e in hits) / 1e3 / count
+    return total_us / 1e3 / count, count
 
 
-def bound(stats: dict, kernel: str, n_bytes: int) -> dict:
+def function_bytes(kernel: str, stats: dict, n_tiles: int, p: int) -> int:
+    """The bytes ``kernel``'s function moves on a pack, each input read once
+    and each output written once, from the plain walk's statistics: the 11
+    rows of every instance walked (the live slots of the chunks the walk
+    entered; for K3 and K4, the chunks K2 started), the tiles' ints (starts,
+    counts and, but for K1, the boundary offsets) and the per-pixel data.
+    K1 and K2 write r, g, b, depth and alpha (the output's three padding
+    rows are its layout's), K2 also one boundary row of p floats per laid
+    chunk. K3 and K4 read the started chunks' boundaries and the channels of
+    the grad image they use (K3 seven, g_r g_g g_b g_dep g_acc acc U_tot; K4
+    six, without U_tot) and write ten gradient rows per instance walked: the
+    other slots of grads [16, B_pad] are zeros that the wrapper allocates."""
+    walked = stats["instances_walked"] * 11 + n_tiles * (2 if kernel == "K1" else 3)
+    if kernel in ("K1", "K2"):
+        pixels = n_tiles * p * 5
+        if kernel == "K2":
+            pixels += stats["chunks_laid"] * p
+        return 4 * (walked + pixels)
+    grad_channels = {"K3": 7, "K4": 6}[kernel]
+    return 4 * (walked + stats["instances_walked"] * 10
+                + n_tiles * p * grad_channels + stats["chunks_started"] * p)
+
+
+def bound(stats: dict, kernel: str, n_tiles: int, p: int) -> dict:
     """The least time the card could take for ``kernel``'s function on a
     pack: the larger of its fp32 operations (on the pairs this pack's data
-    finds alive) at the fp32 peak and its bytes at the memory rate."""
+    finds alive) at the fp32 peak and its bytes (``function_bytes``) at the
+    memory rate."""
     ops = stats["pairs_contributing"] * (OPS_PER_WALKED_PAIR
                                          + OPS_PER_CONTRIBUTING_PAIR[kernel])
+    n_bytes = function_bytes(kernel, stats, n_tiles, p)
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
     return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -464,12 +500,9 @@ def cull_phase(cases) -> dict:
         a = cull_audit(packed, width, height, ts, tb)
         log(f"K3 cull audit [{label}]: pairs classified {a['pairs_classified']} "
             f"of {a['pairs_walked']} walked "
-            f"({a['pairs_classified'] / a['pairs_walked']:.4f}), "
-            f"{a['pairs_contributing']} contributing; (warp, instance) pairs "
-            f"walked {a['warp_instances_walked']} of {a['warp_instances']}; "
-            f"reductions {a['reductions_row_layout']} with warps of tile rows "
-            f"(K3's first form) -> {a['reductions_patch_layout']} in patches "
-            f"after the cull; culled pairs alive {a['culled_pairs_alive']}")
+            f"({a['pairs_classified'] / a['pairs_walked']:.4f}); (warp, "
+            f"instance) reductions {a['reductions']}; culled pairs alive "
+            f"{a['culled_pairs_alive']}")
         if a["culled_pairs_alive"]:
             raise RuntimeError(f"K3 cull audit [{label}]: "
                                f"{a['culled_pairs_alive']} culled pairs are alive")
@@ -1205,8 +1238,7 @@ def main() -> int:
         lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG), "K1")}
     k1_plain_ms = time_ms(
         lambda: raster_forward_tiles_plain(packed, WIDTH, HEIGHT, tile, BG), 3, 1)
-    k1_bound = bound(stats, "K1", stats["instances_walked"] * 11 * 4
-                     + n_tiles * 2 * 4 + n_tiles * 8 * p * 4)
+    k1_bound = bound(stats, "K1", n_tiles, p)
     log(f"K1 65k view 0: {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound "
         f"{json.dumps(k1_bound)} [{gpu}]")
 
@@ -1216,11 +1248,7 @@ def main() -> int:
         lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile, BG), "K2")
     k2_plain_ms = time_ms(lambda: raster_forward_train_plain(
         train_pack, WIDTH, HEIGHT, tile, BG), 3, 1)
-    # K2 reads K1's inputs plus the offsets and writes K1's output plus one
-    # boundary row of p floats per laid chunk
-    k2_bound = bound(train_stats, "K2", train_stats["instances_walked"] * 11 * 4
-                     + n_tiles * 3 * 4 + n_tiles * 8 * p * 4
-                     + train_stats["chunks_laid"] * p * 4)
+    k2_bound = bound(train_stats, "K2", n_tiles, p)
     log(f"K2 65k train cam 0: {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, bound "
         f"{json.dumps(k2_bound)} [{gpu}]")
 
@@ -1230,20 +1258,13 @@ def main() -> int:
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), "K3")
     k3_plain_ms = time_ms(lambda: run_backward_plain(
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), 3, 1)
-    # K3 reads the walked instances' rows, the three per-tile ints, the
-    # grad image and the started chunks' boundaries, and writes grads
-    # [16, B_pad]
-    k3_bound = bound(train_stats, "K3", train_stats["instances_walked"] * 11 * 4
-                     + n_tiles * 3 * 4 + n_tiles * p * 8 * 4
-                     + train_stats["chunks_started"] * p * 4
-                     + 16 * train_pack.rows16.shape[1] * 4)
+    k3_bound = bound(train_stats, "K3", n_tiles, p)
     log(f"K3 65k train cam 0: {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
         f"{json.dumps(k3_bound)} [{gpu}]")
 
-    # the span kernels at the same shapes: the same pairs, so K1-span's and
-    # K2-span's bounds are K1's and K2's; K4 is bound as K3 with one more
-    # addition per contributing pair and without U_tot's column (p floats a
-    # tile less)
+    # the span kernels at the same shapes: the same function, so K1-span's
+    # and K2-span's bounds are K1's and K2's; K4's is K3's with one more
+    # addition per contributing pair and without U_tot's channel
     k1s_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG,
                                                   *SPAN_32), 50)
     k1s_plain_ms = time_ms(lambda: raster_forward_tiles_plain(
@@ -1260,13 +1281,11 @@ def main() -> int:
         train_pack, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K2-span")
     alone["K4"] = kernel_alone_ms(lambda: run_backward(
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K4")
-    log(f"kernels alone (torch.profiler, ms): {json.dumps(alone)} [{gpu}]")
+    log("kernels alone (torch.profiler; ms, launch records of 20): "
+        f"{json.dumps(alone)} [{gpu}]")
     k4_plain_ms = time_ms(lambda: run_backward_plain(
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
-    k4_bound = bound(train_stats, "K4", train_stats["instances_walked"] * 11 * 4
-                     + n_tiles * 3 * 4 + n_tiles * p * 7 * 4
-                     + train_stats["chunks_started"] * p * 4
-                     + 16 * train_pack.rows16.shape[1] * 4)
+    k4_bound = bound(train_stats, "K4", n_tiles, p)
     log(f"span kernels at tpp={SPAN_32[0]} span_cap={SPAN_32[1]}: K1-span "
         f"{k1s_ms:.4f} ms (K1 {k1_ms:.4f}), plain {k1s_plain_ms:.3f}; K2-span "
         f"{k2s_ms:.4f} ms (K2 {k2_ms:.4f}), plain {k2s_plain_ms:.3f}; K4 "
@@ -1377,17 +1396,19 @@ def main() -> int:
     def entry(name, source, replaces, by_path, err, ms, plain_ms, b):
         # launches_by_path: each main path's own count, read just after the
         # path was driven from counters set to 0 just before; launches: their
-        # sum; ms: the wrapper call, kernel_ms: the kernel alone; ptxas: the
-        # entry function's registers, shared memory and spills from this
-        # run's build log (None when it was built before)
+        # sum; ms: the wrapper call, kernel_ms: the kernel alone, the mean of
+        # kernel_ms_records launch records of 20; share_of_bound: bound /
+        # kernel alone; ptxas: the entry function's registers, shared memory
+        # and spills from this run's build log (None when it was built before)
         key = name.split()[0]
+        kernel_ms, records = alone[key]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
-                "library_ms": None, "kernel_ms": alone[key],
-                "kernel_share_of_bound": b["bound_ms"] / alone[key],
+                "bound_by": b["bound_by"], "library_ms": None,
+                "kernel_ms": kernel_ms, "kernel_ms_records": records,
+                "share_of_bound": b["bound_ms"] / kernel_ms,
                 "ptxas": usage.get(KERNEL_ENTRIES[key])}
 
     # K3's cotangent is scaled by 1 / numel, so its absolute error is small

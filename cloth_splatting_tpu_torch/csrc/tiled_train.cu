@@ -59,8 +59,8 @@
 //     warp, where the full walk changes no T, prefix or sum, so each
 //     pixel's values are the same float operations as without the cull;
 //   - no branch per pixel: a lane classifies its pixels first and then runs
-//     their terms with a dead pixel's alpha at 0, which changes its T,
-//     prefix and sums by exact zeros, so the pixels' chains interleave
+//     their terms with a dead pixel's alpha and offsets at 0, which changes
+//     its T, prefix and sums by exact zeros, so the pixels' chains interleave
 //     (a branch per pixel ran each pixel's terms in turn for the whole warp
 //     whenever one lane's pixel was alive);
 //   - a cheaper reduction: a warp reduces only the instances it walked and
@@ -530,8 +530,9 @@ tiled_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
       const float cr = sh[kR][j], cg = sh[kG][j], cbl = sh[kBl][j];
       const float op = sh[kOp][j], dep = sh[kDepth][j], cut = sh[kCut][j];
       // classify the lane's pixels first, then run their terms without a
-      // branch: a dead pixel takes alpha = 0, so its T, prefix and sums
-      // change by exact zeros, and the pixels' chains interleave
+      // branch: a dead pixel takes alpha = 0 and offsets 0, so its T, prefix
+      // and sums change by exact zeros (also when the instance's mean is not
+      // finite), and the pixels' chains interleave
       bool live[PPT];
       float a_raw[PPT], alpha[PPT];
       bool seen = false;
@@ -547,8 +548,8 @@ tiled_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
       for (int k = 0; k < kSums; ++k) s[k] = 0.0f;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        const float dx = qx[i % kQ] - gx;
-        const float dy = qy[i / kQ] - gy;
+        const float dx = live[i] ? qx[i % kQ] - gx : 0.0f;
+        const float dy = live[i] ? qy[i / kQ] - gy : 0.0f;
         const float al = live[i] ? alpha[i] : 0.0f;
         const float ar = live[i] ? a_raw[i] : 0.0f;
         const float w = al * T[i];

@@ -332,12 +332,13 @@ def footprint_boxes(x, y, a, b, c, op, cut) -> torch.Tensor:
 def cull_audit(packed: PackedTiles, width: int, height: int, tile_size: int,
                tbounds: torch.Tensor | None = None) -> dict:
     """What K3's culling does on ``packed``, from ``footprint_boxes`` and the
-    plain classification ``chunk_alpha``: over the chunks K3 walks (those
-    ``tbounds`` marks started; every chunk without it), the pairs a warp
+    plain classification ``chunk_alpha``, over the chunks K3 walks (those
+    ``tbounds`` marks started; every chunk without it): the pairs a warp
     skips that are alive (``culled_pairs_alive``, which must be 0), the
-    pairs classified against all walked pairs, and the (warp, instance)
-    reductions with all warps seeing every instance (K3's first form, row
-    layout) and in the patch layout after the cull."""
+    pairs the warps classify against all walked pairs (every warp would
+    classify every pair without the cull), and the (warp, instance)
+    reductions, those where a pixel of the warp sees the instance (the same
+    with or without the cull when no skipped pair is alive)."""
     n_tiles = (width // tile_size) * (height // tile_size)
     p = tile_size * tile_size
     ppt = p // (K3_WARPS * 32)
@@ -357,9 +358,8 @@ def cull_audit(packed: PackedTiles, width: int, height: int, tile_size: int,
         offsets = chunk_layout(packed, n_tiles)[0].to(torch.int64)
         keep = tbounds[offsets[tiles] + ci].amax(dim=1) > 0.0
         tiles, ci = tiles[keep], ci[keep]
-    out = dict.fromkeys(("instances_walked", "pairs_contributing",
-                         "warp_instances_walked", "culled_pairs_alive",
-                         "reductions_row_layout", "reductions_patch_layout"), 0)
+    out = dict.fromkeys(("pairs_walked", "pairs_classified", "reductions",
+                         "culled_pairs_alive"), 0)
     lane = torch.arange(CHUNK, device=dev)
     batch = max(1, (1 << 22) // (p * CHUNK))
     for s in range(0, tiles.numel(), batch):
@@ -379,17 +379,10 @@ def cull_audit(packed: PackedTiles, width: int, height: int, tile_size: int,
                & (box[3][:, None] >= wy.amin(2, keepdim=True))
                & live[:, None])                                       # [A, 8, 128]
         alive_w = alive[:, pix].reshape(a, K3_WARPS, -1, CHUNK)       # [A, 8, p/8, 128]
-        seen = alive_w.any(dim=2)
-        out["instances_walked"] += int(live.sum())
-        out["pairs_contributing"] += int(alive.sum())
-        out["warp_instances_walked"] += int(hit.sum())
+        out["pairs_walked"] += int(live.sum()) * p
+        out["pairs_classified"] += int(hit.sum()) * (p // K3_WARPS)
+        out["reductions"] += int((alive_w.any(dim=2) & hit).sum())
         out["culled_pairs_alive"] += int((alive_w & ~hit[:, :, None]).sum())
-        out["reductions_patch_layout"] += int((seen & hit).sum())
-        out["reductions_row_layout"] += int(
-            alive.reshape(a, ppt, K3_WARPS, 32, CHUNK).any(dim=3).any(dim=1).sum())
-    out["pairs_walked"] = out["instances_walked"] * p
-    out["pairs_classified"] = out["warp_instances_walked"] * (p // K3_WARPS)
-    out["warp_instances"] = out["instances_walked"] * K3_WARPS
     return out
 
 

@@ -13,18 +13,26 @@ every kernel against its plain version as ``chip_smoke.py`` does (K3 and K4
 also against a second launch, bit for bit) on chip_smoke's 65k packs: K1 and
 K1-span on the serving pack of orbit view 0, K2, K2-span, K3 and K4 on the
 training pack of camera 0 (span forms at ``tpp=5``, ``span_cap=41``). Then it
-times each kernel in four turns, A, B, B, A: the wrapper call (CUDA events
-over ITERS back-to-back calls after a warm-up, as chip_smoke times it) and
-the kernel alone (torch.profiler's records of its launches, without the
-wrapper's own small kernels). Prints one JSON line per turn and a summary:
-per kernel and measure the mean of the A turns, of the B turns, and B / A.
-Imports nothing of JAX.
+times each kernel in four turns, A, B, B, A:
+  - ``ms``, the wrapper call: CUDA events over ITERS back-to-back calls after
+    a warm-up, as chip_smoke times it. Once the wrapper's host work takes
+    longer than its kernels, this is host time;
+  - ``host_ms``, the wrapper's host time per call: a host clock over ITERS
+    calls issued without a sync (the card's queue holds them);
+  - ``graph_ms``, the wrapper's kernels without its host time: one call
+    captured in a CUDA graph, replayed ITERS times back to back (CUDA events);
+  - ``kernel_ms``, the kernel alone: torch.profiler's records of its
+    launches, without the wrapper's own small kernels (``kernel_records``:
+    how many of its 20 launches the profiler kept).
+Prints one JSON line per turn and a summary: per kernel and measure the mean
+of the A turns, of the B turns, and B / A. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,6 +59,41 @@ def use_tree(csrc: Path) -> dict:
     for text in kernels.build_all().values():
         usage.update(cs.ptxas_usage(text or ""))
     return usage
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host time of one call of ``fn`` over ``iters`` calls issued without a
+    sync, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` captured in a CUDA graph: the
+    wrapper's kernels without its host time."""
+    import torch
+
+    import chip_smoke as cs
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the span launchers set a kernel attribute, which global
+    # capture mode refuses
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cs.time_ms(graph.replay, iters)
 
 
 def main() -> int:
@@ -104,24 +147,31 @@ def main() -> int:
         "K3": lambda: run_backward(train, gimg, tb, w, h, tile, cs.BG),
         "K4": lambda: run_backward(train, gimg, tb, w, h, tile, cs.BG, *cs.SPAN_32),
     }
-    ms = {label: {k: [] for k in calls} for label in trees}
-    kms = {label: {k: [] for k in calls} for label in trees}
+    measures = ("ms", "host_ms", "graph_ms", "kernel_ms")
+    got = {m: {label: {k: [] for k in calls} for label in trees} for m in measures}
     for turn, label in enumerate(ORDER):
         use_tree(trees[label])
-        row = {k: cs.time_ms(fn, ITERS) for k, fn in calls.items()}
-        krow = {k: cs.kernel_alone_ms(fn, k) for k, fn in calls.items()}
-        for k in calls:
-            ms[label][k].append(row[k])
-            kms[label][k].append(krow[k])
-        print(json.dumps({"turn": turn, "tree": label, "ms": row, "kernel_ms": krow,
-                          "gpu": gpu}), flush=True)
+        rows = {m: {} for m in measures}
+        records = {}
+        for k, fn in calls.items():
+            rows["ms"][k] = cs.time_ms(fn, ITERS)
+            rows["host_ms"][k] = host_ms(fn, ITERS)
+            rows["graph_ms"][k] = graph_ms(fn, ITERS)
+            rows["kernel_ms"][k], records[k] = cs.kernel_alone_ms(fn, k)
+        for m in measures:
+            for k in calls:
+                got[m][label][k].append(rows[m][k])
+        print(json.dumps({"turn": turn, "tree": label, **rows,
+                          "kernel_records": records, "gpu": gpu}), flush=True)
 
     def stats(d):
         return {k: {"A_ms": sum(d["A"][k]) / 2, "B_ms": sum(d["B"][k]) / 2,
                     "B_over_A": sum(d["B"][k]) / sum(d["A"][k]),
                     "A_turns": d["A"][k], "B_turns": d["B"][k]} for k in calls}
 
-    summary = {"wrapper_call": stats(ms), "kernel_alone": stats(kms)}
+    summary = {"wrapper_call": stats(got["ms"]), "host": stats(got["host_ms"]),
+               "graph": stats(got["graph_ms"]),
+               "kernel_alone": stats(got["kernel_ms"])}
     print(json.dumps({"summary": summary, "order": "".join(ORDER),
                       "iters": ITERS, "gpu": gpu}))
     return 0
