@@ -13,8 +13,11 @@ Phases, each of which raises on failure:
      views, and K2 and K3 on the pack of the 65k training scene; all three
      also on deep synthetic packs (thousands of instances per tile, so the
      transmittance exit fires) at both tile sizes; K3 and K4 also against a
-     second launch of themselves, bit for bit; audit K3's footprint cull on
-     those packs (no pair it skips may be alive); then the span forms
+     second launch of themselves, bit for bit; audit the footprint cull that
+     K1, K2 and K3 share on the serving pack of view 0 (every chunk, a
+     superset of K1's), on the training pack and on the deep packs (the
+     chunks K2 started, which K1, K2 and K3 walk): no pair it skips may be
+     alive; then the span forms
      K1-span, K2-span and K4 (the rasterizer's ``tiles_per_program`` and
      ``span_cap`` options) on the same packs at 32 px and 16 px tiles, with
      a window most programs fit and with a window of one chunk, K4 also
@@ -488,25 +491,49 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
 
 
 def cull_phase(cases) -> dict:
-    """K3's footprint cull on the card, from the plain box and the plain
-    classification (``tiled_train.cull_audit``) over the chunks K3 walks,
-    for each (label, pack, width, height, tile size, K2's boundaries) of
-    ``cases``; raises if a pair the cull skips is alive. Returns the counts
-    by label."""
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import cull_audit
+    """The footprint cull of K1, K2 and K3 on the card, from the plain box
+    and the plain classification (``tiled_fwd.cull_audit``), for each
+    (label, kernels, pack, width, height, tile size, K2's boundaries or
+    None) of ``cases``: over the chunks K2 started (which K1, K2 and K3
+    walk) or, with None, over every chunk (a superset of K1's). Raises if a
+    pair the cull skips is alive. Returns the counts, with the share of the
+    walked pairs the warps classify, by label."""
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import cull_audit
 
     out = {}
-    for label, packed, width, height, ts, tb in cases:
+    for label, kernels, packed, width, height, ts, tb in cases:
         a = cull_audit(packed, width, height, ts, tb)
-        log(f"K3 cull audit [{label}]: pairs classified {a['pairs_classified']} "
-            f"of {a['pairs_walked']} walked "
-            f"({a['pairs_classified'] / a['pairs_walked']:.4f}); (warp, "
-            f"instance) reductions {a['reductions']}; culled pairs alive "
-            f"{a['culled_pairs_alive']}")
+        a["share_classified"] = a["pairs_classified"] / a["pairs_walked"]
+        a["chunks"] = "every chunk" if tb is None else "the chunks K2 started"
+        log(f"{kernels} cull audit [{label}, {a['chunks']}]: pairs classified "
+            f"{a['pairs_classified']} of {a['pairs_walked']} walked "
+            f"({a['share_classified']:.4f}); instances the busiest warp of "
+            f"each chunk walks {a['slowest_warp_hits']} (the warps' mean "
+            f"{a['pairs_classified'] / (ts * ts):.0f}), heaviest tile "
+            f"{a['heaviest_tile_hits']}; K3's (warp, instance) reductions "
+            f"{a['reductions']}; culled pairs alive {a['culled_pairs_alive']}")
         if a["culled_pairs_alive"]:
-            raise RuntimeError(f"K3 cull audit [{label}]: "
+            raise RuntimeError(f"{kernels} cull audit [{label}]: "
                                f"{a['culled_pairs_alive']} culled pairs are alive")
         out[label] = a
+    return out
+
+
+def blocks_per_sm() -> dict:
+    """Blocks of K1 and K2 (32 px tiles) that one SM holds at once, from the
+    CUDA runtime's occupancy calculator."""
+    import ctypes
+
+    from cloth_splatting_tpu_torch import kernels
+
+    out = {}
+    for key, lib, fn in (("K1", "tiled_fwd", "tiled_fwd_blocks_per_sm"),
+                         ("K2", "tiled_train", "tiled_fwd_train_blocks_per_sm")):
+        query = getattr(kernels.load(lib), fn)
+        query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+        out[key] = query(32)
+        if out[key] < 1:
+            raise RuntimeError(f"{fn}(32) returned {out[key]}")
     return out
 
 
@@ -1156,6 +1183,8 @@ def main() -> int:
             log(f"nvcc {name}:\n{text.strip()}")
             usage.update(ptxas_usage(text))
     log(f"build: {time.time() - t0:.1f} s; ptxas {json.dumps(usage)}")
+    occupancy = blocks_per_sm()
+    log(f"blocks an SM (occupancy calculator): {json.dumps(occupancy)}")
     gpu = gpu_line()
     log(f"gpu: {gpu}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1189,7 +1218,9 @@ def main() -> int:
     err, rel = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
                           "65k train cam 0")
     k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
-    cull_cases = [("65k train cam 0", train_pack, WIDTH, HEIGHT, tile, train_tb)]
+    cull_cases = [("65k view 0", "K1", packs[0][0], WIDTH, HEIGHT, tile, None),
+                  ("65k train cam 0", "K2 and K3", train_pack, WIDTH, HEIGHT,
+                   tile, train_tb)]
     deep_cases = []
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
@@ -1207,7 +1238,7 @@ def main() -> int:
         err, rel = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
                               tb_k, size, size, ts, label)
         k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
-        cull_cases.append((label, packed, size, size, ts, tb_k))
+        cull_cases.append((label, "K1, K2 and K3", packed, size, size, ts, tb_k))
         deep_cases.append((label, packed, size, size, ts,
                            (SPAN_DEEP, (SPAN_DEEP[0], 1))))
     cull = cull_phase(cull_cases)
@@ -1429,25 +1460,39 @@ def main() -> int:
                      k4_bound)
     k4_entry["max_rel_err"] = span_err["K4_rel"]
     k4_entry["max_rel_err_vs_k3"] = span_err["K4_vs_K3_rel"]
+    # K1 and K2 run the patched walk: registers (ptxas), blocks an SM and
+    # their cull audits (K1 over every chunk of the serving pack of view 0,
+    # K2 over the chunks it started on the training pack)
+    def patched(e, key, audit):
+        e.update(redesigned="warp patches and footprint cull "
+                            "(composite.cuh::composite_tile_patched)",
+                 registers=(e["ptxas"] or {}).get("registers"),
+                 blocks_per_sm=occupancy[key], cull_audit=audit)
+        return e
+
+    k1_entry = patched(entry("K1 tiled_fwd compositor",
+                             "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
+                             "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
+                             {"serving": k1_launches, "fit": fit_launches["K1"]},
+                             k1_err, k1_ms, k1_plain_ms, k1_bound),
+                       "K1", cull["65k view 0"])
+    k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
+                             "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+                             "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
+                             {"train": k2_launches, "fit": fit_launches["K2"]},
+                             k2_err, k2_ms, k2_plain_ms, k2_bound),
+                       "K2", cull["65k train cam 0"])
     # K1, K2, K3 over the serving frames, the Trainer steps and the fit; the
     # span kernels over one span turn of the A/B's frames and steps
     print(json.dumps({"kernels": [
-        entry("K1 tiled_fwd compositor",
-              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
-              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
-              {"serving": k1_launches, "fit": fit_launches["K1"]}, k1_err, k1_ms, k1_plain_ms,
-              k1_bound),
+        k1_entry,
         entry("K1-span tiled_fwd_span compositor, one window per program",
               "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
               {"span_serving": serve_ab_launches["K1-span"]},
               span_err["K1-span"], k1s_ms,
               k1s_plain_ms, k1_bound),
-        entry("K2 tiled_fwd_train compositor + boundaries",
-              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
-              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
-              {"train": k2_launches, "fit": fit_launches["K2"]}, k2_err, k2_ms, k2_plain_ms,
-              k2_bound),
+        k2_entry,
         entry("K2-span tiled_fwd_train_span, one window per program",
               "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
               "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",

@@ -1,6 +1,9 @@
 // Shared by the tile kernels K1 and K1-span (tiled_fwd.cu), K2, K2-span, K3
-// and K4 (tiled_train.cu): the per-pair classification, the front-to-back
-// tile walk and the span window of a multi-tile program.
+// and K4 (tiled_train.cu): the per-pair classification and compositing
+// update, the warp patches and footprint boxes of K1, K2 and K3, the two
+// front-to-back tile walks (composite_tile_patched for K1 and K2,
+// composite_tile for the span forms) and the span window of a multi-tile
+// program.
 //
 // The packed parameter array is rows16 f32 [16, b_pad], param-major and
 // tile-grouped (rows x, y, conic a/b/c, r, g, b, opacity, depth, power_cut,
@@ -64,6 +67,33 @@ __device__ __forceinline__ bool splat_alpha(float dx, float dy, float ca,
   *a_raw = raw;
   *alpha = a;
   return true;
+}
+
+// One pair's compositing update at one pixel: w = alpha T; each sum +=
+// w * its channel (r, g, b, depth, 1); T *= 1 - alpha. With `live` false
+// every value is selected back, so a dead pixel's T and sums keep their
+// bits, signed zeros included. Both walks call it, so that the compiler
+// rounds (and contracts) their accumulations alike: composite_tile with
+// `live` true after its own test, composite_tile_patched with each pixel's
+// classification and no branch.
+__device__ __forceinline__ void composite_pair(bool live, float alpha,
+                                               float cr, float cg, float cbl,
+                                               float dep, float& T, float& r,
+                                               float& g, float& b, float& d,
+                                               float& sw) {
+  const float w = alpha * T;
+  const float r1 = r + w * cr;
+  const float g1 = g + w * cg;
+  const float b1 = b + w * cbl;
+  const float d1 = d + w * dep;
+  const float sw1 = sw + w;
+  const float t1 = T * (1.0f - alpha);
+  r = live ? r1 : r;
+  g = live ? g1 : g;
+  b = live ? b1 : b;
+  d = live ? d1 : d;
+  sw = live ? sw1 : sw;
+  T = live ? t1 : T;
 }
 
 // The first of the tile's lanes in its chunk kt + ci: start's lane in the
@@ -139,22 +169,262 @@ __device__ __forceinline__ void load_span(float* span,
   }
 }
 
-// The forward walk of one tile (one 256-thread block, PPT pixels per
-// thread; tile_size^2 == PPT * 256): for every pixel
+// The pixel map of K1, K2 and K3. A tile of 16 * kQ px (PPT = kQ * kQ
+// pixels a thread) is cut into 2 x 4 warp patches of 8 kQ x 4 kQ pixels, and
+// a patch into 8 x 4 lane quads of kQ x kQ; pixel i of a quad is its
+// row-major i-th. tiled_fwd.py::patch_pixel is its plain copy.
+template <int PPT>
+struct PatchMap {
+  static_assert(PPT == 1 || PPT == 4, "the patched walks take 16 px and 32 px tiles");
+  static constexpr int kQ = PPT == 4 ? 2 : 1;
+  static constexpr int kTile = 16 * kQ;
+  static constexpr int kW = 8 * kQ, kH = 4 * kQ;
+  // the warp's patch and the lane's quad, in tile coordinates
+  static __device__ __forceinline__ int patch_x(int warp) {
+    return (warp & 1) * kW;
+  }
+  static __device__ __forceinline__ int patch_y(int warp) {
+    return (warp >> 1) * kH;
+  }
+  static __device__ __forceinline__ int quad_x(int warp, int lane) {
+    return patch_x(warp) + (lane & 7) * kQ;
+  }
+  static __device__ __forceinline__ int quad_y(int warp, int lane) {
+    return patch_y(warp) + (lane >> 3) * kQ;
+  }
+};
+
+template <int PPT>
+__device__ __forceinline__ int patch_pixel(int warp, int lane, int i) {
+  using M = PatchMap<PPT>;
+  return (M::quad_y(warp, lane) + i / M::kQ) * M::kTile + M::quad_x(warp, lane) +
+         i % M::kQ;
+}
+
+// The footprint box's margins (tiled_fwd.py holds the same literals).
+// The box bounds {power >= tau} under the exact quadratic form of the conic
+// with ac scaled by kCullDetScale in its determinant, which covers the
+// kernel's rounded form (off by a few ulp of a dx^2 + c dy^2, i.e. a conic
+// shrunk by ~1e-6) and the determinant's own rounding; it is then widened
+// by kCullWiden, kCullAbs px and kCullMeanRel of |mean| (sqrt and division,
+// the rounding of dx and of the mean plus the half-width). tau is lowered
+// by kCullLogMargin for expf, logf and the rounding of op e^power against
+// 1/255 (each a few ulp).
+constexpr float kCullLogMargin = 1e-3f;
+constexpr float kCullDetScale = 0.99998f;
+constexpr float kCullWiden = 1.001f;
+constexpr float kCullAbs = 1e-2f;
+constexpr float kCullMeanRel = 1e-6f;
+
+// A box (x_lo, x_hi, y_lo, y_hi) in pixel coordinates that holds every
+// pixel at which splat_alpha can find this instance alive; plain copy:
+// tiled_fwd.py::footprint_boxes. A live pair has cut <= power <= 0 and
+// op e^power >= 1/255 (min(0.99, raw) >= 1/255 iff raw >= 1/255), so
+// power >= tau = max(cut, log(1 / (255 op))). For a positive definite
+// conic [[a, b], [b, c]] with det = ac - b^2, the offsets with power >= tau
+// lie in |dx| <= sqrt(-2 tau c / det), |dy| <= sqrt(-2 tau a / det). An
+// instance whose conic is not positive definite, or whose determinant or
+// box is not finite, gets the whole plane.
+__device__ __forceinline__ float4 footprint_box(float x, float y, float a,
+                                                float b, float c, float op,
+                                                float cut) {
+  const float tau = fmaxf(cut, -logf(255.0f * op) - kCullLogMargin);
+  const float r2 = tau >= 0.0f ? 0.0f : -2.0f * tau;  // NaN stays NaN
+  const float det = a * c * kCullDetScale - b * b;
+  const float rx = sqrtf(r2 * c / det) * kCullWiden + kCullAbs +
+                   kCullMeanRel * fabsf(x);
+  const float ry = sqrtf(r2 * a / det) * kCullWiden + kCullAbs +
+                   kCullMeanRel * fabsf(y);
+  const float inf = __int_as_float(0x7f800000);
+  // NaN fails every comparison, so `< inf` also tests for NaN
+  if (a > 0.0f && det > 0.0f && det < inf && fabsf(x) + rx < inf &&
+      fabsf(y) + ry < inf)
+    return make_float4(x - rx, x + rx, y - ry, y + ry);
+  return make_float4(-inf, inf, -inf, inf);
+}
+
+// Stages chunk `base`'s 11 rows in sh and each instance's footprint box in
+// boxes: thread j < 128 owns instance j. The caller synchronises.
+__device__ __forceinline__ void load_chunk_boxes(
+    float (*sh)[kChunk], float4* boxes, const float* __restrict__ rows16,
+    int64_t b_pad, int64_t base) {
+  const int j = threadIdx.x;
+  if (j >= kChunk) return;
+  float v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    v[r] = rows16[r * b_pad + base + j];
+    sh[r][j] = v[r];
+  }
+  boxes[j] = footprint_box(v[kX], v[kY], v[kA], v[kB], v[kC], v[kOp], v[kCut]);
+}
+
+// The forward walk of K1 and K2, one tile per 256-thread block: for every
+// pixel
 //   w = alpha T;  T *= 1 - alpha;  sum w * (r, g, b, depth, 1)
 // over the tile's live instances in order, stopping after the first chunk
 // at which max over the tile's pixels of T is <= 1e-4 (a tile-wide vote).
 // Writes out [n_tiles, 8, p]: r, g, b + bg (1 - sum w), depth, alpha =
-// sum w, then three zero rows.
+// sum w, then three zero rows. kRecord (K2) also stores every pixel's T at
+// the start of each chunk it walks to tb[(offset + ci) * p + pixel], and
+// zeros for the tile's chunks after the exit, so "never started" reads as
+// "max boundary is 0". Both are pixel-index-major, as K3 and K4 read them.
 //
-// Where a chunk's rows come from is the only difference between the
-// kernels' default and span forms: with kSpan false each chunk is staged in
-// `sh` (load_chunk) before it is walked; with kSpan true the chunk kt + ci
-// is read at slot kt + ci - k0c of `span`, which the block staged once.
+// It walks as K3 does, where composite_tile (the span forms' walk) has
+// every warp classify every instance of the tile on all its pixels:
+//   - warp w owns a compact patch of the tile and each lane a quad of it
+//     (patch_pixel);
+//   - when a chunk is staged, each instance also gets its footprint box; a
+//     warp tests its patch against the 128 boxes with 4 ballots and walks
+//     only the instances that hit it, in ascending lane order. A skipped
+//     instance is dead at every pixel of the warp, where composite_tile
+//     changes no T or sum, so every pixel goes through the same float
+//     operations in the same order as there (chip_smoke holds the span
+//     forms bit-identical to K1 and K2);
+//   - a lane classifies its pixels first and then runs composite_pair on
+//     each, a dead pixel selected back, without a branch per pixel; a warp
+//     none of whose pixels sees the instance skips the update.
+template <int PPT, bool kRecord>
+__device__ __forceinline__ void composite_tile_patched(
+    int tile, const int* __restrict__ starts, const int* __restrict__ counts,
+    const int* __restrict__ offsets, const float* __restrict__ rows16,
+    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
+    float bg0, float bg1, float bg2, float (*sh)[kChunk], float4* boxes) {
+  using M = PatchMap<PPT>;
+  constexpr int kQ = M::kQ;
+  constexpr int p = M::kTile * M::kTile;
+  const int start = starts[tile];
+  const int count = counts[tile];
+  const int kt = start / kChunk;
+  const int n_chunks = (start - kt * kChunk + count + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* tb_tile = nullptr;
+  if (kRecord) tb_tile = tb + static_cast<int64_t>(offsets[tile]) * p;
+
+  // the lane's quad (pixel i at column i % kQ, row i / kQ) and the warp's
+  // patch, in pixel coordinates
+  const int ox = (tile % tw) * M::kTile;
+  const int oy = (tile / tw) * M::kTile;
+  float qx[kQ], qy[kQ];
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    qx[k] = static_cast<float>(ox + M::quad_x(warp, lane) + k);
+    qy[k] = static_cast<float>(oy + M::quad_y(warp, lane) + k);
+  }
+  const float patch_x0 = static_cast<float>(ox + M::patch_x(warp));
+  const float patch_x1 = patch_x0 + static_cast<float>(M::kW - 1);
+  const float patch_y0 = static_cast<float>(oy + M::patch_y(warp));
+  const float patch_y1 = patch_y0 + static_cast<float>(M::kH - 1);
+
+  float T[PPT], acc_r[PPT], acc_g[PPT], acc_b[PPT], acc_d[PPT], acc_w[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    T[i] = 1.0f;
+    acc_r[i] = acc_g[i] = acc_b[i] = acc_d[i] = acc_w[i] = 0.0f;
+  }
+
+  // chunks walked, fewer when the exit fires
+  int walked = n_chunks;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    if (kRecord) {
+#pragma unroll
+      for (int i = 0; i < PPT; ++i)
+        tb_tile[static_cast<int64_t>(ci) * p + patch_pixel<PPT>(warp, lane, i)] =
+            T[i];
+    }
+    const int64_t base = static_cast<int64_t>(kt + ci) * kChunk;
+    load_chunk_boxes(sh, boxes, rows16, b_pad, base);
+    __syncthreads();
+
+    const int lo = chunk_lo(start, kt, ci);
+    const int hi = min(static_cast<int>(start + count - base), kChunk);
+    // the chunk's live instances whose box meets the warp's patch, 32 at a
+    // time, each word's in ascending lane order
+#pragma unroll 1
+    for (int k = 0; k < kChunk / 32; ++k) {
+      const int jl = k * 32 + lane;
+      const float4 bx = boxes[jl];
+      unsigned m = __ballot_sync(0xffffffffu, jl >= lo && jl < hi &&
+                                                  bx.x <= patch_x1 && bx.y >= patch_x0 &&
+                                                  bx.z <= patch_y1 && bx.w >= patch_y0);
+      while (m != 0u) {
+        const int j = k * 32 + __ffs(m) - 1;
+        m &= m - 1u;
+        const float gx = sh[kX][j], gy = sh[kY][j];
+        const float ca = sh[kA][j], cb = sh[kB][j], cc = sh[kC][j];
+        const float op = sh[kOp][j], cut = sh[kCut][j];
+        bool live[PPT];
+        float alpha[PPT];
+        bool seen = false;
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) {
+          float a_raw = 0.0f;
+          alpha[i] = 0.0f;
+          live[i] = splat_alpha(qx[i % kQ] - gx, qy[i / kQ] - gy, ca, cb, cc,
+                                op, cut, &a_raw, &alpha[i]);
+          seen |= live[i];
+        }
+        if (!__any_sync(0xffffffffu, seen)) continue;
+        const float cr = sh[kR][j], cg = sh[kG][j], cbl = sh[kBl][j];
+        const float dep = sh[kDepth][j];
+#pragma unroll
+        for (int i = 0; i < PPT; ++i)
+          composite_pair(live[i], alpha[i], cr, cg, cbl, dep, T[i], acc_r[i],
+                         acc_g[i], acc_b[i], acc_d[i], acc_w[i]);
+      }
+    }
+
+    float t_max = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) t_max = fmaxf(t_max, T[i]);
+    // barrier (the next chunk overwrites sh and boxes) and the tile-wide
+    // exit vote
+    if (!__syncthreads_or(t_max > kTransEps)) {
+      walked = ci + 1;
+      break;
+    }
+  }
+  if (kRecord) {
+    for (int ci = walked; ci < n_chunks; ++ci) {
+#pragma unroll
+      for (int i = 0; i < PPT; ++i)
+        tb_tile[static_cast<int64_t>(ci) * p + patch_pixel<PPT>(warp, lane, i)] =
+            0.0f;
+    }
+  }
+
+  float* o = out + static_cast<int64_t>(tile) * 8 * p;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const int pix = patch_pixel<PPT>(warp, lane, i);
+    const float t_final = 1.0f - acc_w[i];
+    o[0 * p + pix] = acc_r[i] + t_final * bg0;
+    o[1 * p + pix] = acc_g[i] + t_final * bg1;
+    o[2 * p + pix] = acc_b[i] + t_final * bg2;
+    o[3 * p + pix] = acc_d[i];
+    o[4 * p + pix] = acc_w[i];
+    o[5 * p + pix] = 0.0f;
+    o[6 * p + pix] = 0.0f;
+    o[7 * p + pix] = 0.0f;
+  }
+}
+
+// The span forms' walk of one tile (K1-span and K2-span; one 256-thread
+// block, PPT pixels per thread; tile_size^2 == PPT * 256): the function of
+// composite_tile_patched, with its outputs, walked as the kernels were
+// first written. Thread t owns pixels t + i * 256, so every warp classifies
+// every instance of the tile on all its pixels. It is kept as the yardstick
+// of the patched walk: chip_smoke holds the span forms bit-identical to K1
+// and K2.
 //
-// kRecord (K2) also stores every pixel's T at the start of each chunk it
-// walks to tb[(offset + ci) * p + pixel], and zeros for the tile's chunks
-// after the exit, so "never started" reads as "max boundary is 0".
+// Where a chunk's rows come from is the only difference between its two
+// forms: with kSpan false each chunk is staged in `sh` (load_chunk) before
+// it is walked (a span program that does not fit its window); with kSpan
+// true the chunk kt + ci is read at slot kt + ci - k0c of `span`, which the
+// block staged once.
+//
+// kRecord (K2-span) records the boundaries as composite_tile_patched does.
 //
 // A block may walk several tiles one after another: every chunk ends in a
 // barrier (the vote), so no thread still reads `sh` when the next tile's
@@ -218,13 +488,8 @@ __device__ __forceinline__ void composite_tile(
         if (!splat_alpha(px[i] - gx, py[i] - gy, ca, cb, cc, op, cut, &a_raw,
                          &alpha))
           continue;
-        const float w = alpha * T[i];
-        acc_r[i] += w * cr;
-        acc_g[i] += w * cg;
-        acc_b[i] += w * cbl;
-        acc_d[i] += w * dep;
-        acc_w[i] += w;
-        T[i] *= 1.0f - alpha;
+        composite_pair(true, alpha, cr, cg, cbl, dep, T[i], acc_r[i], acc_g[i],
+                       acc_b[i], acc_d[i], acc_w[i]);
       }
     }
 

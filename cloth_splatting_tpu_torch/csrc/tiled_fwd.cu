@@ -21,32 +21,35 @@
 // is <= 1e-4 (a tile-wide vote, not a per-pixel exit, to match the TPU
 // kernel). Output [n_tiles, 8, p]: r, g, b + bg (1 - sum w), depth,
 // alpha = sum w, then three zero rows. The walk itself is
-// composite.cuh::composite_tile, shared with K2.
+// composite.cuh::composite_tile_patched, shared with K2.
 //
-// What bounds it on the H100: fp32 arithmetic. Each live instance-pixel pair
-// costs ~27 fp32 operations and one expf, while the bytes moved are the 11
-// used rows per walked instance plus the 32 bytes written per pixel (tens of
-// MB per 800x800 frame, a few microseconds at 3.35 TB/s).
+// What bounds it on the H100. Its function is bound by bytes: the 11 used
+// rows per walked instance and 20 bytes written per pixel, a few
+// microseconds at 3.35 TB/s, against ~27 fp32 operations per pair that
+// contributes. The kernel's time goes to finding those pairs: on the 65k
+// packs ~97% of the walked instance-pixel pairs are dead, and the first
+// form classified every one of them (every warp saw every instance of the
+// tile), so it was bound by issuing that classification.
 //
 // What the design does about it: one 256-thread block per tile, each thread
-// owning p / 256 pixels (4 at 32 px tiles, 1 at 16 px), their T and sums in
-// registers. A chunk's 11 rows are staged in shared memory (5.5 KB); all
-// threads then read the same instance at once (a shared-memory broadcast)
-// and only the chunk's live lanes [start, start + count) are walked. The
-// pixels of one thread are independent chains, which gives the FMA pipes
-// instruction-level parallelism. No tensor cores, TMA or double buffering
-// yet.
+// owning p / 256 pixels (a 2 x 2 quad at 32 px tiles, one pixel at 16 px) of
+// its warp's compact patch, their T and sums in registers. A chunk's 11 rows
+// and each instance's footprint box are staged in shared memory (7.5 KB);
+// each warp walks only the live instances whose box meets its patch (4
+// ballots a chunk), classifies its pixels and composites them without a
+// branch per pixel. The tile-wide exit vote ends each chunk. No tensor
+// cores, TMA or double buffering.
 //
 // K1-span gives one block `tpp` consecutive tiles. Their instances are one
 // contiguous run of the sorted array, so when the run's chunks fit a window
 // of span_cap chunks the block stages them once in dynamic shared memory
 // (5,632 bytes a chunk, at most 41 chunks under the 227 KB a block may opt
 // in to) and composites its tiles one after another from there; a program
-// that does not fit walks chunk by chunk as K1 does. The walk is the same
-// function either way, so the values are K1's. It trades blocks in flight
-// (n_tiles / tpp) and occupancy (one block per SM at a large window) for
-// one fetch per program; whether that pays on this card is measured, not
-// assumed.
+// that does not fit walks chunk by chunk. It keeps the first form's walk
+// (composite.cuh::composite_tile), the same function in the same order, so
+// its values are K1's bit for bit. It trades blocks in flight (n_tiles /
+// tpp) and occupancy (one block per SM at a large window) for one fetch per
+// program; whether that pays on this card is measured, not assumed.
 
 #include "composite.cuh"
 
@@ -60,12 +63,12 @@ template <int PPT>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
                  const float* __restrict__ rows16, float* __restrict__ out,
-                 int tw, int64_t b_pad, int tile_size, float bg0, float bg1,
-                 float bg2) {
+                 int tw, int64_t b_pad, float bg0, float bg1, float bg2) {
   __shared__ float sh[kRows][kChunk];
-  composite::composite_tile<PPT, false, false>(
+  __shared__ float4 boxes[kChunk];
+  composite::composite_tile_patched<PPT, false>(
       blockIdx.x, starts, counts, nullptr, rows16, out, nullptr, tw, b_pad,
-      tile_size, bg0, bg1, bg2, sh, nullptr, 0);
+      bg0, bg1, bg2, sh, boxes);
 }
 
 template <int PPT>
@@ -99,14 +102,29 @@ extern "C" int tiled_fwd_launch(const void* starts, const void* counts,
   float* o = static_cast<float*>(out);
   if (tile_size == 32) {
     tiled_fwd_kernel<4><<<n_tiles, kThreads, 0, s>>>(st, ct, rows, o, tw, b_pad,
-                                                     tile_size, bg0, bg1, bg2);
+                                                     bg0, bg1, bg2);
   } else if (tile_size == 16) {
     tiled_fwd_kernel<1><<<n_tiles, kThreads, 0, s>>>(st, ct, rows, o, tw, b_pad,
-                                                     tile_size, bg0, bg1, bg2);
+                                                     bg0, bg1, bg2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K1 that one SM holds at once at `tile_size`, as the runtime's
+// occupancy calculator counts them from the kernel's registers and shared
+// memory; -1 for an unsupported tile_size or a runtime error.
+extern "C" int tiled_fwd_blocks_per_sm(int tile_size) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tile_size == 32)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, tiled_fwd_kernel<4>,
+                                                        kThreads, 0);
+  else if (tile_size == 16)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, tiled_fwd_kernel<1>,
+                                                        kThreads, 0);
+  return err == cudaSuccess ? n : -1;
 }
 
 // Launches K1-span on `stream`: as tiled_fwd_launch, with n_tiles / tpp

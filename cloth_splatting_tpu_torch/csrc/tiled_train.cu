@@ -9,11 +9,11 @@
 // PyTorch versions: ops/rasterize/tiled_train.py (raster_forward_train /
 // raster_forward_train_plain, run_backward / run_backward_plain).
 //
-// K2 is K1's walk (composite.cuh::composite_tile) that also stores every
-// pixel's transmittance T at the start of each chunk it walks, in a flat
-// tb [n_flat_chunks, p] buffer (tile t's chunk ci at row offsets[t] + ci;
-// the TPU kernel's [group, p, 128] packing was a DMA alignment device), and
-// zeros for the chunks after its exit.
+// K2 is K1's walk (composite.cuh::composite_tile_patched) that also stores
+// every pixel's transmittance T at the start of each chunk it walks, in a
+// flat tb [n_flat_chunks, p] buffer (tile t's chunk ci at row offsets[t] +
+// ci; the TPU kernel's [group, p, 128] packing was a DMA alignment device),
+// and zeros for the chunks after its exit.
 //
 // K3 walks, per tile, the chunks K2 started, in forward order. With
 // g = (g_r, g_g, g_b, g_dep) the cotangent of (r, g, b, depth) at a pixel,
@@ -36,7 +36,9 @@
 // MB of traffic. K3 also reduces ten sums per instance over the tile's
 // pixels.
 //
-// K2 is K1 plus one coalesced store of p floats per chunk.
+// K2 is K1 plus one store of p floats per chunk: the patched walk (warp
+// patches, the footprint cull, no branch per pixel) that K1's notes in
+// tiled_fwd.cu describe.
 //
 // K3 (one 256-thread block per tile, the chunk's rows in shared memory,
 // each pixel's T, prefix and cotangents in registers). What bounds it on
@@ -79,7 +81,8 @@
 //
 // K2-span is K2 for a block of tpp consecutive tiles that stages their
 // chunks once when they fit a window of span_cap chunks (composite.cuh::
-// composite_program); it writes the boundaries exactly as K2.
+// composite_program); it keeps the first form's walk (composite_tile), the
+// same function in the same order, and writes the boundaries exactly as K2.
 //
 // K4 owns tpp tiles per block as K2-span does and sweeps each tile's chunks
 // last to first, carrying per pixel s_carry = sum of u w over the LATER
@@ -218,11 +221,12 @@ tiled_fwd_train_kernel(const int* __restrict__ starts,
                        const int* __restrict__ offsets,
                        const float* __restrict__ rows16, float* __restrict__ out,
                        float* __restrict__ tb, int tw, int64_t b_pad,
-                       int tile_size, float bg0, float bg1, float bg2) {
+                       float bg0, float bg1, float bg2) {
   __shared__ float sh[kRows][kChunk];
-  composite::composite_tile<PPT, true, false>(
-      blockIdx.x, starts, counts, offsets, rows16, out, tb, tw, b_pad,
-      tile_size, bg0, bg1, bg2, sh, nullptr, 0);
+  __shared__ float4 boxes[kChunk];
+  composite::composite_tile_patched<PPT, true>(
+      blockIdx.x, starts, counts, offsets, rows16, out, tb, tw, b_pad, bg0,
+      bg1, bg2, sh, boxes);
 }
 
 template <int PPT>
@@ -242,97 +246,6 @@ tiled_fwd_train_span_kernel(const int* __restrict__ starts,
 
 // K3's blocks an SM: the register cap of __launch_bounds__.
 constexpr int kBwdBlocksPerSm = 2;
-
-// K3's pixel map. A tile of 16 * kQ px (PPT = kQ * kQ pixels a thread) is
-// cut into 2 x 4 warp patches of 8 kQ x 4 kQ pixels, and a patch into
-// 8 x 4 lane quads of kQ x kQ; pixel i of a quad is its row-major i-th.
-// tiled_train.py::patch_pixel is its plain copy.
-template <int PPT>
-struct PatchMap {
-  static_assert(PPT == 1 || PPT == 4, "K3 takes 16 px and 32 px tiles");
-  static constexpr int kQ = PPT == 4 ? 2 : 1;
-  static constexpr int kTile = 16 * kQ;
-  static constexpr int kW = 8 * kQ, kH = 4 * kQ;
-  // the warp's patch and the lane's quad, in tile coordinates
-  static __device__ __forceinline__ int patch_x(int warp) {
-    return (warp & 1) * kW;
-  }
-  static __device__ __forceinline__ int patch_y(int warp) {
-    return (warp >> 1) * kH;
-  }
-  static __device__ __forceinline__ int quad_x(int warp, int lane) {
-    return patch_x(warp) + (lane & 7) * kQ;
-  }
-  static __device__ __forceinline__ int quad_y(int warp, int lane) {
-    return patch_y(warp) + (lane >> 3) * kQ;
-  }
-};
-
-template <int PPT>
-__device__ __forceinline__ int patch_pixel(int warp, int lane, int i) {
-  using M = PatchMap<PPT>;
-  return (M::quad_y(warp, lane) + i / M::kQ) * M::kTile + M::quad_x(warp, lane) +
-         i % M::kQ;
-}
-
-// The footprint box's margins (tiled_train.py holds the same literals).
-// The box bounds {power >= tau} under the exact quadratic form of the conic
-// with ac scaled by kCullDetScale in its determinant, which covers the
-// kernel's rounded form (off by a few ulp of a dx^2 + c dy^2, i.e. a conic
-// shrunk by ~1e-6) and the determinant's own rounding; it is then widened
-// by kCullWiden, kCullAbs px and kCullMeanRel of |mean| (sqrt and division,
-// the rounding of dx and of the mean plus the half-width). tau is lowered
-// by kCullLogMargin for expf, logf and the rounding of op e^power against
-// 1/255 (each a few ulp).
-constexpr float kCullLogMargin = 1e-3f;
-constexpr float kCullDetScale = 0.99998f;
-constexpr float kCullWiden = 1.001f;
-constexpr float kCullAbs = 1e-2f;
-constexpr float kCullMeanRel = 1e-6f;
-
-// A box (x_lo, x_hi, y_lo, y_hi) in pixel coordinates that holds every
-// pixel at which splat_alpha can find this instance alive; plain copy:
-// tiled_train.py::footprint_boxes. A live pair has cut <= power <= 0 and
-// op e^power >= 1/255 (min(0.99, raw) >= 1/255 iff raw >= 1/255), so
-// power >= tau = max(cut, log(1 / (255 op))). For a positive definite
-// conic [[a, b], [b, c]] with det = ac - b^2, the offsets with power >= tau
-// lie in |dx| <= sqrt(-2 tau c / det), |dy| <= sqrt(-2 tau a / det). An
-// instance whose conic is not positive definite, or whose determinant or
-// box is not finite, gets the whole plane.
-__device__ __forceinline__ float4 footprint_box(float x, float y, float a,
-                                                float b, float c, float op,
-                                                float cut) {
-  const float tau = fmaxf(cut, -logf(255.0f * op) - kCullLogMargin);
-  const float r2 = tau >= 0.0f ? 0.0f : -2.0f * tau;  // NaN stays NaN
-  const float det = a * c * kCullDetScale - b * b;
-  const float rx = sqrtf(r2 * c / det) * kCullWiden + kCullAbs +
-                   kCullMeanRel * fabsf(x);
-  const float ry = sqrtf(r2 * a / det) * kCullWiden + kCullAbs +
-                   kCullMeanRel * fabsf(y);
-  const float inf = __int_as_float(0x7f800000);
-  // NaN fails every comparison, so `< inf` also tests for NaN
-  if (a > 0.0f && det > 0.0f && det < inf && fabsf(x) + rx < inf &&
-      fabsf(y) + ry < inf)
-    return make_float4(x - rx, x + rx, y - ry, y + ry);
-  return make_float4(-inf, inf, -inf, inf);
-}
-
-// Stages chunk `base`'s 11 rows in sh and each instance's footprint box in
-// boxes: thread j < 128 owns instance j. The caller synchronises.
-__device__ __forceinline__ void load_chunk_boxes(
-    float (*sh)[kChunk], float4* boxes, const float* __restrict__ rows16,
-    int64_t b_pad, int64_t base) {
-  using namespace composite;
-  const int j = threadIdx.x;
-  if (j >= kChunk) return;
-  float v[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    v[r] = rows16[r * b_pad + base + j];
-    sh[r][j] = v[r];
-  }
-  boxes[j] = footprint_box(v[kX], v[kY], v[kA], v[kB], v[kC], v[kOp], v[kCut]);
-}
 
 // One step of the reduce-scatter butterfly: lanes l and l ^ kOff hold the
 // same n sums; the lower keeps the first ceil(n / 2), the upper the rest
@@ -749,14 +662,29 @@ extern "C" int tiled_fwd_train_launch(const void* starts, const void* counts,
   float* t = static_cast<float*>(tb);
   if (tile_size == 32) {
     tiled_fwd_train_kernel<4><<<n_tiles, kThreads, 0, a.s>>>(
-        a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, tile_size, bg0, bg1, bg2);
+        a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, bg0, bg1, bg2);
   } else if (tile_size == 16) {
     tiled_fwd_train_kernel<1><<<n_tiles, kThreads, 0, a.s>>>(
-        a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, tile_size, bg0, bg1, bg2);
+        a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, bg0, bg1, bg2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K2 that one SM holds at once at `tile_size`, as the runtime's
+// occupancy calculator counts them from the kernel's registers and shared
+// memory; -1 for an unsupported tile_size or a runtime error.
+extern "C" int tiled_fwd_train_blocks_per_sm(int tile_size) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tile_size == 32)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, tiled_fwd_train_kernel<4>, kThreads, 0);
+  else if (tile_size == 16)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, tiled_fwd_train_kernel<1>, kThreads, 0);
+  return err == cudaSuccess ? n : -1;
 }
 
 // Launches K2-span on `stream`: as tiled_fwd_train_launch, with n_tiles / tpp

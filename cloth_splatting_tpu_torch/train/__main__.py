@@ -3,9 +3,12 @@
     python -m cloth_splatting_tpu_torch.train -s SCENE -m OUT --iterations N
 
 The flags of the JAX package's root ``train.py`` that map to ported code:
-every field of the port's config groups as ``--<name>``, ``-s/--source_path``,
-``-m/--model_path``, test / save / checkpoint iterations, ``--expname``,
-view and time skips, ``--three_steps_batch``, ``--seed``. ``--device``
+``--configs FILE`` (a config file such as
+``cloth_splatting_tpu/configs/cloth_splatting/default.py``, overlaid first),
+every field of the port's config groups as ``--<name>`` (over the file),
+``-s/--source_path``, ``-m/--model_path``, test / save / checkpoint
+iterations, ``--expname``, view and time skips, ``--three_steps_batch``,
+``--seed``, ``--save_test_images`` (on by default, as there). ``--device``
 defaults to ``cuda`` and raises without a card.
 """
 
@@ -44,6 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--expname", type=str, default="cloth_torch")
+    parser.add_argument("--configs", type=str, default="")
     parser.add_argument("--three_steps_batch",
                         type=lambda v: v.lower() not in ("0", "false"),
                         default=True,
@@ -52,15 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--view_skip", type=int, default=1)
     parser.add_argument("--time_skip", type=int, default=1)
     parser.add_argument("--seed", type=int, default=6666)
-    parser.add_argument("--save_test_images", action="store_true")
+    parser.add_argument("--save_test_images", action="store_true", default=True)
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
 
 def config_from_args(args):
-    from cloth_splatting_tpu_torch.train.config import Config
+    from cloth_splatting_tpu_torch.train.config import Config, load_config_file
 
     cfg = Config()
+    if args.configs:
+        cfg = load_config_file(cfg, args.configs)
     for group in (cfg.model, cfg.opt, cfg.meshnet):
         for f in dataclasses.fields(group):
             v = getattr(args, f.name, None)

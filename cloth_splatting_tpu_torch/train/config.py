@@ -5,12 +5,16 @@ group and field names, with the same defaults.
 The port has only the fields its code reads (the train step, density
 control, the loop and its command line); the dense tier's ``raster_k_cap``
 and ``raster_k_chunk`` come with that tier. So an override of a field the
-port does not have raises instead of doing nothing.
+port does not have raises instead of doing nothing, except for the fields
+that nothing reads in the JAX package either (``IGNORED``), which the
+published config files set (``cloth_splatting_tpu/configs/``, overlaid by
+``load_config_file`` as the root ``train.py --configs`` overlays them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import runpy
 from typing import Any
 
 
@@ -105,17 +109,47 @@ _GROUP_MAP = {
     "MeshnetParams": "meshnet",
 }
 
+# What the JAX package accepts and never reads, so the port accepts and
+# ignores it too: the k-planes group (vestigial in the reference) and four
+# OptimizationParams fields that the config files set (the JAX package's
+# train/config.py keeps them for the files' sake; its renderer reads
+# ModelParams' white_background, not this one).
+IGNORED = {
+    "ModelHiddenParams": None,            # the whole group
+    "OptimizationParams": ("mesh_type", "pruningy_until_iter",
+                           "position_lr_static", "white_background"),
+}
+
 
 def apply_overrides(cfg: Config, group_dicts: dict[str, dict[str, Any]]) -> Config:
     """Merge ``{'OptimizationParams': {...}, ...}`` dicts over ``cfg``;
-    unknown groups and fields raise."""
+    what ``IGNORED`` lists is skipped, other unknown groups and fields
+    raise."""
     for group_name, values in group_dicts.items():
+        ignored = IGNORED.get(group_name, ())
+        if ignored is None:
+            continue
         if group_name not in _GROUP_MAP:
             raise KeyError(f"Unknown config group: {group_name}")
         group = getattr(cfg, _GROUP_MAP[group_name])
         for key, value in values.items():
+            if key in ignored:
+                continue
             if not hasattr(group, key):
                 raise KeyError(f"{group_name} has no field {key!r} in the port")
             setattr(group, key, value)
     return cfg
+
+
+def load_config_file(cfg: Config, path: str) -> Config:
+    """Overlay a python config file that defines ``OptimizationParams =
+    dict(...)`` and the like (``cloth_splatting_tpu/configs/*/*.py``) over
+    ``cfg``: the file is run by path and its group dicts go through
+    ``apply_overrides``. Counterpart of the JAX package's
+    ``load_config_file``, which ignores every unknown field where this
+    raises on one that is not in ``IGNORED``."""
+    ns = runpy.run_path(path)
+    groups = {k: v for k, v in ns.items()
+              if k.endswith("Params") and isinstance(v, dict)}
+    return apply_overrides(cfg, groups)
 

@@ -12,8 +12,10 @@ together), prints the kernels' registers, shared memory and spills, and holds
 every kernel against its plain version as ``chip_smoke.py`` does (K3 and K4
 also against a second launch, bit for bit) on chip_smoke's 65k packs: K1 and
 K1-span on the serving pack of orbit view 0, K2, K2-span, K3 and K4 on the
-training pack of camera 0 (span forms at ``tpp=5``, ``span_cap=41``). Then it
-times each kernel in four turns, A, B, B, A:
+training pack of camera 0 (span forms at ``tpp=5``, ``span_cap=41``), and
+holds each of B's kernels against A's on the same inputs, bit for bit (K2
+and K2-span: ``out`` and the boundaries over the laid rows; one JSON line,
+``bit_identical_to_A``). Then it times each kernel in four turns, A, B, B, A:
   - ``ms``, the wrapper call: CUDA events over ITERS back-to-back calls after
     a warm-up, as chip_smoke times it. Once the wrapper's host work takes
     longer than its kernels, this is host time;
@@ -107,6 +109,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        chunk_span,
         raster_forward_tiles,
         sorted_pack,
     )
@@ -125,7 +128,9 @@ def main() -> int:
     train = sc.train_pack
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
+    n_laid = int(chunk_span(train)[3].sum())
     gimg = tb = None
+    outputs = {}
     for label, csrc in trees.items():
         usage = use_tree(csrc)
         print(json.dumps({"tree": label, "csrc": str(csrc), "ptxas": usage}), flush=True)
@@ -138,6 +143,21 @@ def main() -> int:
         cs.compare_k3(train, gimg, tb, w, h, tile, f"{label} 65k train cam 0")
         cs.compare_k3(train, gimg, tb, w, h, tile, f"{label} 65k train cam 0",
                       cs.SPAN_32)
+        # what each kernel gives on the same inputs, to hold B's against A's
+        fwd_train = [raster_forward_train(train, w, h, tile, cs.BG, *span)
+                     for span in ((), cs.SPAN_32)]
+        outputs[label] = {
+            "K1": (raster_forward_tiles(serve, w, h, tile, cs.BG),),
+            "K1-span": (raster_forward_tiles(serve, w, h, tile, cs.BG, *cs.SPAN_32),),
+            "K2": (fwd_train[0][0], fwd_train[0][1][:n_laid]),
+            "K2-span": (fwd_train[1][0], fwd_train[1][1][:n_laid]),
+            "K3": (run_backward(train, gimg, tb, w, h, tile, cs.BG),),
+            "K4": (run_backward(train, gimg, tb, w, h, tile, cs.BG, *cs.SPAN_32),),
+        }
+    identical = {k: all(torch.equal(a, b) for a, b in zip(outputs["A"][k],
+                                                          outputs["B"][k]))
+                 for k in outputs["A"]}
+    print(json.dumps({"bit_identical_to_A": identical}), flush=True)
 
     calls = {
         "K1": lambda: raster_forward_tiles(serve, w, h, tile, cs.BG),
@@ -172,8 +192,8 @@ def main() -> int:
     summary = {"wrapper_call": stats(got["ms"]), "host": stats(got["host_ms"]),
                "graph": stats(got["graph_ms"]),
                "kernel_alone": stats(got["kernel_ms"])}
-    print(json.dumps({"summary": summary, "order": "".join(ORDER),
-                      "iters": ITERS, "gpu": gpu}))
+    print(json.dumps({"summary": summary, "bit_identical_to_A": identical,
+                      "order": "".join(ORDER), "iters": ITERS, "gpu": gpu}))
     return 0
 
 

@@ -3,14 +3,17 @@ K1-span, K2-span, K4) come out of ptxas.
 
 Builds ``cloth_splatting_tpu_torch/csrc`` at ptxas -O0, -O1 and -O3 (the
 default), once from the sources as they are and once with one rewrite of
-``composite.cuh``'s tile walk that is the same C++ function: the chunk loop's
-own index carried past the loop (``++ci; break;``) instead of the separate
-``walked`` counter. Each build's K1, K2 and K3 are held against their plain
-versions on chip_smoke's deep synthetic packs at 32 px and 16 px tiles (K3,
-with its warp patches, footprint cull and reduce-scatter, also against a
-second launch, bit for bit), and so are K1-span, K2-span and K4 with a window
-most programs fit and with a window of one chunk (mostly the overflow walk).
-Before that it compares the PTX of every kernel between the two forms.
+both of ``composite.cuh``'s tile walks (``composite_tile_patched``, K1's and
+K2's, and ``composite_tile``, the span forms') that is the same C++ function:
+the chunk loop's own index carried past the loop (``++ci; break;``) instead
+of the separate ``walked`` counter. Each build's K1, K2 and K3 are held
+against their plain versions on chip_smoke's deep synthetic packs at 32 px
+and 16 px tiles (K3, with its warp patches, footprint cull and
+reduce-scatter, also against a second launch, bit for bit), and so are
+K1-span, K2-span and K4 with a window most programs fit and with a window of
+one chunk (mostly the overflow walk); K1-span and K2-span are also held
+bit-identical to K1 and K2. Before that it compares the PTX of every kernel
+between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
 
@@ -35,6 +38,8 @@ LEVELS = (0, 1, 3)
 FORMS = ("as-is", "loop-index")
 PACKS = ((32, 256, 20000), (16, 128, 6000), (16, 128, 300))
 SPANS = ((2, 41), (2, 1))   # (tiles_per_program, span_cap)
+# each line of the rewrite, once in each of the two walks
+WALKS = 2
 _WALKED = (
     ("  int walked = n_chunks;\n  for (int ci = 0; ci < n_chunks; ++ci) {",
      "  int ci = 0;\n  for (; ci < n_chunks; ++ci) {"),
@@ -57,8 +62,9 @@ def csrc_of(form: str) -> Path:
     header = out / "composite.cuh"
     text = header.read_text()
     for old, new in _WALKED:
-        if text.count(old) != 1:
-            raise RuntimeError(f"composite.cuh no longer holds {old!r}")
+        if text.count(old) != WALKS:
+            raise RuntimeError(f"composite.cuh no longer holds {old!r} once "
+                               f"in each of its {WALKS} walks")
         text = text.replace(old, new)
     header.write_text(text)
     return out
@@ -109,22 +115,26 @@ def check(form: str, level: int) -> bool:
                           tuple(f"{k} {span[0]}/{span[1]}"
                                 for k in ("K1-span", "K2-span", "K4")))
             try:
-                cs.compare_k1(packed, size, size, ts, label, span)
+                stats = cs.compare_k1(packed, size, size, ts, label, span)[1]
                 results[k1] = None
+                if span is not None and not stats["bit_identical_to_k1"]:
+                    results[k1] = "not bit-identical to K1"
             except RuntimeError as e:
                 results[k1] = str(e)
             try:
-                _, _, out_k, tb_k = cs.compare_k2(packed, size, size, ts, label,
-                                                  span)
+                _, stats, out_k, tb_k = cs.compare_k2(packed, size, size, ts,
+                                                      label, span)
                 results[k2] = None
+                if span is not None and not stats["bit_identical_to_k2"]:
+                    results[k2] = "not bit-identical to K2"
                 cs.compare_k3(packed,
                               cs.cotangent_tiles(out_k, size, size, ts, gen),
                               tb_k, size, size, ts, label, span)
                 results[k3] = None
             except RuntimeError as e:
+                # K2's failure, or K3's after K2 ran
+                results[k3] = str(e) if k2 in results else "not run"
                 results.setdefault(k2, str(e))
-                results.setdefault(k3, str(e) if results[k2] is None
-                                   else "not run")
         for kernel, err in results.items():
             ok = ok and err is None
             print(json.dumps({"form": form, "ptxas": f"-O{level}", "pack": label,

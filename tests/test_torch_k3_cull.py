@@ -1,10 +1,10 @@
 """K3's pixel map and footprint culling, on the CPU.
 
-K3 (``csrc/tiled_train.cu``) gives each warp a compact patch of the tile
-(``tiled_train.patch_pixel``) and walks only the instances whose
-``footprint_box`` meets the patch. The cull changes no result only if the box
-is conservative: every pair it skips must be dead under the one
-classification, ``tiled_fwd.chunk_alpha``. ``tiled_train.cull_audit`` counts,
+K3 (``csrc/tiled_train.cu``), like K1 and K2, gives each warp a compact
+patch of the tile (``tiled_fwd.patch_pixel``) and walks only the instances
+whose ``footprint_box`` meets the patch. The cull changes no result only if
+the box is conservative: every pair it skips must be dead under the one
+classification, ``tiled_fwd.chunk_alpha``. ``tiled_fwd.cull_audit`` counts,
 with the plain box and the plain classification, the skipped pairs that are
 alive; it must read 0 on the seeded scenes of ``test_torch_train_raster``, on
 deep random packs with anisotropic conics at both tile sizes, and on edge
@@ -43,15 +43,15 @@ BG = (1.0, 1.0, 1.0)
 @pytest.mark.parametrize("tile_size", [16, 32])
 def test_patch_pixel_is_a_bijection_onto_compact_patches(tile_size):
     p = tile_size * tile_size
-    ppt = p // (ttr.K3_WARPS * 32)
-    warp, lane, i = np.meshgrid(np.arange(ttr.K3_WARPS), np.arange(32),
+    ppt = p // (tpt.WARPS * 32)
+    warp, lane, i = np.meshgrid(np.arange(tpt.WARPS), np.arange(32),
                                 np.arange(ppt), indexing="ij")
-    pix = ttr.patch_pixel(warp, lane, i, tile_size)
+    pix = tpt.patch_pixel(warp, lane, i, tile_size)
     assert sorted(pix.ravel().tolist()) == list(range(p))
     # each warp holds a (tile / 2) x (tile / 4) rectangle, each lane a
     # q x q quad of it
     pw, ph, q = tile_size // 2, tile_size // 4, tile_size // 16
-    for w in range(ttr.K3_WARPS):
+    for w in range(tpt.WARPS):
         x, y = pix[w] % tile_size, pix[w] // tile_size
         assert (x.min(), y.min()) == ((w % 2) * pw, (w // 2) * ph)
         assert (x.max() - x.min() + 1, y.max() - y.min() + 1) == (pw, ph)
@@ -64,7 +64,7 @@ def audit(proj, width, height, tile_size, order="exact"):
     win = 5 if tile_size == 16 else 3
     packed = tpt.sorted_pack(proj, width // tile_size, height // tile_size,
                              tile_size, win, order=order)
-    return ttr.cull_audit(packed, width, height, tile_size)
+    return tpt.cull_audit(packed, width, height, tile_size)
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -74,12 +74,12 @@ def test_cull_is_conservative_on_seeded_scenes(name):
     # every chunk, and the chunks the forward started (what K3 walks)
     tbounds = ttr.raster_forward_train(packed, W, H, tile, BG)[1]
     for tb in (None, tbounds):
-        a = ttr.cull_audit(packed, W, H, tile, tb)
+        a = tpt.cull_audit(packed, W, H, tile, tb)
         assert a["culled_pairs_alive"] == 0, a
         assert a["reductions"] > 0, a
         assert a["pairs_classified"] < a["pairs_walked"], a
         # a warp reduces only instances it walked: p / 8 pairs classified each
-        per_warp = tile * tile // ttr.K3_WARPS
+        per_warp = tile * tile // tpt.WARPS
         assert a["reductions"] * per_warp <= a["pairs_classified"], a
 
 
@@ -177,7 +177,7 @@ def test_footprint_box_edge_cases():
 
     def box(conic, op, cut, x=10.0, y=20.0):
         v = [torch.tensor([q], dtype=f32) for q in (x, y, *conic, op, cut)]
-        return ttr.footprint_boxes(*v)[:, 0].tolist()
+        return tpt.footprint_boxes(*v)[:, 0].tolist()
 
     whole = [-inf, inf, -inf, inf]
     for conic in ((0.1, 0.2, 0.1), (-0.1, 0.0, 0.1), (0.1, 0.0, -0.1),
@@ -195,7 +195,7 @@ def test_footprint_box_edge_cases():
     # a positive cut or zero opacity: dead everywhere, a point-sized box
     for op, cut in ((0.5, 1e-6), (0.0, -4.5)):
         x_lo, x_hi, _, _ = box((1 / 64, 0.0, 1 / 64), op, cut)
-        assert x_hi - x_lo <= 2 * ttr.CULL_ABS + 1e-4
+        assert x_hi - x_lo <= 2 * tpt.CULL_ABS + 1e-4
 
 
 def test_backward_plain_matches_rasterize_pallas_grad():
