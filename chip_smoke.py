@@ -14,14 +14,16 @@ Phases, each of which raises on failure:
      also on deep synthetic packs (thousands of instances per tile, so the
      transmittance exit fires) at both tile sizes; K3 and K4 also against a
      second launch of themselves, bit for bit; audit the footprint cull that
-     K1, K2 and K3 share on the serving pack of view 0 (every chunk, a
-     superset of K1's), on the training pack and on the deep packs (the
-     chunks K2 started, which K1, K2 and K3 walk): no pair it skips may be
-     alive; then the span forms
-     K1-span, K2-span and K4 (the rasterizer's ``tiles_per_program`` and
-     ``span_cap`` options) on the same packs at 32 px and 16 px tiles, with
-     a window most programs fit and with a window of one chunk, K4 also
-     against K3;
+     K1, K2, K3 and the span kernels K2-span and K4 share on the serving
+     pack of view 0 (every chunk, a superset of K1's), on the training packs
+     at 32 px and 16 px and on the deep packs (the chunks K2 started, which
+     K1, K2, K3 and K4 walk): no pair it skips may be alive; then the span
+     forms K1-span, K2-span and K4 (the rasterizer's ``tiles_per_program``
+     and ``span_cap`` options) on the same packs at 32 px and 16 px tiles,
+     with a window most programs fit and with a window of one chunk:
+     K1-span and K2-span bit-identical to K1 and K2, K2's output
+     bit-identical to K1-span's on the training packs (K1-span keeps the
+     first walk, the patched walk's yardstick), K4 also against K3;
   3. time the six kernels, their plain versions and the stages of one frame;
   4. serve frames of the scene at different views and times through the
      port's ``render`` with the launch counters set to 0 just before, and
@@ -70,7 +72,10 @@ TRAIN_STEPS = 5
 TRAIN_TIMES = (0.0, 0.5, 1.0)
 # the span options: 625 tiles of 32 px are 5^4, so tiles_per_program must be
 # 5 there (4 or 8 would silently turn the span off); 2,500 tiles of 16 px
-# take 4. span_cap 41 is all a block's shared memory holds (34 for K4).
+# take 4. span_cap 41 is all one block's shared memory holds, K1-span's
+# window (resolve_span clamps K4 to 34); K2-span and K4 run a program as a
+# cluster of tiles_per_program CTAs, each holding ceil(span_cap / 5) chunks
+# of the window at 32 px.
 SPAN_32 = (5, 41)
 SPAN_16 = (4, 41)
 SPAN_DEEP = (2, 41)
@@ -136,9 +141,9 @@ PEAK_HBM_BYTES = 3.35e12
 OPS_PER_WALKED_PAIR = 14
 # K4 computes K3's function on the same pairs; only the occlusion suffix
 # differs, S_i = (chunk_total - cum_i) + carry against K3's U_tot - prefix,
-# one addition more per contributing pair (43). That a thread per pixel
-# walks each chunk twice to know chunk_total first is this kernel's way, not
-# the function's: the second walk shows in its time, not in its bound.
+# one addition more per contributing pair (43). That K4 walks each chunk
+# twice to know chunk_total first is this kernel's way, not the function's:
+# the second walk shows in its time, not in its bound.
 OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42, "K4": 43}
 
 def log(msg: str) -> None:
@@ -280,10 +285,13 @@ def span_label(span) -> str:
 
 def span_counts(packed, n_tiles: int, span, kernel: str) -> dict:
     """How many programs of a span kernel take the span branch and how many
-    the overflow walk, with the options as ``resolve_span`` resolves them."""
+    the overflow walk, with the options as ``resolve_span`` resolves them;
+    for K2-span and K4 also the cluster size and a CTA's window slots."""
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         resolve_span,
+        span_cluster_size,
         span_programs,
+        window_slots,
     )
 
     tpp, cap = resolve_span(n_tiles, packed.rows16.shape[1], span[0], span[1],
@@ -292,8 +300,12 @@ def span_counts(packed, n_tiles: int, span, kernel: str) -> dict:
         raise RuntimeError(f"span options {span} resolve to no span "
                            f"({n_tiles} tiles)")
     fits = span_programs(packed, tpp, cap)[1]
-    return {"tpp": tpp, "span_cap": cap, "span": int(fits.sum()),
-            "overflow": int((~fits).sum())}
+    out = {"tpp": tpp, "span_cap": cap, "span": int(fits.sum()),
+           "overflow": int((~fits).sum())}
+    if kernel != "fwd":     # K2-span and K4: clusters of one CTA per tile
+        c = span_cluster_size(tpp)
+        out.update(cluster_size=c, window_slots_per_cta=window_slots(cap, c))
+    return out
 
 
 def compare_k1(packed, width, height, tile_size, label: str, span=None):
@@ -491,13 +503,14 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
 
 
 def cull_phase(cases) -> dict:
-    """The footprint cull of K1, K2 and K3 on the card, from the plain box
-    and the plain classification (``tiled_fwd.cull_audit``), for each
-    (label, kernels, pack, width, height, tile size, K2's boundaries or
-    None) of ``cases``: over the chunks K2 started (which K1, K2 and K3
-    walk) or, with None, over every chunk (a superset of K1's). Raises if a
-    pair the cull skips is alive. Returns the counts, with the share of the
-    walked pairs the warps classify, by label."""
+    """The footprint cull of K1, K2, K3, K2-span and K4 on the card, from
+    the plain box and the plain classification (``tiled_fwd.cull_audit``),
+    for each (label, kernels, pack, width, height, tile size, K2's
+    boundaries or None) of ``cases``: over the chunks K2 started (which K1,
+    K2, K3, K2-span and K4 walk, each pass of K4 the same pairs) or, with
+    None, over every chunk (a superset of K1's). Raises if a pair the cull
+    skips is alive. Returns the counts, with the share of the walked pairs
+    the warps classify, by label."""
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import cull_audit
 
     out = {}
@@ -510,7 +523,7 @@ def cull_phase(cases) -> dict:
             f"({a['share_classified']:.4f}); instances the busiest warp of "
             f"each chunk walks {a['slowest_warp_hits']} (the warps' mean "
             f"{a['pairs_classified'] / (ts * ts):.0f}), heaviest tile "
-            f"{a['heaviest_tile_hits']}; K3's (warp, instance) reductions "
+            f"{a['heaviest_tile_hits']}; K3's and K4's (warp, instance) reductions "
             f"{a['reductions']}; culled pairs alive {a['culled_pairs_alive']}")
         if a["culled_pairs_alive"]:
             raise RuntimeError(f"{kernels} cull audit [{label}]: "
@@ -520,20 +533,62 @@ def cull_phase(cases) -> dict:
 
 
 def blocks_per_sm() -> dict:
-    """Blocks of K1 and K2 (32 px tiles) that one SM holds at once, from the
-    CUDA runtime's occupancy calculator."""
+    """Blocks of K1, K2 and K1-span (32 px tiles; K1-span with a window of
+    SPAN_32's span_cap chunks) that one SM holds at once, from the CUDA
+    runtime's occupancy calculator."""
     import ctypes
 
     from cloth_splatting_tpu_torch import kernels
 
     out = {}
-    for key, lib, fn in (("K1", "tiled_fwd", "tiled_fwd_blocks_per_sm"),
-                         ("K2", "tiled_train", "tiled_fwd_train_blocks_per_sm")):
+    for key, lib, fn, args in (
+            ("K1", "tiled_fwd", "tiled_fwd_blocks_per_sm", (32,)),
+            ("K2", "tiled_train", "tiled_fwd_train_blocks_per_sm", (32,)),
+            ("K1-span", "tiled_fwd", "tiled_fwd_span_blocks_per_sm",
+             (32, SPAN_32[1]))):
         query = getattr(kernels.load(lib), fn)
-        query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
-        out[key] = query(32)
+        query.argtypes, query.restype = [ctypes.c_int] * len(args), ctypes.c_int
+        out[key] = query(*args)
         if out[key] < 1:
-            raise RuntimeError(f"{fn}(32) returned {out[key]}")
+            raise RuntimeError(f"{fn}{args} returned {out[key]}")
+    return out
+
+
+# K2-span and K4 are cluster launches: at 32 px tiles, tpp 5 and span_cap
+# 41 (K4 also at its clamp, 34), K2-span must hold 3 blocks an SM and K4 2
+CLUSTER_BLOCKS_MIN = {"K2-span": 3, "K4": 2}
+
+
+def cluster_occupancy(n_tiles: int, n_sms: int) -> dict:
+    """What the occupancy calculator says of the cluster launches of K2-span
+    and K4 at 32 px tiles with SPAN_32 (K4 also at span_cap 34): blocks an
+    SM, clusters resident on the card at once
+    (cudaOccupancyMaxActiveClusters), the cluster size, the CTAs those
+    clusters hold an SM, and the window's chunk slots a CTA. Raises below
+    CLUSTER_BLOCKS_MIN."""
+    import ctypes
+
+    from cloth_splatting_tpu_torch import kernels
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import window_slots
+
+    query = kernels.load("tiled_train").tiled_train_span_occupancy
+    query.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    out = {}
+    for key, kernel, cap in (("K2-span", 0, SPAN_32[1]), ("K4", 1, SPAN_32[1]),
+                             ("K4 span_cap=34", 1, 34)):
+        res = (ctypes.c_int * 3)()
+        err = query(kernel, 32, n_tiles, SPAN_32[0], cap, res)
+        if err != 0:
+            raise RuntimeError(f"tiled_train_span_occupancy({key}): CUDA error {err}")
+        blocks, clusters, size = res
+        out[key] = {"span_cap": cap, "blocks_per_sm": blocks,
+                    "max_active_clusters": clusters, "cluster_size": size,
+                    "cluster_ctas_per_sm": clusters * size / n_sms,
+                    "window_slots_per_cta": window_slots(cap, size)}
+        need = CLUSTER_BLOCKS_MIN[key.split()[0]]
+        if blocks < need or clusters < 1:
+            raise RuntimeError(f"{key}: {out[key]}, fewer than {need} blocks an SM")
     return out
 
 
@@ -642,13 +697,22 @@ def oracle_grads(proj, width, height, gen, span=None):
 def span_phase(cases, gen):
     """K1-span, K2-span and K4 against their plain versions (and K4 against
     K3) on every (label, pack, width, height, tile size, spans) of
-    ``cases``. Returns the largest errors and the programs' branch counts
-    summed over the cases; raises if either branch was never taken, or if
-    K1-span or K2-span is not bit-identical to K1 or K2 on any case."""
+    ``cases``; on the training packs also K2's output against K1-span's.
+    Returns the largest errors and the programs' branch counts summed over
+    the cases; raises if either branch was never taken, if K1-span or
+    K2-span is not bit-identical to K1 or K2 on any case, or if K2's output
+    is not K1-span's on a training pack."""
+    import torch
+
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+    )
+
     err = {"K1-span": 0.0, "K2-span": 0.0, "K4": 0.0, "K4_rel": 0.0,
            "K4_vs_K3_rel": 0.0}
     programs = {k: {"span": 0, "overflow": 0} for k in ("K1-span", "K2-span", "K4")}
-    identical = {"K1-span": True, "K2-span": True}
+    identical = {"K1-span": True, "K2-span": True, "K2 vs K1-span": True}
 
     def count(kernel, c):
         programs[kernel]["span"] += c["span"]
@@ -656,11 +720,20 @@ def span_phase(cases, gen):
 
     for label, packed, width, height, ts, spans in cases:
         n_tiles = (width // ts) * (height // ts)
+        # K2 runs the patched walk, K1-span still the first one
+        out_k2 = (raster_forward_train(packed, width, height, ts, BG)[0]
+                  if label.startswith("65k train") else None)
         for span in spans:
             e, stats = compare_k1(packed, width, height, ts, label, span)
             err["K1-span"] = max(err["K1-span"], e)
             count("K1-span", stats["programs"])
             identical["K1-span"] &= stats["bit_identical_to_k1"]
+            if out_k2 is not None:
+                same = bool(torch.equal(out_k2, raster_forward_tiles(
+                    packed, width, height, ts, BG, *span)))
+                log(f"K2 vs K1-span [{label}{span_label(span)}]: out "
+                    f"bit-identical {same}")
+                identical["K2 vs K1-span"] &= same
             e, stats, out_k, tb_k = compare_k2(packed, width, height, ts, label, span)
             err["K2-span"] = max(err["K2-span"], e)
             count("K2-span", stats["programs"])
@@ -679,11 +752,11 @@ def span_phase(cases, gen):
     for kernel, c in programs.items():
         if c["span"] == 0 or c["overflow"] == 0:
             raise RuntimeError(f"span: {kernel} never took one of its branches {c}")
-    # the span forms run the default kernels' walk on the same rows in the
-    # same order, so they owe the same bits
+    # the span forms and K2 run the same function through the same float
+    # operations, each pixel's in the same order, so they owe the same bits
     if not all(identical.values()):
         raise RuntimeError(f"span: a span form is not bit-identical to its "
-                           f"default kernel {identical}")
+                           f"default kernel, or K2 to K1-span {identical}")
     return err, programs, identical
 
 
@@ -1185,6 +1258,14 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f} s; ptxas {json.dumps(usage)}")
     occupancy = blocks_per_sm()
     log(f"blocks an SM (occupancy calculator): {json.dumps(occupancy)}")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clusters = cluster_occupancy((WIDTH // 32) * (HEIGHT // 32), n_sms)
+    log(f"cluster launches at 32 px, tpp={SPAN_32[0]} ({n_sms} SMs): "
+        f"{json.dumps(clusters)}")
+    for key in ("K2-span", "K4"):
+        spills = usage.get(KERNEL_ENTRIES[key], {})
+        if spills.get("spill_stores") or spills.get("spill_loads"):
+            raise RuntimeError(f"{key} spills: {spills}")
     gpu = gpu_line()
     log(f"gpu: {gpu}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1218,9 +1299,15 @@ def main() -> int:
     err, rel = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
                           "65k train cam 0")
     k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
+    serve16 = sorted_pack(project(cams[0]), WIDTH // 16, HEIGHT // 16, 16, 5,
+                          order="fused")
+    train16 = sorted_pack(t_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused")
     cull_cases = [("65k view 0", "K1", packs[0][0], WIDTH, HEIGHT, tile, None),
-                  ("65k train cam 0", "K2 and K3", train_pack, WIDTH, HEIGHT,
-                   tile, train_tb)]
+                  ("65k train cam 0", "K2, K3, K2-span and K4", train_pack,
+                   WIDTH, HEIGHT, tile, train_tb),
+                  ("65k train cam 0 at 16 px", "K2-span and K4", train16, WIDTH,
+                   HEIGHT, 16, raster_forward_train(train16, WIDTH, HEIGHT, 16,
+                                                    BG, *SPAN_16)[1])]
     deep_cases = []
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
@@ -1238,7 +1325,8 @@ def main() -> int:
         err, rel = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
                               tb_k, size, size, ts, label)
         k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
-        cull_cases.append((label, "K1, K2 and K3", packed, size, size, ts, tb_k))
+        cull_cases.append((label, "K1, K2, K3, K2-span and K4", packed, size,
+                           size, ts, tb_k))
         deep_cases.append((label, packed, size, size, ts,
                            (SPAN_DEEP, (SPAN_DEEP[0], 1))))
     cull = cull_phase(cull_cases)
@@ -1249,16 +1337,12 @@ def main() -> int:
     def both_spans(span):
         return (span, (span[0], 1))
 
-    serve_proj = project(cams[0])
     span_cases = [
         ("65k view 0", packs[0][0], WIDTH, HEIGHT, tile, both_spans(SPAN_32)),
         ("65k train cam 0", train_pack, WIDTH, HEIGHT, tile, both_spans(SPAN_32)),
-        ("65k view 0 at 16 px",
-         sorted_pack(serve_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused"),
-         WIDTH, HEIGHT, 16, both_spans(SPAN_16)),
-        ("65k train cam 0 at 16 px",
-         sorted_pack(t_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused"),
-         WIDTH, HEIGHT, 16, both_spans(SPAN_16)),
+        ("65k view 0 at 16 px", serve16, WIDTH, HEIGHT, 16, both_spans(SPAN_16)),
+        ("65k train cam 0 at 16 px", train16, WIDTH, HEIGHT, 16,
+         both_spans(SPAN_16)),
         *deep_cases]
     span_err, span_programs_taken, span_identical = span_phase(span_cases, gen)
 
@@ -1460,6 +1544,22 @@ def main() -> int:
                      k4_bound)
     k4_entry["max_rel_err"] = span_err["K4_rel"]
     k4_entry["max_rel_err_vs_k3"] = span_err["K4_vs_K3_rel"]
+
+    # K2-span and K4 run the cluster program: registers (ptxas), the
+    # occupancy calculator's blocks an SM and resident clusters at tpp 5,
+    # span_cap 41 (K4 also at its clamp, 34), and the cull audit of the
+    # chunks K2 started on the training pack
+    def clustered(e, key, walk):
+        e.update(redesigned="one CTA per tile in a cluster per program, the "
+                            f"window spread over the cluster; {walk}",
+                 registers=(e["ptxas"] or {}).get("registers"),
+                 blocks_per_sm=clusters[key]["blocks_per_sm"],
+                 cluster_occupancy={k: v for k, v in clusters.items()
+                                    if k.startswith(key)},
+                 cull_audit=cull["65k train cam 0"])
+        return e
+
+    clustered(k4_entry, "K4", "K3's patched, culled walk, two passes a chunk")
     # K1 and K2 run the patched walk: registers (ptxas), blocks an SM and
     # their cull audits (K1 over every chunk of the serving pack of view 0,
     # K2 over the chunks it started on the training pack)
@@ -1486,19 +1586,19 @@ def main() -> int:
     # span kernels over one span turn of the A/B's frames and steps
     print(json.dumps({"kernels": [
         k1_entry,
-        entry("K1-span tiled_fwd_span compositor, one window per program",
-              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
-              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
-              {"span_serving": serve_ab_launches["K1-span"]},
-              span_err["K1-span"], k1s_ms,
-              k1s_plain_ms, k1_bound),
+        dict(entry("K1-span tiled_fwd_span compositor, one window per program",
+                   "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
+                   "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
+                   {"span_serving": serve_ab_launches["K1-span"]},
+                   span_err["K1-span"], k1s_ms, k1s_plain_ms, k1_bound),
+             blocks_per_sm=occupancy["K1-span"]),
         k2_entry,
-        entry("K2-span tiled_fwd_train_span, one window per program",
-              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
-              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",
-              {"span_train": train_ab_launches["K2-span"]},
-              span_err["K2-span"], k2s_ms,
-              k2s_plain_ms, k2_bound),
+        clustered(entry("K2-span tiled_fwd_train_span, one window per program",
+                        "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
+                        "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",
+                        {"span_train": train_ab_launches["K2-span"]},
+                        span_err["K2-span"], k2s_ms, k2s_plain_ms, k2_bound),
+                  "K2-span", "K2's patched, culled walk"),
         k3_entry, k4_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {

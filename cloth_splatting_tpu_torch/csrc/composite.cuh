@@ -1,9 +1,10 @@
 // Shared by the tile kernels K1 and K1-span (tiled_fwd.cu), K2, K2-span, K3
 // and K4 (tiled_train.cu): the per-pair classification and compositing
-// update, the warp patches and footprint boxes of K1, K2 and K3, the two
-// front-to-back tile walks (composite_tile_patched for K1 and K2,
-// composite_tile for the span forms) and the span window of a multi-tile
-// program.
+// update, the warp patches and footprint boxes of K1, K2, K2-span, K3 and
+// K4, the two front-to-back tile walks (composite_tile_patched for K1, K2
+// and K2-span, composite_tile for K1-span) and the span window of a
+// multi-tile program: one block's (K1-span) or spread over a thread-block
+// cluster (K2-span, K4).
 //
 // The packed parameter array is rows16 f32 [16, b_pad], param-major and
 // tile-grouped (rows x, y, conic a/b/c, r, g, b, opacity, depth, power_cut,
@@ -19,6 +20,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -259,8 +261,19 @@ __device__ __forceinline__ void load_chunk_boxes(
   boxes[j] = footprint_box(v[kX], v[kY], v[kA], v[kB], v[kC], v[kOp], v[kCut]);
 }
 
-// The forward walk of K1 and K2, one tile per 256-thread block: for every
-// pixel
+// Where a patched walk takes a chunk's rows from: GlobalStage stages chunk
+// `base` from rows16 (K1, K2 and a span program that does not fit its
+// window); WindowStage (below) copies it from the cluster's window.
+struct GlobalStage {
+  __device__ __forceinline__ void operator()(float (*sh)[kChunk], float4* boxes,
+                                             const float* __restrict__ rows16,
+                                             int64_t b_pad, int64_t base) const {
+    load_chunk_boxes(sh, boxes, rows16, b_pad, base);
+  }
+};
+
+// The forward walk of K1, K2 and K2-span, one tile per 256-thread block: for
+// every pixel
 //   w = alpha T;  T *= 1 - alpha;  sum w * (r, g, b, depth, 1)
 // over the tile's live instances in order, stopping after the first chunk
 // at which max over the tile's pixels of T is <= 1e-4 (a tile-wide vote).
@@ -284,12 +297,15 @@ __device__ __forceinline__ void load_chunk_boxes(
 //   - a lane classifies its pixels first and then runs composite_pair on
 //     each, a dead pixel selected back, without a branch per pixel; a warp
 //     none of whose pixels sees the instance skips the update.
-template <int PPT, bool kRecord>
+// `stage` puts each chunk's rows and boxes in sh and boxes; where they come
+// from changes no bit of the result (K2-span is held bit-identical to K2).
+template <int PPT, bool kRecord, typename Stage = GlobalStage>
 __device__ __forceinline__ void composite_tile_patched(
     int tile, const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ offsets, const float* __restrict__ rows16,
     float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
-    float bg0, float bg1, float bg2, float (*sh)[kChunk], float4* boxes) {
+    float bg0, float bg1, float bg2, float (*sh)[kChunk], float4* boxes,
+    Stage stage = Stage{}) {
   using M = PatchMap<PPT>;
   constexpr int kQ = M::kQ;
   constexpr int p = M::kTile * M::kTile;
@@ -334,7 +350,7 @@ __device__ __forceinline__ void composite_tile_patched(
             T[i];
     }
     const int64_t base = static_cast<int64_t>(kt + ci) * kChunk;
-    load_chunk_boxes(sh, boxes, rows16, b_pad, base);
+    stage(sh, boxes, rows16, b_pad, base);
     __syncthreads();
 
     const int lo = chunk_lo(start, kt, ci);
@@ -410,13 +426,13 @@ __device__ __forceinline__ void composite_tile_patched(
   }
 }
 
-// The span forms' walk of one tile (K1-span and K2-span; one 256-thread
-// block, PPT pixels per thread; tile_size^2 == PPT * 256): the function of
-// composite_tile_patched, with its outputs, walked as the kernels were
-// first written. Thread t owns pixels t + i * 256, so every warp classifies
-// every instance of the tile on all its pixels. It is kept as the yardstick
-// of the patched walk: chip_smoke holds the span forms bit-identical to K1
-// and K2.
+// K1-span's walk of one tile (one 256-thread block, PPT pixels per thread;
+// tile_size^2 == PPT * 256): the function of composite_tile_patched, with
+// its outputs, walked as the kernels were first written. Thread t owns
+// pixels t + i * 256, so every warp classifies every instance of the tile on
+// all its pixels. It is kept as the yardstick of the patched walk:
+// chip_smoke holds K1-span bit-identical to K1, and K2's output to
+// K1-span's.
 //
 // Where a chunk's rows come from is the only difference between its two
 // forms: with kSpan false each chunk is staged in `sh` (load_chunk) before
@@ -424,7 +440,8 @@ __device__ __forceinline__ void composite_tile_patched(
 // true the chunk kt + ci is read at slot kt + ci - k0c of `span`, which the
 // block staged once.
 //
-// kRecord (K2-span) records the boundaries as composite_tile_patched does.
+// kRecord records the boundaries as composite_tile_patched does; no kernel
+// takes it (K2-span runs the patched walk).
 //
 // A block may walk several tiles one after another: every chunk ends in a
 // barrier (the vote), so no thread still reads `sh` when the next tile's
@@ -532,13 +549,13 @@ struct SpanTag {
   static constexpr bool value = kSpan;
 };
 
-// One program of a span kernel (K1-span, K2-span, K4): `tpp` consecutive
-// tiles per block. When the tiles' chunks fit the window, the block stages
-// them once in `span` (dynamic shared memory, span_cap chunks) and calls
-// tile_fn(tile, SpanTag<true>, nullptr, span, k0c) for each tile; otherwise
-// every tile takes the per-chunk walk, tile_fn(tile, SpanTag<false>, sh,
-// nullptr, 0), staging each chunk in the window's first slot `sh`. `fits` is
-// uniform over the block, so the barriers inside the walks are too.
+// One program of K1-span: `tpp` consecutive tiles per block. When the
+// tiles' chunks fit the window, the block stages them once in `span`
+// (dynamic shared memory, span_cap chunks) and calls tile_fn(tile,
+// SpanTag<true>, nullptr, span, k0c) for each tile; otherwise every tile
+// takes the per-chunk walk, tile_fn(tile, SpanTag<false>, sh, nullptr, 0),
+// staging each chunk in the window's first slot `sh`. `fits` is uniform
+// over the block, so the barriers inside the walks are too.
 template <typename TileFn>
 __device__ __forceinline__ void for_each_tile_of_program(
     const int* __restrict__ starts, const int* __restrict__ counts,
@@ -559,7 +576,7 @@ __device__ __forceinline__ void for_each_tile_of_program(
   }
 }
 
-// One program of the span forms K1-span (kRecord false) and K2-span.
+// One program of K1-span (kRecord false).
 template <int PPT, bool kRecord>
 __device__ __forceinline__ void composite_program(
     const int* __restrict__ starts, const int* __restrict__ counts,
@@ -577,7 +594,7 @@ __device__ __forceinline__ void composite_program(
       });
 }
 
-// Launches a span kernel on `stream`: n_tiles / tpp blocks with a window of
+// Launches K1-span on `stream`: n_tiles / tpp blocks with a window of
 // span_cap chunks of dynamic shared memory, which the kernel must opt in to
 // above 48 KB. `args` are the kernel's parameters before (tpp, span_cap).
 // Returns the CUDA error of the attribute call or of the launch.
@@ -598,6 +615,218 @@ int launch_span(void (*kernel)(Params...), int n_tiles, int tpp, int span_cap,
 inline bool span_args_ok(int n_tiles, int64_t b_pad, int tpp, int span_cap) {
   return tpp >= 1 && n_tiles % tpp == 0 && span_cap >= 1 &&
          span_cap <= b_pad / kChunk;
+}
+
+// ---------------------------------------------------------------------------
+// The cluster program of K2-span and K4: one CTA per tile, a program of `tpp`
+// tiles run by tpp / c thread-block clusters of c CTAs, and the program's
+// window spread over the cluster's shared memory.
+//
+// The JAX kernels (pallas_train.py, one_tile_vmem) give a program of tpp
+// consecutive tiles to one grid step, which fetches the chunks [k0, k_end)
+// of all its tiles into VMEM once when they fit span_cap chunks and walks
+// the tiles one after another. On the H100 a whole window in one block's
+// shared memory (41 chunks, 231 KB) leaves one 8-warp block an SM, and a
+// block per program gives 125 blocks at 800x800 for 132 SMs (K1-span's
+// layout, for_each_tile_of_program). Here CTA r of a cluster walks tile
+// i0 + r alone, so every tile of a program is in flight at once (625 CTAs
+// at 32 px), and each CTA holds only its share of the window: chunk
+// a + r + q c at its slot q,
+// ceil(span_cap / c) slots at most, where [a, b) are the chunks of the
+// cluster's own tiles (the whole program's [k0, k_end) when c == tpp).
+// Each CTA fetches its share with cp.async.bulk (11 rows of 512 B a chunk,
+// completing on an mbarrier); after a cluster barrier, a CTA copies each
+// chunk it walks from the owner's slot into its own sh and boxes through
+// distributed shared memory; a last cluster barrier keeps every CTA resident
+// until no other CTA reads its slots. A chunk that two tiles of a cluster
+// share is read from device memory once, as the span means. When c < tpp
+// (a tpp above 8, which no path of the repo drives), each cluster stages the
+// part of the window its own tiles cover, so a chunk at the seam of two
+// clusters is read once by each.
+//
+// `fits` is decided per program, as span_program does, so every CTA of a
+// cluster takes the same branch; a program that does not fit walks each
+// tile staging chunk by chunk from rows16 (the counterpart of one_tile_dma)
+// and takes no cluster barrier. No atomics: every slot of the outputs
+// belongs to one tile.
+
+// CTAs in a cluster for `tpp` tiles a program: tpp itself up to 8, the
+// portable limit, else its largest divisor <= 8 (tiled_fwd.py's
+// span_cluster_size is the plain copy).
+__host__ __device__ __forceinline__ int span_cluster_size(int tpp) {
+  for (int c = tpp < 8 ? tpp : 8; c > 1; --c)
+    if (tpp % c == 0) return c;
+  return 1;
+}
+
+// Chunk slots a CTA of a cluster of c holds for a window of span_cap chunks.
+__host__ __device__ __forceinline__ int window_slots(int span_cap, int c) {
+  return (span_cap + c - 1) / c;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Stages this CTA's share of the cluster's chunks [a, b), chunk a + rank +
+// q c at slot q of `window`, with one thread issuing a bulk copy per row and
+// every thread waiting on the mbarrier `bar` until the bytes have landed.
+__device__ __forceinline__ void stage_window_share(
+    float* window, uint64_t* bar, const float* __restrict__ rows16,
+    int64_t b_pad, int a, int b, int c, int rank) {
+  const uint32_t bar_a = smem_u32(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_a) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int n = b - a > rank ? (b - a - rank + c - 1) / c : 0;
+    const uint32_t row_bytes = kChunk * sizeof(float);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar_a),
+                 "r"(static_cast<uint32_t>(n * kRows) * row_bytes)
+                 : "memory");
+    for (int q = 0; q < n; ++q) {
+      const int64_t k = a + rank + q * c;
+      for (int r = 0; r < kRows; ++r) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];" ::"r"(smem_u32(window + (q * kRows + r) * kChunk)),
+            "l"(rows16 + r * b_pad + k * kChunk), "r"(row_bytes), "r"(bar_a)
+            : "memory");
+      }
+    }
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar_a)
+        : "memory");
+  }
+}
+
+// Copies chunk `base` of the cluster's window from its owner's slot into sh
+// and computes its boxes, as load_chunk_boxes does from rows16: thread j <
+// 128 owns instance j. The caller synchronises.
+struct WindowStage {
+  const float* window;  // this CTA's slots (a local shared address)
+  int a, c;             // the cluster's first chunk and size
+  __device__ __forceinline__ void operator()(float (*sh)[kChunk], float4* boxes,
+                                             const float* __restrict__,
+                                             int64_t, int64_t base) const {
+    const int j = threadIdx.x;
+    if (j >= kChunk) return;
+    const int rel = static_cast<int>(base / kChunk) - a;
+    const float* src = cooperative_groups::this_cluster().map_shared_rank(
+        window + (rel / c) * (kRows * kChunk), rel % c);
+    float v[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      v[r] = src[r * kChunk + j];
+      sh[r][j] = v[r];
+    }
+    boxes[j] = footprint_box(v[kX], v[kY], v[kA], v[kB], v[kC], v[kOp], v[kCut]);
+  }
+};
+
+// Runs this CTA's tile of its span program: tile_fn(tile, stage) with a
+// WindowStage when the program fits its window, between the two cluster
+// barriers, else with a GlobalStage. `window` is the CTA's dynamic shared
+// memory (window_slots chunk slots), `bar` an mbarrier in shared memory.
+template <typename TileFn>
+__device__ __forceinline__ void run_cluster_program(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows16, int64_t b_pad, int tpp, int span_cap,
+    float* window, uint64_t* bar, TileFn tile_fn) {
+  const int tile = blockIdx.x;
+  const SpanProgram s = span_program(starts, counts, tile - tile % tpp, tpp,
+                                     span_cap, static_cast<int>(b_pad / kChunk));
+  if (!s.fits) {
+    tile_fn(tile, GlobalStage{});
+    return;
+  }
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int first = tile - rank, last = first + c - 1;
+  const int a = starts[first] / kChunk;
+  const int b = (starts[last] + counts[last] + kChunk - 1) / kChunk;
+  stage_window_share(window, bar, rows16, b_pad, a, b, c, rank);
+  cluster.sync();  // every share staged and visible to the cluster
+  tile_fn(tile, WindowStage{window, a, c});
+  cluster.sync();  // no CTA leaves while another reads its slots
+}
+
+// The launch configuration of K2-span or K4: n_tiles CTAs in clusters of
+// span_cluster_size(tpp) (set in *attr), window_slots(span_cap, c) chunk
+// slots of dynamic shared memory each.
+inline cudaLaunchConfig_t cluster_config(int n_tiles, int tpp, int span_cap,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  const int c = span_cluster_size(tpp);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes =
+      static_cast<size_t>(window_slots(span_cap, c)) * kRows * kChunk * sizeof(float);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster launch of K2-span or K4 on `stream`. `args` are the kernel's
+// parameters before (tpp, span_cap). Returns the CUDA error of the
+// attribute call or of the launch: a refused cluster launch is an error,
+// not a fallback.
+template <typename... Params, typename... Args>
+int launch_span_cluster(void (*kernel)(Params...), int n_tiles, int tpp,
+                        int span_cap, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(n_tiles, tpp, span_cap, stream, &attr);
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg.dynamicSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, kernel, args..., tpp, span_cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the occupancy calculator says of a cluster launch: out[0] blocks an
+// SM (registers and shared memory), out[1] clusters resident on the card at
+// once, out[2] the cluster size. Returns the CUDA error.
+template <typename... Params>
+int span_cluster_occupancy(void (*kernel)(Params...), int n_tiles, int tpp,
+                           int span_cap, int* out) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(n_tiles, tpp, span_cap, 0, &attr);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg.dynamicSmemBytes));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kThreads,
+                                                        cfg.dynamicSmemBytes);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&out[1], fn, &cfg);
+  out[2] = attr.val.clusterDim.x;
+  return static_cast<int>(err);
+}
+
+// Whether a cluster launch can take rows16: cp.async.bulk needs 16 B
+// aligned addresses and sizes, which every row of every chunk then has
+// (b_pad is a multiple of 128 floats).
+inline bool bulk_rows_ok(const void* rows16, int64_t b_pad) {
+  return reinterpret_cast<uintptr_t>(rows16) % 16 == 0 && b_pad % kChunk == 0;
 }
 
 }  // namespace composite

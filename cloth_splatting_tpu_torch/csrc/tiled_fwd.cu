@@ -155,3 +155,20 @@ extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
                                   tile_size, bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Blocks of K1-span that one SM holds at once at `tile_size` with a window
+// of span_cap chunks, as the runtime's occupancy calculator counts them; -1
+// for an unsupported tile_size or a runtime error.
+extern "C" int tiled_fwd_span_blocks_per_sm(int tile_size, int span_cap) {
+  const size_t smem = static_cast<size_t>(span_cap) * kRows * kChunk * sizeof(float);
+  const void* fn = tile_size == 32 ? reinterpret_cast<const void*>(tiled_fwd_span_kernel<4>)
+                   : tile_size == 16 ? reinterpret_cast<const void*>(tiled_fwd_span_kernel<1>)
+                                     : nullptr;
+  if (fn == nullptr) return -1;
+  int n = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem);
+  return err == cudaSuccess ? n : -1;
+}

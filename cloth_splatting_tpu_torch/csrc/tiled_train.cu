@@ -79,23 +79,34 @@
 // rolling accumulator and read-modify-write (pallas_train.py:401-449), and
 // its tile-local moments (an MXU device), have no counterpart here.
 //
-// K2-span is K2 for a block of tpp consecutive tiles that stages their
-// chunks once when they fit a window of span_cap chunks (composite.cuh::
-// composite_program); it keeps the first form's walk (composite_tile), the
-// same function in the same order, and writes the boundaries exactly as K2.
+// K2-span and K4 run the span options as the cluster program of
+// composite.cuh (run_cluster_program): one CTA per tile, a program of tpp
+// tiles as clusters of CTAs, the window that a fitting program stages once
+// spread over the cluster's shared memory and read through distributed
+// shared memory, so that a CTA's shared memory does not hold a whole window
+// (41 chunks are 231 KB: one 8-warp block an SM) and every tile of a program
+// is in flight at once.
 //
-// K4 owns tpp tiles per block as K2-span does and sweeps each tile's chunks
-// last to first, carrying per pixel s_carry = sum of u w over the LATER
-// chunks. Inside a chunk S_i = (chunk_total - sum_{j<=i} u_j w_j) + s_carry,
-// and chunk_total is needed before the first instance's S_i, so a thread
-// makes two passes over the chunk's lanes: the first runs the T chain and
-// sums u w, the second recomputes each pair (same splat_alpha, so the same
-// pairs) and forms the gradients through the function K3 uses. A chunk
-// whose saved boundary is all zero was never started by the forward: it is
-// skipped and the carry stays. K4 does not read U_tot. Every slot belongs
-// to one tile, so K4 stores as K3 does; the TPU kernel's gradient window
-// read-back and its shared-chunk read-modify-write have no counterpart.
-// Twice K3's expf per pair and fewer blocks: expected slower than K3.
+// K2-span runs K2's walk (composite_tile_patched) on its tile, the chunk's
+// rows copied from the window when the program fits: every pixel goes
+// through the same float operations as in K2, so it gives K2's bits, its
+// boundaries included (chip_smoke holds it to that).
+//
+// K4 sweeps its tile's chunks last to first, carrying per pixel s_carry =
+// sum of u w over the LATER chunks. Inside a chunk S_i = (chunk_total -
+// sum_{j<=i} u_j w_j) + s_carry, and chunk_total is needed before the first
+// instance's S_i, so it walks each chunk twice: pass 1 runs the T chain and
+// sums u w, pass 2 recomputes each pair (the same splat_alpha, so the same
+// pairs) and forms the gradients through the function K3 uses. It walks as
+// K3 does: the warp patches, the footprint cull (both passes walk only the
+// warp's hit instances, the same ones), a lane's pixels classified first
+// with a dead pixel's alpha and offsets at 0, and the reduce-scatter,
+// per-warp mask and fixed-order cross-warp pass, so that both passes cost
+// what the cull leaves of the pairs. A chunk whose saved boundary is all
+// zero was never started by the forward: it is skipped and the carry
+// stays. K4 does not read U_tot. Every slot belongs to one tile,
+// so K4 stores as K3 does; the TPU kernel's gradient window read-back and
+// its shared-chunk read-modify-write have no counterpart.
 
 #include "composite.cuh"
 
@@ -109,36 +120,6 @@ constexpr int kWarps = kThreads / 32;
 // per-instance pixel sums: dpow, dpow dx, dpow dy, dpow dx^2, dpow dy^2,
 // dpow dx dy, w g_r, w g_g, w g_b, w g_dep
 constexpr int kSums = 10;
-
-// What a K4 thread keeps per pixel of its tile.
-template <int PPT>
-struct PixelFields {
-  float px[PPT], py[PPT], gr[PPT], gg[PPT], gb[PPT], gd[PPT], kk[PPT];
-  float u_tot[PPT];
-};
-
-template <int PPT>
-__device__ __forceinline__ void load_pixel_fields(
-    PixelFields<PPT>& f, const float* __restrict__ gimg, int tile, int tw,
-    int tile_size, float bg0, float bg1, float bg2) {
-  const int p = tile_size * tile_size;
-  const int ox = (tile % tw) * tile_size;
-  const int oy = (tile / tw) * tile_size;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int pix = threadIdx.x + i * kThreads;
-    f.px[i] = static_cast<float>(ox + pix % tile_size);
-    f.py[i] = static_cast<float>(oy + pix / tile_size);
-    const float* g = gimg + (static_cast<int64_t>(tile) * p + pix) * 8;
-    f.gr[i] = g[0];
-    f.gg[i] = g[1];
-    f.gb[i] = g[2];
-    f.gd[i] = g[3];
-    f.kk[i] = (g[4] - (f.gr[i] * bg0 + f.gg[i] * bg1 + f.gb[i] * bg2)) *
-              (1.0f - g[5]);
-    f.u_tot[i] = g[6];
-  }
-}
 
 // One contributing pair's terms of its instance's ten sums; K3 and K4
 // differ only in where the occlusion suffix s_i comes from.
@@ -163,57 +144,6 @@ __device__ __forceinline__ void pair_grad(float* s, float dx, float dy,
   }
 }
 
-// K4: sums instance j's ten sums over the warp and parks them in red; a
-// warp none of whose pixels saw the instance parks zeros.
-__device__ __forceinline__ void park_warp_sums(
-    float (*red)[kWarps][kChunk], const float* s, bool seen, int warp,
-    int lane, int j) {
-  if (__any_sync(0xffffffffu, seen)) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) {
-      float v = s[k];
-#pragma unroll
-      for (int sh_off = 16; sh_off > 0; sh_off /= 2)
-        v += __shfl_xor_sync(0xffffffffu, v, sh_off);
-      if (lane == 0) red[k][warp][j] = v;
-    }
-  } else if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) red[k][warp][j] = 0.0f;
-  }
-}
-
-// One thread per live instance of the chunk (K4): sum over the warps, form
-// the parameter gradients and store them (coalesced along the chunk).
-__device__ __forceinline__ void store_chunk_grads(
-    float (*red)[kWarps][kChunk], composite::ChunkRows rows,
-    float* __restrict__ grads, int64_t b_pad, int64_t base, int lo, int hi) {
-  using namespace composite;
-  for (int j = threadIdx.x; j < kChunk; j += kThreads) {
-    if (j < lo || j >= hi) continue;
-    float t[kSums];
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) {
-      float v = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red[k][w][j];
-      t[k] = v;
-    }
-    const float ca = rows[kA][j], cb = rows[kB][j], cc = rows[kC][j];
-    float* g = grads + base + j;
-    g[0 * b_pad] = ca * t[1] + cb * t[2];
-    g[1 * b_pad] = cc * t[2] + cb * t[1];
-    g[2 * b_pad] = -0.5f * t[3];
-    g[3 * b_pad] = -t[5];
-    g[4 * b_pad] = -0.5f * t[4];
-    g[5 * b_pad] = t[6];
-    g[6 * b_pad] = t[7];
-    g[7 * b_pad] = t[8];
-    g[8 * b_pad] = t[0] / fmaxf(rows[kOp][j], 1e-30f);
-    g[9 * b_pad] = t[9];
-  }
-}
-
 template <int PPT>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_train_kernel(const int* __restrict__ starts,
@@ -229,6 +159,8 @@ tiled_fwd_train_kernel(const int* __restrict__ starts,
       bg1, bg2, sh, boxes);
 }
 
+// K2-span: K2's walk of this CTA's tile, from the cluster's window when its
+// program fits (composite.cuh::run_cluster_program).
 template <int PPT>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_train_span_kernel(const int* __restrict__ starts,
@@ -236,12 +168,19 @@ tiled_fwd_train_span_kernel(const int* __restrict__ starts,
                             const int* __restrict__ offsets,
                             const float* __restrict__ rows16,
                             float* __restrict__ out, float* __restrict__ tb,
-                            int tw, int64_t b_pad, int tile_size, float bg0,
-                            float bg1, float bg2, int tpp, int span_cap) {
-  extern __shared__ float span[];
-  composite::composite_program<PPT, true>(starts, counts, offsets, rows16, out,
-                                          tb, tw, b_pad, tile_size, bg0, bg1,
-                                          bg2, tpp, span_cap, span);
+                            int tw, int64_t b_pad, float bg0, float bg1,
+                            float bg2, int tpp, int span_cap) {
+  extern __shared__ __align__(128) float window[];
+  __shared__ float sh[kRows][kChunk];
+  __shared__ float4 boxes[kChunk];
+  __shared__ uint64_t bar;
+  composite::run_cluster_program(
+      starts, counts, rows16, b_pad, tpp, span_cap, window, &bar,
+      [&](int tile, auto stage) {
+        composite::composite_tile_patched<PPT, true>(
+            tile, starts, counts, offsets, rows16, out, tb, tw, b_pad, bg0,
+            bg1, bg2, sh, boxes, stage);
+      });
 }
 
 // K3's blocks an SM: the register cap of __launch_bounds__.
@@ -489,20 +428,45 @@ tiled_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
   }
 }
 
-// K4: the reverse sweep of one tile, from the window the block staged
-// (kSpan) or staging each chunk in `sh`. A block sweeps several tiles one
-// after another: every write to red or sh follows a chunk's vote, which is a
-// barrier, so the previous tile's last reduction has been read by then.
-template <int PPT, bool kSpan>
+// Calls fn(j) for each instance j of the 4 hit words, in ascending lane
+// order: K3's loop, the words rotated through registers (a loop over the
+// words that indexes them puts them in local memory).
+template <typename Fn>
+__device__ __forceinline__ void for_each_hit(const unsigned (&hit)[4], Fn fn) {
+  int word_base = 0;
+  unsigned m = hit[0], m1 = hit[1], m2 = hit[2], m3 = hit[3];
+  while (true) {
+    if (m == 0u) {
+      if ((m1 | m2 | m3) == 0u) break;
+      m = m1;
+      m1 = m2;
+      m2 = m3;
+      m3 = 0u;
+      word_base += 32;
+      continue;
+    }
+    const int j = word_base + __ffs(m) - 1;
+    m &= m - 1u;
+    fn(j);
+  }
+}
+
+// K4: the reverse sweep of one tile with K3's patched, culled walk; `stage`
+// puts each chunk's rows and boxes in sh and boxes (from rows16, or from
+// the cluster's window).
+template <int PPT, typename Stage>
 __device__ __forceinline__ void reverse_tile(
     int tile, const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ offsets, const float* __restrict__ rows16,
     const float* __restrict__ gimg, const float* __restrict__ tb,
-    float* __restrict__ grads, int tw, int64_t b_pad, int tile_size, float bg0,
-    float bg1, float bg2, float (*red)[kWarps][kChunk], float (*sh)[kChunk],
-    const float* span, int k0c) {
+    float* __restrict__ grads, int tw, int64_t b_pad, float bg0, float bg1,
+    float bg2, float (*sh)[kChunk], float4* boxes,
+    float (*red)[kWarps][kChunk], unsigned (*reduced)[kChunk / 32],
+    Stage stage) {
   using namespace composite;
-  const int p = tile_size * tile_size;
+  using M = PatchMap<PPT>;
+  constexpr int kQ = M::kQ;
+  constexpr int p = M::kTile * M::kTile;
   const int start = starts[tile];
   const int count = counts[tile];
   const int kt = start / kChunk;
@@ -510,125 +474,184 @@ __device__ __forceinline__ void reverse_tile(
   const float* tb_tile = tb + static_cast<int64_t>(offsets[tile]) * p;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int owner = scatter_owner(lane);
 
-  PixelFields<PPT> f;
-  load_pixel_fields(f, gimg, tile, tw, tile_size, bg0, bg1, bg2);
-  float s_carry[PPT];
+  // the lane's quad (pixel i at column i % kQ, row i / kQ) and the warp's
+  // patch, in pixel coordinates
+  const int ox = (tile % tw) * M::kTile;
+  const int oy = (tile / tw) * M::kTile;
+  float qx[kQ], qy[kQ];
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) s_carry[i] = 0.0f;
+  for (int k = 0; k < kQ; ++k) {
+    qx[k] = static_cast<float>(ox + M::quad_x(warp, lane) + k);
+    qy[k] = static_cast<float>(oy + M::quad_y(warp, lane) + k);
+  }
+  const float patch_x0 = static_cast<float>(ox + M::patch_x(warp));
+  const float patch_x1 = patch_x0 + static_cast<float>(M::kW - 1);
+  const float patch_y0 = static_cast<float>(oy + M::patch_y(warp));
+  const float patch_y1 = patch_y0 + static_cast<float>(M::kH - 1);
+
+  float gr[PPT], gg[PPT], gb[PPT], gd[PPT], kk[PPT], s_carry[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const float* g =
+        gimg + (static_cast<int64_t>(tile) * p + patch_pixel<PPT>(warp, lane, i)) * 8;
+    gr[i] = g[0];
+    gg[i] = g[1];
+    gb[i] = g[2];
+    gd[i] = g[3];
+    kk[i] = (g[4] - (gr[i] * bg0 + gg[i] * bg1 + gb[i] * bg2)) * (1.0f - g[5]);
+    s_carry[i] = 0.0f;
+  }
 
   for (int ci = n_chunks - 1; ci >= 0; --ci) {
-    float t_start[PPT];
+    const float* tb_chunk = tb_tile + static_cast<int64_t>(ci) * p;
+    float T[PPT];
     bool started = false;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      t_start[i] =
-          tb_tile[static_cast<int64_t>(ci) * p + threadIdx.x + i * kThreads];
-      started |= t_start[i] > 0.0f;
+      T[i] = tb_chunk[patch_pixel<PPT>(warp, lane, i)];
+      started |= T[i] > 0.0f;
     }
-    // barrier (the previous chunk's reduction has read sh and red) and the
-    // vote: an all-zero boundary marks a chunk the forward never started;
-    // its slots keep the wrapper's zeros and the carry stays
+    // barrier (the previous chunk's reduction has read sh, boxes, red and
+    // reduced) and the vote: an all-zero boundary marks a chunk the forward
+    // never started; its slots keep the wrapper's zeros and the carry stays
     if (!__syncthreads_or(started)) continue;
     const int64_t base = static_cast<int64_t>(kt + ci) * kChunk;
-    ChunkRows rows;
-    if (kSpan) {
-      rows = span_chunk(span, kt - k0c + ci);
-    } else {
-      load_chunk(sh, rows16, b_pad, base);
-      __syncthreads();
-      rows = const_cast<ChunkRows>(sh);
-    }
+    stage(sh, boxes, rows16, b_pad, base);
+    __syncthreads();
+
     const int lo = chunk_lo(start, kt, ci);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
-
-    // pass 1: the chunk's total of u w per pixel
-    float T[PPT], total[PPT];
+    // the live instances whose box meets the warp's patch, 32 per word;
+    // both passes walk these, in ascending lane order
+    unsigned hit[4];
 #pragma unroll
-    for (int i = 0; i < PPT; ++i) {
-      T[i] = t_start[i];
-      total[i] = 0.0f;
+    for (int k = 0; k < 4; ++k) {
+      const int j = k * 32 + lane;
+      const float4 b = boxes[j];
+      hit[k] = __ballot_sync(0xffffffffu, j >= lo && j < hi &&
+                                              b.x <= patch_x1 && b.y >= patch_x0 &&
+                                              b.z <= patch_y1 && b.w >= patch_y0);
     }
-    for (int j = lo; j < hi; ++j) {
-      const float gx = rows[kX][j], gy = rows[kY][j];
-      const float ca = rows[kA][j], cb = rows[kB][j], cc = rows[kC][j];
-      const float cr = rows[kR][j], cg = rows[kG][j], cbl = rows[kBl][j];
-      const float op = rows[kOp][j], dep = rows[kDepth][j], cut = rows[kCut][j];
+
+    // pass 1: the chunk's total of u w per pixel. A dead pixel takes alpha
+    // = 0, which changes its T and total by exact zeros; a warp none of
+    // whose pixels sees the instance skips it, in both passes.
+    float total[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) total[i] = 0.0f;
+    for_each_hit(hit, [&](int j) {
+      const float gx = sh[kX][j], gy = sh[kY][j];
+      const float ca = sh[kA][j], cb = sh[kB][j], cc = sh[kC][j];
+      const float op = sh[kOp][j], cut = sh[kCut][j];
+      bool live[PPT];
+      float alpha[PPT];
+      bool seen = false;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        float a_raw, alpha;
-        if (!splat_alpha(f.px[i] - gx, f.py[i] - gy, ca, cb, cc, op, cut,
-                         &a_raw, &alpha))
-          continue;
-        const float u =
-            f.gr[i] * cr + f.gg[i] * cg + f.gb[i] * cbl + f.gd[i] * dep;
-        total[i] += u * (alpha * T[i]);
-        T[i] *= 1.0f - alpha;
+        float a_raw;
+        live[i] = splat_alpha(qx[i % kQ] - gx, qy[i / kQ] - gy, ca, cb, cc, op,
+                              cut, &a_raw, &alpha[i]);
+        seen |= live[i];
       }
-    }
+      if (!__any_sync(0xffffffffu, seen)) return;
+      const float cr = sh[kR][j], cg = sh[kG][j], cbl = sh[kBl][j];
+      const float dep = sh[kDepth][j];
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const float al = live[i] ? alpha[i] : 0.0f;
+        const float w = al * T[i];
+        const float u = gr[i] * cr + gg[i] * cg + gb[i] * cbl + gd[i] * dep;
+        total[i] += u * w;
+        T[i] *= 1.0f - al;
+      }
+    });
 
     // pass 2: the same pairs again, now with S_i known
     float cum[PPT];
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      T[i] = t_start[i];
+      T[i] = tb_chunk[patch_pixel<PPT>(warp, lane, i)];
       cum[i] = 0.0f;
     }
-    for (int j = lo; j < hi; ++j) {
-      const float gx = rows[kX][j], gy = rows[kY][j];
-      const float ca = rows[kA][j], cb = rows[kB][j], cc = rows[kC][j];
-      const float cr = rows[kR][j], cg = rows[kG][j], cbl = rows[kBl][j];
-      const float op = rows[kOp][j], dep = rows[kDepth][j], cut = rows[kCut][j];
-      float s[kSums];
-#pragma unroll
-      for (int k = 0; k < kSums; ++k) s[k] = 0.0f;
+    // bit k of `mine`: this warp reduced instance 32 k + lane
+    unsigned mine = 0u;
+    for_each_hit(hit, [&](int j) {
+      const float gx = sh[kX][j], gy = sh[kY][j];
+      const float ca = sh[kA][j], cb = sh[kB][j], cc = sh[kC][j];
+      const float op = sh[kOp][j], cut = sh[kCut][j];
+      bool live[PPT];
+      float a_raw[PPT], alpha[PPT];
       bool seen = false;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        const float dx = f.px[i] - gx;
-        const float dy = f.py[i] - gy;
-        float a_raw, alpha;
-        if (!splat_alpha(dx, dy, ca, cb, cc, op, cut, &a_raw, &alpha)) continue;
-        seen = true;
-        const float w = alpha * T[i];
-        const float u =
-            f.gr[i] * cr + f.gg[i] * cg + f.gb[i] * cbl + f.gd[i] * dep;
-        cum[i] += u * w;
-        pair_grad(s, dx, dy, a_raw, alpha, T[i], w, u, f.kk[i],
-                  (total[i] - cum[i]) + s_carry[i], f.gr[i], f.gg[i], f.gb[i],
-                  f.gd[i]);
-        T[i] *= 1.0f - alpha;
+        live[i] = splat_alpha(qx[i % kQ] - gx, qy[i / kQ] - gy, ca, cb, cc, op,
+                              cut, &a_raw[i], &alpha[i]);
+        seen |= live[i];
       }
-      park_warp_sums(red, s, seen, warp, lane, j);
+      if (!__any_sync(0xffffffffu, seen)) return;
+      const float cr = sh[kR][j], cg = sh[kG][j], cbl = sh[kBl][j];
+      const float dep = sh[kDepth][j];
+      float s[kSums];
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) s[q] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const float dx = live[i] ? qx[i % kQ] - gx : 0.0f;
+        const float dy = live[i] ? qy[i / kQ] - gy : 0.0f;
+        const float al = live[i] ? alpha[i] : 0.0f;
+        const float ar = live[i] ? a_raw[i] : 0.0f;
+        const float w = al * T[i];
+        const float u = gr[i] * cr + gg[i] * cg + gb[i] * cbl + gd[i] * dep;
+        cum[i] += u * w;
+        pair_grad(s, dx, dy, ar, al, T[i], w, u, kk[i],
+                  (total[i] - cum[i]) + s_carry[i], gr[i], gg[i], gb[i], gd[i]);
+        T[i] *= 1.0f - al;
+      }
+      reduce_scatter(s, lane);
+      if (owner >= 0) red[owner][warp][j] = s[0];
+      if (lane == j % 32) mine |= 1u << (j / 32);
+    });
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned r = __ballot_sync(0xffffffffu, (mine >> k) & 1u);
+      if (lane == k) reduced[warp][k] = r;
     }
 #pragma unroll
     for (int i = 0; i < PPT; ++i) s_carry[i] += total[i];
     __syncthreads();
-    store_chunk_grads(red, rows, grads, b_pad, base, lo, hi);
+    store_reduced_grads(red, reduced, const_cast<ChunkRows>(sh), grads, b_pad,
+                        base, lo, hi);
   }
 }
 
+// K4: the reverse sweep of this CTA's tile, from the cluster's window when
+// its program fits (composite.cuh::run_cluster_program). Registers capped
+// for K3's blocks an SM.
 template <int PPT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 tiled_bwd_reverse_kernel(const int* __restrict__ starts,
                          const int* __restrict__ counts,
                          const int* __restrict__ offsets,
                          const float* __restrict__ rows16,
                          const float* __restrict__ gimg,
                          const float* __restrict__ tb, float* __restrict__ grads,
-                         int tw, int64_t b_pad, int tile_size, float bg0,
-                         float bg1, float bg2, int tpp, int span_cap) {
+                         int tw, int64_t b_pad, float bg0, float bg1, float bg2,
+                         int tpp, int span_cap) {
   using namespace composite;
-  extern __shared__ float span[];
+  extern __shared__ __align__(128) float window[];
+  __shared__ float sh[kRows][kChunk];
+  __shared__ float4 boxes[kChunk];
   __shared__ float red[kSums][kWarps][kChunk];
-
-  for_each_tile_of_program(
-      starts, counts, rows16, b_pad, tpp, span_cap, span,
-      [&](int tile, auto in_span, float (*sh)[kChunk], const float* window,
-          int k0c) {
-        reverse_tile<PPT, decltype(in_span)::value>(
-            tile, starts, counts, offsets, rows16, gimg, tb, grads, tw, b_pad,
-            tile_size, bg0, bg1, bg2, red, sh, window, k0c);
+  __shared__ unsigned reduced[kWarps][kChunk / 32];
+  __shared__ uint64_t bar;
+  run_cluster_program(
+      starts, counts, rows16, b_pad, tpp, span_cap, window, &bar,
+      [&](int tile, auto stage) {
+        reverse_tile<PPT>(tile, starts, counts, offsets, rows16, gimg, tb,
+                          grads, tw, b_pad, bg0, bg1, bg2, sh, boxes, red,
+                          reduced, stage);
       });
 }
 
@@ -687,29 +710,31 @@ extern "C" int tiled_fwd_train_blocks_per_sm(int tile_size) {
   return err == cudaSuccess ? n : -1;
 }
 
-// Launches K2-span on `stream`: as tiled_fwd_train_launch, with n_tiles / tpp
-// blocks of tpp tiles and a window of span_cap chunks (1 <= span_cap <=
-// b_pad / 128, tpp dividing n_tiles; the window must fit a block's shared
-// memory). Returns the CUDA error of the attribute call or of the launch.
+// Launches K2-span on `stream`: as tiled_fwd_train_launch, with n_tiles
+// CTAs in clusters of composite::span_cluster_size(tpp) and a window of
+// span_cap chunks spread over each cluster (1 <= span_cap <= b_pad / 128,
+// tpp dividing n_tiles). Returns the CUDA error of the attribute call or of
+// the cluster launch (cudaErrorInvalidValue for arguments it cannot take).
 extern "C" int tiled_fwd_train_span_launch(
     const void* starts, const void* counts, const void* offsets,
     const void* rows16, void* out, void* tb, int n_tiles, int tw, int64_t b_pad,
     int tile_size, float bg0, float bg1, float bg2, int tpp, int span_cap,
     void* stream) {
   if (n_tiles <= 0) return 0;
-  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap))
+  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap) ||
+      !composite::bulk_rows_ok(rows16, b_pad))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = unpack(starts, counts, offsets, rows16, stream);
   float* o = static_cast<float*>(out);
   float* t = static_cast<float*>(tb);
   if (tile_size == 32)
-    return composite::launch_span(tiled_fwd_train_span_kernel<4>, n_tiles, tpp,
-                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, o, t,
-                                  tw, b_pad, tile_size, bg0, bg1, bg2);
+    return composite::launch_span_cluster(tiled_fwd_train_span_kernel<4>, n_tiles,
+                                          tpp, span_cap, a.s, a.st, a.ct, a.of,
+                                          a.rows, o, t, tw, b_pad, bg0, bg1, bg2);
   if (tile_size == 16)
-    return composite::launch_span(tiled_fwd_train_span_kernel<1>, n_tiles, tpp,
-                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, o, t,
-                                  tw, b_pad, tile_size, bg0, bg1, bg2);
+    return composite::launch_span_cluster(tiled_fwd_train_span_kernel<1>, n_tiles,
+                                          tpp, span_cap, a.s, a.st, a.ct, a.of,
+                                          a.rows, o, t, tw, b_pad, bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -740,27 +765,53 @@ extern "C" int tiled_bwd_launch(const void* starts, const void* counts,
 }
 
 // Launches K4 on `stream`: K3's arguments (gimg's U_tot column is not
-// read), with n_tiles / tpp blocks of tpp tiles and a window of span_cap
-// chunks beside the 40 KB of reduction scratch. The caller zeroes grads.
+// read), with n_tiles CTAs in clusters of composite::span_cluster_size(tpp)
+// and a window of span_cap chunks spread over each cluster, beside each
+// CTA's 40 KB of reduction scratch. The caller zeroes grads.
 extern "C" int tiled_bwd_reverse_launch(
     const void* starts, const void* counts, const void* offsets,
     const void* rows16, const void* gimg, const void* tb, void* grads,
     int n_tiles, int tw, int64_t b_pad, int tile_size, float bg0, float bg1,
     float bg2, int tpp, int span_cap, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap))
+  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap) ||
+      !composite::bulk_rows_ok(rows16, b_pad))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = unpack(starts, counts, offsets, rows16, stream);
   const float* gi = static_cast<const float*>(gimg);
   const float* t = static_cast<const float*>(tb);
   float* g = static_cast<float*>(grads);
   if (tile_size == 32)
-    return composite::launch_span(tiled_bwd_reverse_kernel<4>, n_tiles, tpp,
-                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, gi,
-                                  t, g, tw, b_pad, tile_size, bg0, bg1, bg2);
+    return composite::launch_span_cluster(tiled_bwd_reverse_kernel<4>, n_tiles,
+                                          tpp, span_cap, a.s, a.st, a.ct, a.of,
+                                          a.rows, gi, t, g, tw, b_pad, bg0, bg1,
+                                          bg2);
   if (tile_size == 16)
-    return composite::launch_span(tiled_bwd_reverse_kernel<1>, n_tiles, tpp,
-                                  span_cap, a.s, a.st, a.ct, a.of, a.rows, gi,
-                                  t, g, tw, b_pad, tile_size, bg0, bg1, bg2);
+    return composite::launch_span_cluster(tiled_bwd_reverse_kernel<1>, n_tiles,
+                                          tpp, span_cap, a.s, a.st, a.ct, a.of,
+                                          a.rows, gi, t, g, tw, b_pad, bg0, bg1,
+                                          bg2);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The occupancy of K2-span (kernel 0) or K4 (kernel 1) launched on n_tiles
+// tiles of `tile_size` with (tpp, span_cap): out[0] blocks an SM, out[1]
+// clusters resident on the card at once, out[2] the cluster size. Returns
+// the CUDA error (cudaErrorInvalidValue for an unsupported kernel or
+// tile_size).
+extern "C" int tiled_train_span_occupancy(int kernel, int tile_size, int n_tiles,
+                                          int tpp, int span_cap, int* out) {
+  if (kernel == 0 && tile_size == 32)
+    return composite::span_cluster_occupancy(tiled_fwd_train_span_kernel<4>,
+                                             n_tiles, tpp, span_cap, out);
+  if (kernel == 0 && tile_size == 16)
+    return composite::span_cluster_occupancy(tiled_fwd_train_span_kernel<1>,
+                                             n_tiles, tpp, span_cap, out);
+  if (kernel == 1 && tile_size == 32)
+    return composite::span_cluster_occupancy(tiled_bwd_reverse_kernel<4>,
+                                             n_tiles, tpp, span_cap, out);
+  if (kernel == 1 && tile_size == 16)
+    return composite::span_cluster_occupancy(tiled_bwd_reverse_kernel<1>,
+                                             n_tiles, tpp, span_cap, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,7 +31,8 @@ of ``span_cap`` chunks, stages them once and composites every tile from
 shared memory; a program that does not fit walks chunk by chunk. Which
 branch a program takes never changes what it computes. ``resolve_span`` is
 the one place where the options are resolved, for this kernel and for the
-training tier's K2-span and K4.
+training tier's K2-span and K4, which run a program as clusters of one CTA
+per tile with the window spread over the cluster (``cluster_shares``).
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ CHUNK = 128      # instances per compositing chunk
 TRANS_EPS = 1e-4
 WIN_SMALL = 2    # slot window (tiles per axis) of the small-splat stream
 # shared memory of one H100 block: the 227 KB opt-in limit, one chunk's 11
-# used rows, and what each span kernel keeps statically beside its window
-# (K4: the reduction scratch red[10][8][128])
+# used rows, and what each span kernel kept statically beside a whole window
+# in one block (K4: the reduction scratch red[10][8][128]). The clamps they
+# give (41, 34 for K4) stand for all three span kernels; K2-span and K4 now
+# hold ceil(span_cap / cluster size) chunks a CTA.
 SMEM_LIMIT = 232_448
 CHUNK_BYTES = 11 * CHUNK * 4
 SPAN_STATIC_BYTES = {"fwd": 0, "fwd_train": 0, "bwd": 10 * 8 * CHUNK * 4}
@@ -287,6 +290,45 @@ def span_programs(packed: PackedTiles, tpp: int, span_cap: int):
     k_end = (ends[tpp - 1::tpp] + CHUNK - 1) // CHUNK
     k0c = torch.clamp_max(k0, packed.rows16.shape[1] // CHUNK - span_cap)
     return k0c, (k_end - k0c) <= span_cap
+
+
+def span_cluster_size(tpp: int) -> int:
+    """CTAs in a thread-block cluster of K2-span and K4 for ``tpp`` tiles a
+    program: ``tpp`` up to 8 (the portable limit), else its largest divisor
+    <= 8. Plain copy of ``csrc/composite.cuh::span_cluster_size``."""
+    for c in range(min(tpp, 8), 1, -1):
+        if tpp % c == 0:
+            return c
+    return 1
+
+
+def window_slots(span_cap: int, c: int) -> int:
+    """Chunk slots one CTA of a cluster of ``c`` holds for a window of
+    ``span_cap`` chunks."""
+    return -(-span_cap // c)
+
+
+class ClusterShares(NamedTuple):
+    """How K2-span and K4 spread a fitting program's window over a cluster
+    (``csrc/composite.cuh::run_cluster_program``): cluster g holds the
+    chunks [first[g], end[g]) of its own ``size`` tiles, chunk k at slot
+    (k - first) // size of its CTA (k - first) % size."""
+
+    size: int
+    fits: torch.Tensor    # [n_tiles // size] bool, its program's fits
+    first: torch.Tensor   # [n_tiles // size] i64
+    end: torch.Tensor     # [n_tiles // size] i64, exclusive
+
+
+def cluster_shares(packed: PackedTiles, tpp: int, span_cap: int) -> ClusterShares:
+    """The clusters of a span launch with the resolved (``tpp``,
+    ``span_cap``) and the chunks each stages when its program fits."""
+    c = span_cluster_size(tpp)
+    starts = packed.starts.to(torch.int64)
+    ends = starts + packed.counts.to(torch.int64)
+    fits = span_programs(packed, tpp, span_cap)[1].repeat_interleave(tpp // c)
+    return ClusterShares(c, fits, starts[0::c] // CHUNK,
+                         (ends[c - 1::c] + CHUNK - 1) // CHUNK)
 
 
 def pixel_coords(width: int, tile_size: int, n_tiles: int, dev):

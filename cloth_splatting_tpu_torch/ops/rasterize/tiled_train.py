@@ -30,11 +30,13 @@ conservative footprint box misses it (``tiled_fwd.patch_pixel``,
 The plain versions need neither: the skipped pairs are dead.
 
 With ``tiles_per_program`` and ``span_cap`` (``tiled_fwd.resolve_span``)
-the forward is K2-span, K2 for blocks of several tiles that stage their
-chunks once, and the backward is K4, the JAX package's reverse sweep: per
-tile the chunks go last to first with a per-pixel carry of the later
-chunks' sum of u w, S_i = (chunk total - prefix) + carry, chunks the forward
-never started are skipped, and U_tot is not read.
+the forward is K2-span and the backward K4, the JAX package's reverse
+sweep: per tile the chunks go last to first with a per-pixel carry of the
+later chunks' sum of u w, S_i = (chunk total - prefix) + carry, chunks the
+forward never started are skipped, and U_tot is not read. Both launch one
+CTA per tile in thread-block clusters, a program's chunks staged once
+across its cluster when they fit its window (``tiled_fwd.cluster_shares``),
+and walk as K2 and K3 do.
 """
 
 from __future__ import annotations

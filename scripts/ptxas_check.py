@@ -11,9 +11,11 @@ against their plain versions on chip_smoke's deep synthetic packs at 32 px
 and 16 px tiles (K3, with its warp patches, footprint cull and
 reduce-scatter, also against a second launch, bit for bit), and so are
 K1-span, K2-span and K4 with a window most programs fit and with a window of
-one chunk (mostly the overflow walk); K1-span and K2-span are also held
-bit-identical to K1 and K2. Before that it compares the PTX of every kernel
-between the two forms.
+one chunk (mostly the overflow walk), in programs of 2 tiles and of 8 (the
+cluster program of K2-span and K4 in clusters of 2 and of 8 CTAs, the
+largest portable size); K1-span and K2-span are also held bit-identical to
+K1 and K2, and K4 to its plain version and to K3. Before that it compares
+the PTX of every kernel between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
 
@@ -37,7 +39,7 @@ sys.path.insert(0, str(ROOT))
 LEVELS = (0, 1, 3)
 FORMS = ("as-is", "loop-index")
 PACKS = ((32, 256, 20000), (16, 128, 6000), (16, 128, 300))
-SPANS = ((2, 41), (2, 1))   # (tiles_per_program, span_cap)
+SPANS = ((2, 41), (2, 1), (8, 41))   # (tiles_per_program, span_cap)
 # each line of the rewrite, once in each of the two walks
 WALKS = 2
 _WALKED = (
