@@ -14,16 +14,20 @@ Phases, each of which raises on failure:
      also on deep synthetic packs (thousands of instances per tile, so the
      transmittance exit fires) at both tile sizes; K3 and K4 also against a
      second launch of themselves, bit for bit; audit the footprint cull that
-     K1, K2, K3 and the span kernels K2-span and K4 share on the serving
-     pack of view 0 (every chunk, a superset of K1's), on the training packs
-     at 32 px and 16 px and on the deep packs (the chunks K2 started, which
-     K1, K2, K3 and K4 walk): no pair it skips may be alive; then the span
-     forms K1-span, K2-span and K4 (the rasterizer's ``tiles_per_program``
-     and ``span_cap`` options) on the same packs at 32 px and 16 px tiles,
+     all six kernels share on the serving packs of view 0 at 32 px and 16
+     px (every chunk, a superset of K1's and K1-span's), on the training
+     packs at 32 px and 16 px and on the deep packs (the chunks K2 started,
+     which K1, K2, K3 and K4 walk): no pair it skips may be alive; then the
+     span forms K1-span, K2-span and K4 (the rasterizer's
+     ``tiles_per_program`` and ``span_cap`` options; all three are cluster
+     launches, one CTA per tile) on the same packs at 32 px and 16 px tiles,
      with a window most programs fit and with a window of one chunk:
      K1-span and K2-span bit-identical to K1 and K2, K2's output
-     bit-identical to K1-span's on the training packs (K1-span keeps the
-     first walk, the patched walk's yardstick), K4 also against K3;
+     bit-identical to K1-span's on the training packs, K4 also against K3;
+     each span kernel bit-identical across ``span_cap`` 34, 41 and 96 at
+     ``tpp`` 5 (the window decides only where a chunk is read from); and the
+     three at ``tpp`` 11 over 121 tiles, clusters of one CTA, with
+     ``span_cap`` 96 (clamped to what one CTA holds);
   3. time the six kernels, their plain versions and the stages of one frame;
   4. serve frames of the scene at different views and times through the
      port's ``render`` with the launch counters set to 0 just before, and
@@ -72,13 +76,18 @@ TRAIN_STEPS = 5
 TRAIN_TIMES = (0.0, 0.5, 1.0)
 # the span options: 625 tiles of 32 px are 5^4, so tiles_per_program must be
 # 5 there (4 or 8 would silently turn the span off); 2,500 tiles of 16 px
-# take 4. span_cap 41 is all one block's shared memory holds, K1-span's
-# window (resolve_span clamps K4 to 34); K2-span and K4 run a program as a
-# cluster of tiles_per_program CTAs, each holding ceil(span_cap / 5) chunks
-# of the window at 32 px.
+# take 4. The three span kernels run a program as a cluster of
+# tiles_per_program CTAs, each holding ceil(span_cap / 5) chunks of the
+# window at 32 px; span_cap 41 is the window every A/B of the span kernels
+# has used (resolve_span clamps at 195 chunks, 160 for K4, at tpp 5).
 SPAN_32 = (5, 41)
 SPAN_16 = (4, 41)
 SPAN_DEEP = (2, 41)
+# each span kernel must give the same bits at these windows (tpp 5)
+SPAN_CAPS = (34, 41, 96)
+# 121 tiles of 32 px (352x352) in programs of 11: clusters of one CTA,
+# which holds the whole window; span_cap 96 resolves to what one CTA holds
+WIDE_SIZE, WIDE_SPAN = 352, (11, 96)
 FIT_ITERATIONS = 300
 FIT_TIMES = 5
 FIT_PROGRESS_EVERY = 50
@@ -285,8 +294,8 @@ def span_label(span) -> str:
 
 def span_counts(packed, n_tiles: int, span, kernel: str) -> dict:
     """How many programs of a span kernel take the span branch and how many
-    the overflow walk, with the options as ``resolve_span`` resolves them;
-    for K2-span and K4 also the cluster size and a CTA's window slots."""
+    the overflow walk, with the options as ``resolve_span`` resolves them,
+    the cluster size and a CTA's window slots."""
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         resolve_span,
         span_cluster_size,
@@ -300,12 +309,10 @@ def span_counts(packed, n_tiles: int, span, kernel: str) -> dict:
         raise RuntimeError(f"span options {span} resolve to no span "
                            f"({n_tiles} tiles)")
     fits = span_programs(packed, tpp, cap)[1]
-    out = {"tpp": tpp, "span_cap": cap, "span": int(fits.sum()),
-           "overflow": int((~fits).sum())}
-    if kernel != "fwd":     # K2-span and K4: clusters of one CTA per tile
-        c = span_cluster_size(tpp)
-        out.update(cluster_size=c, window_slots_per_cta=window_slots(cap, c))
-    return out
+    c = span_cluster_size(tpp)
+    return {"tpp": tpp, "span_cap": cap, "span": int(fits.sum()),
+            "overflow": int((~fits).sum()), "cluster_size": c,
+            "window_slots_per_cta": window_slots(cap, c)}
 
 
 def compare_k1(packed, width, height, tile_size, label: str, span=None):
@@ -503,12 +510,12 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
 
 
 def cull_phase(cases) -> dict:
-    """The footprint cull of K1, K2, K3, K2-span and K4 on the card, from
-    the plain box and the plain classification (``tiled_fwd.cull_audit``),
-    for each (label, kernels, pack, width, height, tile size, K2's
-    boundaries or None) of ``cases``: over the chunks K2 started (which K1,
-    K2, K3, K2-span and K4 walk, each pass of K4 the same pairs) or, with
-    None, over every chunk (a superset of K1's). Raises if a pair the cull
+    """The footprint cull of all six kernels on the card, from the plain box
+    and the plain classification (``tiled_fwd.cull_audit``), for each
+    (label, kernels, pack, width, height, tile size, K2's boundaries or
+    None) of ``cases``: over the chunks K2 started (which K1, K2, K3, the
+    span forms and K4 walk, each pass of K4 the same pairs) or, with None,
+    over every chunk (a superset of K1's and K1-span's). Raises if a pair the cull
     skips is alive. Returns the counts, with the share of the walked pairs
     the warps classify, by label."""
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import cull_audit
@@ -533,62 +540,84 @@ def cull_phase(cases) -> dict:
 
 
 def blocks_per_sm() -> dict:
-    """Blocks of K1, K2 and K1-span (32 px tiles; K1-span with a window of
-    SPAN_32's span_cap chunks) that one SM holds at once, from the CUDA
-    runtime's occupancy calculator."""
+    """Blocks of K1 and K2 (32 px tiles) that one SM holds at once, from the
+    CUDA runtime's occupancy calculator."""
     import ctypes
 
     from cloth_splatting_tpu_torch import kernels
 
     out = {}
-    for key, lib, fn, args in (
-            ("K1", "tiled_fwd", "tiled_fwd_blocks_per_sm", (32,)),
-            ("K2", "tiled_train", "tiled_fwd_train_blocks_per_sm", (32,)),
-            ("K1-span", "tiled_fwd", "tiled_fwd_span_blocks_per_sm",
-             (32, SPAN_32[1]))):
+    for key, lib, fn in (("K1", "tiled_fwd", "tiled_fwd_blocks_per_sm"),
+                         ("K2", "tiled_train", "tiled_fwd_train_blocks_per_sm")):
         query = getattr(kernels.load(lib), fn)
-        query.argtypes, query.restype = [ctypes.c_int] * len(args), ctypes.c_int
-        out[key] = query(*args)
+        query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+        out[key] = query(32)
         if out[key] < 1:
-            raise RuntimeError(f"{fn}{args} returned {out[key]}")
+            raise RuntimeError(f"{fn}(32) returned {out[key]}")
     return out
 
 
-# K2-span and K4 are cluster launches: at 32 px tiles, tpp 5 and span_cap
-# 41 (K4 also at its clamp, 34), K2-span must hold 3 blocks an SM and K4 2
-CLUSTER_BLOCKS_MIN = {"K2-span": 3, "K4": 2}
+# K1-span, K2-span and K4 are cluster launches: at 32 px tiles, tpp 5 and
+# span_cap 41, K1-span and K2-span must hold 3 blocks an SM and K4 2
+CLUSTER_BLOCKS_MIN = {"K1-span": 3, "K2-span": 3, "K4": 2}
+# (resolve_span's name, library, occupancy query and its leading arguments)
+# of each span kernel
+SPAN_KERNELS = {
+    "K1-span": ("fwd", "tiled_fwd", "tiled_fwd_span_occupancy", ()),
+    "K2-span": ("fwd_train", "tiled_train", "tiled_train_span_occupancy", (0,)),
+    "K4": ("bwd", "tiled_train", "tiled_train_span_occupancy", (1,)),
+}
 
 
-def cluster_occupancy(n_tiles: int, n_sms: int) -> dict:
-    """What the occupancy calculator says of the cluster launches of K2-span
-    and K4 at 32 px tiles with SPAN_32 (K4 also at span_cap 34): blocks an
-    SM, clusters resident on the card at once
-    (cudaOccupancyMaxActiveClusters), the cluster size, the CTAs those
-    clusters hold an SM, and the window's chunk slots a CTA. Raises below
-    CLUSTER_BLOCKS_MIN."""
+def span_occupancy(key: str, tile_size: int, n_tiles: int, span) -> list:
+    """[blocks an SM, clusters resident, cluster size, static shared memory]
+    of span kernel ``key`` launched on ``n_tiles`` tiles with ``span``, from
+    the kernel's occupancy query."""
     import ctypes
 
     from cloth_splatting_tpu_torch import kernels
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import window_slots
 
-    query = kernels.load("tiled_train").tiled_train_span_occupancy
-    query.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    _, lib, fn, lead = SPAN_KERNELS[key]
+    query = getattr(kernels.load(lib), fn)
+    query.argtypes = [ctypes.c_int] * (len(lead) + 4) + [ctypes.c_void_p]
     query.restype = ctypes.c_int
+    res = (ctypes.c_int * 4)()
+    err = query(*lead, tile_size, n_tiles, span[0], span[1], res)
+    if err != 0:
+        raise RuntimeError(f"{fn}({key}, {tile_size} px, {span}): CUDA error {err}")
+    return list(res)
+
+
+def cluster_occupancy(n_tiles: int, n_sms: int) -> dict:
+    """What the occupancy calculator says of the cluster launches of
+    K1-span, K2-span and K4 at 32 px tiles with SPAN_32: blocks an SM,
+    clusters resident on the card at once
+    (cudaOccupancyMaxActiveClusters), the cluster size, the CTAs those
+    clusters hold an SM, the window's chunk slots a CTA and the kernel's
+    static shared memory. Raises below CLUSTER_BLOCKS_MIN, and when a
+    kernel's static shared memory at either tile size is not the
+    ``tiled_fwd.SPAN_STATIC_BYTES`` that resolve_span clamps by."""
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        SPAN_STATIC_BYTES,
+        window_slots,
+    )
+
     out = {}
-    for key, kernel, cap in (("K2-span", 0, SPAN_32[1]), ("K4", 1, SPAN_32[1]),
-                             ("K4 span_cap=34", 1, 34)):
-        res = (ctypes.c_int * 3)()
-        err = query(kernel, 32, n_tiles, SPAN_32[0], cap, res)
-        if err != 0:
-            raise RuntimeError(f"tiled_train_span_occupancy({key}): CUDA error {err}")
-        blocks, clusters, size = res
-        out[key] = {"span_cap": cap, "blocks_per_sm": blocks,
+    for key, (kernel, *_) in SPAN_KERNELS.items():
+        blocks, clusters, size, static = span_occupancy(key, 32, n_tiles, SPAN_32)
+        out[key] = {"span_cap": SPAN_32[1], "blocks_per_sm": blocks,
                     "max_active_clusters": clusters, "cluster_size": size,
                     "cluster_ctas_per_sm": clusters * size / n_sms,
-                    "window_slots_per_cta": window_slots(cap, size)}
-        need = CLUSTER_BLOCKS_MIN[key.split()[0]]
+                    "window_slots_per_cta": window_slots(SPAN_32[1], size),
+                    "static_smem_bytes": static}
+        need = CLUSTER_BLOCKS_MIN[key]
         if blocks < need or clusters < 1:
             raise RuntimeError(f"{key}: {out[key]}, fewer than {need} blocks an SM")
+        statics = {ts: span_occupancy(key, ts, n_tiles, SPAN_32)[3] for ts in (32, 16)}
+        if set(statics.values()) != {SPAN_STATIC_BYTES[kernel]}:
+            raise RuntimeError(f"{key}: static shared memory {statics}, "
+                               f"SPAN_STATIC_BYTES[{kernel!r}] is "
+                               f"{SPAN_STATIC_BYTES[kernel]}")
     return out
 
 
@@ -697,11 +726,11 @@ def oracle_grads(proj, width, height, gen, span=None):
 def span_phase(cases, gen):
     """K1-span, K2-span and K4 against their plain versions (and K4 against
     K3) on every (label, pack, width, height, tile size, spans) of
-    ``cases``; on the training packs also K2's output against K1-span's.
-    Returns the largest errors and the programs' branch counts summed over
-    the cases; raises if either branch was never taken, if K1-span or
-    K2-span is not bit-identical to K1 or K2 on any case, or if K2's output
-    is not K1-span's on a training pack."""
+    ``cases``; on the training packs also K2's output against K1-span's
+    (both run K1's walk). Returns the largest errors and the programs'
+    branch counts summed over the cases; raises if either branch was never
+    taken, if K1-span or K2-span is not bit-identical to K1 or K2 on any
+    case, or if K2's output is not K1-span's on a training pack."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
@@ -720,7 +749,7 @@ def span_phase(cases, gen):
 
     for label, packed, width, height, ts, spans in cases:
         n_tiles = (width // ts) * (height // ts)
-        # K2 runs the patched walk, K1-span still the first one
+        # K2 and K1-span run the same walk on every tile
         out_k2 = (raster_forward_train(packed, width, height, ts, BG)[0]
                   if label.startswith("65k train") else None)
         for span in spans:
@@ -752,12 +781,111 @@ def span_phase(cases, gen):
     for kernel, c in programs.items():
         if c["span"] == 0 or c["overflow"] == 0:
             raise RuntimeError(f"span: {kernel} never took one of its branches {c}")
-    # the span forms and K2 run the same function through the same float
+    # the span forms and K2 run the same walk through the same float
     # operations, each pixel's in the same order, so they owe the same bits
     if not all(identical.values()):
         raise RuntimeError(f"span: a span form is not bit-identical to its "
                            f"default kernel, or K2 to K1-span {identical}")
     return err, programs, identical
+
+
+def span_cap_phase(serve, train, gimg, tb, tile: int) -> dict:
+    """Each span kernel at tpp 5 with every window of SPAN_CAPS on the 65k
+    packs (K1-span on the serving pack of view 0, K2-span and K4 on the
+    training pack of camera 0 with its cotangent and K2's boundaries):
+    bit-identical across the windows, which decide only where a chunk is
+    read from, and held to its plain version at the largest (K1-span and
+    K2-span also bit-identical to K1 and K2 there). Raises on any
+    difference; returns the readings."""
+    import torch
+
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        chunk_span,
+        raster_forward_tiles,
+    )
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        run_backward,
+    )
+
+    n_tiles = (WIDTH // tile) * (HEIGHT // tile)
+    n_laid = int(chunk_span(train)[3].sum())
+    outs, programs = {}, {}
+    for cap in SPAN_CAPS:
+        span = (SPAN_32[0], cap)
+        out, tb_s = raster_forward_train(train, WIDTH, HEIGHT, tile, BG, *span)
+        outs[cap] = {
+            "K1-span": (raster_forward_tiles(serve, WIDTH, HEIGHT, tile, BG, *span),),
+            "K2-span": (out, tb_s[:n_laid]),
+            "K4": (run_backward(train, gimg, tb, WIDTH, HEIGHT, tile, BG, *span),)}
+        programs[cap] = {
+            key: span_counts(serve if key == "K1-span" else train, n_tiles, span,
+                             SPAN_KERNELS[key][0])
+            for key in SPAN_KERNELS}
+    first = SPAN_CAPS[0]
+    same = {key: all(torch.equal(a, b) for cap in SPAN_CAPS[1:]
+                     for a, b in zip(outs[first][key], outs[cap][key]))
+            for key in SPAN_KERNELS}
+    big = (SPAN_32[0], SPAN_CAPS[-1])
+    e1, s1 = compare_k1(serve, WIDTH, HEIGHT, tile, "65k view 0", big)
+    e2, s2, _, _ = compare_k2(train, WIDTH, HEIGHT, tile, "65k train cam 0", big)
+    e4, rel4, rel43 = compare_k3(train, gimg, tb, WIDTH, HEIGHT, tile,
+                                 "65k train cam 0", big)
+    record = {"span_caps": SPAN_CAPS, "bit_identical_across_span_caps": same,
+              "programs": programs,
+              "at_largest": {"K1-span": e1, "K2-span": e2, "K4": e4,
+                             "K4_rel": max(rel4.values()),
+                             "K4_vs_K3_rel": max(rel43.values()),
+                             "K1-span_bit_identical_to_k1": s1["bit_identical_to_k1"],
+                             "K2-span_bit_identical_to_k2": s2["bit_identical_to_k2"]}}
+    log(f"span caps at tpp={SPAN_32[0]}: {json.dumps(record)}")
+    if not all(same.values()) or not s1["bit_identical_to_k1"] \
+            or not s2["bit_identical_to_k2"]:
+        raise RuntimeError(f"span caps: a span kernel's bits depend on its window "
+                           f"or differ from its default kernel {record}")
+    return record
+
+
+def wide_phase(gen, dev) -> dict:
+    """The three span kernels at WIDE_SPAN over the 121 tiles of a deep
+    WIDE_SIZE px pack at 32 px tiles: programs of 11 tiles, clusters of one
+    CTA holding the whole window, span_cap 96 resolved to what one CTA
+    holds. Each held to its plain version, K1-span and K2-span bit-identical
+    to K1 and K2, K4 also against K3 (compare_k1, compare_k2, compare_k3);
+    raises unless some program with chunks takes the window."""
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        chunk_span,
+        resolve_span,
+        sorted_pack,
+        span_programs,
+    )
+
+    size, ts = WIDE_SIZE, 32
+    packed = sorted_pack(deep_proj(20000, size, size, gen, dev), size // ts,
+                         size // ts, ts, 3, order="exact")
+    label = f"deep {size}px/{ts}px tiles"
+    e1, s1 = compare_k1(packed, size, size, ts, label, WIDE_SPAN)
+    e2, s2, out_k, tb_k = compare_k2(packed, size, size, ts, label, WIDE_SPAN)
+    e4, rel4, rel43 = compare_k3(packed, cotangent_tiles(out_k, size, size, ts, gen),
+                                 tb_k, size, size, ts, label, WIDE_SPAN)
+    n_tiles = (size // ts) ** 2
+    tpp, cap = resolve_span(n_tiles, packed.rows16.shape[1], *WIDE_SPAN, "fwd")
+    fits = span_programs(packed, tpp, cap)[1]
+    chunks = chunk_span(packed)[3].reshape(-1, tpp).sum(1)
+    record = {"tiles": n_tiles, "programs": {
+                  key: span_counts(packed, n_tiles, WIDE_SPAN, SPAN_KERNELS[key][0])
+                  for key in SPAN_KERNELS},
+              "fitting_programs_with_chunks": int((fits & (chunks > 0)).sum()),
+              "max_abs_err": {"K1-span": e1, "K2-span": e2, "K4": e4},
+              "K4_rel": max(rel4.values()), "K4_vs_K3_rel": max(rel43.values()),
+              "K1-span_bit_identical_to_k1": s1["bit_identical_to_k1"],
+              "K2-span_bit_identical_to_k2": s2["bit_identical_to_k2"]}
+    log(f"span kernels at tpp={WIDE_SPAN[0]} span_cap={WIDE_SPAN[1]} over "
+        f"{n_tiles} tiles: {json.dumps(record)}")
+    if not s1["bit_identical_to_k1"] or not s2["bit_identical_to_k2"] \
+            or record["fitting_programs_with_chunks"] == 0:
+        raise RuntimeError(f"span kernels at {WIDE_SPAN}: {record}")
+    return record
 
 
 class span_options:
@@ -1262,7 +1390,7 @@ def main() -> int:
     clusters = cluster_occupancy((WIDTH // 32) * (HEIGHT // 32), n_sms)
     log(f"cluster launches at 32 px, tpp={SPAN_32[0]} ({n_sms} SMs): "
         f"{json.dumps(clusters)}")
-    for key in ("K2-span", "K4"):
+    for key in SPAN_KERNELS:
         spills = usage.get(KERNEL_ENTRIES[key], {})
         if spills.get("spill_stores") or spills.get("spill_loads"):
             raise RuntimeError(f"{key} spills: {spills}")
@@ -1302,7 +1430,10 @@ def main() -> int:
     serve16 = sorted_pack(project(cams[0]), WIDTH // 16, HEIGHT // 16, 16, 5,
                           order="fused")
     train16 = sorted_pack(t_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused")
-    cull_cases = [("65k view 0", "K1", packs[0][0], WIDTH, HEIGHT, tile, None),
+    cull_cases = [("65k view 0", "K1 and K1-span", packs[0][0], WIDTH, HEIGHT,
+                   tile, None),
+                  ("65k view 0 at 16 px", "K1 and K1-span", serve16, WIDTH,
+                   HEIGHT, 16, None),
                   ("65k train cam 0", "K2, K3, K2-span and K4", train_pack,
                    WIDTH, HEIGHT, tile, train_tb),
                   ("65k train cam 0 at 16 px", "K2-span and K4", train16, WIDTH,
@@ -1345,6 +1476,8 @@ def main() -> int:
          both_spans(SPAN_16)),
         *deep_cases]
     span_err, span_programs_taken, span_identical = span_phase(span_cases, gen)
+    span_caps = span_cap_phase(packs[0][0], train_pack, train_gimg, train_tb, tile)
+    wide = wide_phase(gen, dev)
 
     # 3. times at the main paths' shapes ---------------------------------------
     packed, stats = packs[0]
@@ -1398,6 +1531,17 @@ def main() -> int:
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K4")
     log("kernels alone (torch.profiler; ms, launch records of 20): "
         f"{json.dumps(alone)} [{gpu}]")
+    # the span kernels alone at the largest window of SPAN_CAPS
+    big = (SPAN_32[0], SPAN_CAPS[-1])
+    alone_big = {
+        "K1-span": kernel_alone_ms(lambda: raster_forward_tiles(
+            packed, WIDTH, HEIGHT, tile, BG, *big), "K1-span"),
+        "K2-span": kernel_alone_ms(lambda: raster_forward_train(
+            train_pack, WIDTH, HEIGHT, tile, BG, *big), "K2-span"),
+        "K4": kernel_alone_ms(lambda: run_backward(
+            train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *big), "K4")}
+    log(f"span kernels alone at tpp={big[0]} span_cap={big[1]} (torch.profiler; "
+        f"ms, launch records of 20): {json.dumps(alone_big)} [{gpu}]")
     k4_plain_ms = time_ms(lambda: run_backward_plain(
         train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
     k4_bound = bound(train_stats, "K4", n_tiles, p)
@@ -1499,7 +1643,8 @@ def main() -> int:
         "serving_ms_per_frame": serve_ab_ms, "frames": N_FRAMES,
         "train_ms_per_step": train_ab_ms, "steps": TRAIN_STEPS,
         "programs": span_programs_taken,
-        "bit_identical_to_default": span_identical, "gpu": gpu}}))
+        "bit_identical_to_default": span_identical, "span_caps": span_caps,
+        "wide": wide, "gpu": gpu}}))
 
     # 7. the full fit ----------------------------------------------------------
     fit, fit_launches = fit_phase(mesh, tan, gpu)
@@ -1545,21 +1690,22 @@ def main() -> int:
     k4_entry["max_rel_err"] = span_err["K4_rel"]
     k4_entry["max_rel_err_vs_k3"] = span_err["K4_vs_K3_rel"]
 
-    # K2-span and K4 run the cluster program: registers (ptxas), the
+    # the span kernels run the cluster program: registers (ptxas), the
     # occupancy calculator's blocks an SM and resident clusters at tpp 5,
-    # span_cap 41 (K4 also at its clamp, 34), and the cull audit of the
-    # chunks K2 started on the training pack
-    def clustered(e, key, walk):
+    # span_cap 41, the kernel alone at the largest of SPAN_CAPS, and the
+    # cull audit of the pack they are timed on (K1-span: every chunk of the
+    # serving pack; K2-span, K4: the chunks K2 started on the training pack)
+    def clustered(e, key, walk, audit):
         e.update(redesigned="one CTA per tile in a cluster per program, the "
                             f"window spread over the cluster; {walk}",
                  registers=(e["ptxas"] or {}).get("registers"),
                  blocks_per_sm=clusters[key]["blocks_per_sm"],
-                 cluster_occupancy={k: v for k, v in clusters.items()
-                                    if k.startswith(key)},
-                 cull_audit=cull["65k train cam 0"])
+                 cluster_occupancy=clusters[key], cull_audit=audit)
+        e[f"kernel_ms_span_cap_{big[1]}"] = alone_big[key][0]
         return e
 
-    clustered(k4_entry, "K4", "K3's patched, culled walk, two passes a chunk")
+    clustered(k4_entry, "K4", "K3's patched, culled walk, two passes a chunk",
+              cull["65k train cam 0"])
     # K1 and K2 run the patched walk: registers (ptxas), blocks an SM and
     # their cull audits (K1 over every chunk of the serving pack of view 0,
     # K2 over the chunks it started on the training pack)
@@ -1586,19 +1732,19 @@ def main() -> int:
     # span kernels over one span turn of the A/B's frames and steps
     print(json.dumps({"kernels": [
         k1_entry,
-        dict(entry("K1-span tiled_fwd_span compositor, one window per program",
-                   "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
-                   "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
-                   {"span_serving": serve_ab_launches["K1-span"]},
-                   span_err["K1-span"], k1s_ms, k1s_plain_ms, k1_bound),
-             blocks_per_sm=occupancy["K1-span"]),
+        clustered(entry("K1-span tiled_fwd_span compositor, one window per program",
+                        "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
+                        "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
+                        {"span_serving": serve_ab_launches["K1-span"]},
+                        span_err["K1-span"], k1s_ms, k1s_plain_ms, k1_bound),
+                  "K1-span", "K1's patched, culled walk", cull["65k view 0"]),
         k2_entry,
         clustered(entry("K2-span tiled_fwd_train_span, one window per program",
                         "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                         "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",
                         {"span_train": train_ab_launches["K2-span"]},
                         span_err["K2-span"], k2s_ms, k2s_plain_ms, k2_bound),
-                  "K2-span", "K2's patched, culled walk"),
+                  "K2-span", "K2's patched, culled walk", cull["65k train cam 0"]),
         k3_entry, k4_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 // Shared by the tile kernels K1 and K1-span (tiled_fwd.cu), K2, K2-span, K3
 // and K4 (tiled_train.cu): the per-pair classification and compositing
-// update, the warp patches and footprint boxes of K1, K2, K2-span, K3 and
-// K4, the two front-to-back tile walks (composite_tile_patched for K1, K2
-// and K2-span, composite_tile for K1-span) and the span window of a
-// multi-tile program: one block's (K1-span) or spread over a thread-block
-// cluster (K2-span, K4).
+// update, the warp patches and footprint boxes of all six, the one
+// front-to-back tile walk (composite_tile_patched: K1, K2, K1-span and
+// K2-span) and the cluster program of the three span kernels (K1-span,
+// K2-span, K4): one CTA per tile, a multi-tile program's window spread over
+// a thread-block cluster.
 //
 // The packed parameter array is rows16 f32 [16, b_pad], param-major and
 // tile-grouped (rows x, y, conic a/b/c, r, g, b, opacity, depth, power_cut,
@@ -74,10 +74,8 @@ __device__ __forceinline__ bool splat_alpha(float dx, float dy, float ca,
 // One pair's compositing update at one pixel: w = alpha T; each sum +=
 // w * its channel (r, g, b, depth, 1); T *= 1 - alpha. With `live` false
 // every value is selected back, so a dead pixel's T and sums keep their
-// bits, signed zeros included. Both walks call it, so that the compiler
-// rounds (and contracts) their accumulations alike: composite_tile with
-// `live` true after its own test, composite_tile_patched with each pixel's
-// classification and no branch.
+// bits, signed zeros included. composite_tile_patched calls it with each
+// pixel's classification and no branch per pixel.
 __device__ __forceinline__ void composite_pair(bool live, float alpha,
                                                float cr, float cg, float cbl,
                                                float dep, float& T, float& r,
@@ -112,25 +110,8 @@ __device__ __forceinline__ int chunk_lo(int start, int kt, int ci) {
   return ci == 0 ? start - kt * kChunk : 0;
 }
 
-// Stages chunk (kt + ci)'s 11 used rows in shared memory; the caller
-// synchronises before reading them.
-__device__ __forceinline__ void load_chunk(float (*sh)[kChunk],
-                                           const float* __restrict__ rows16,
-                                           int64_t b_pad, int64_t base) {
-  for (int e = threadIdx.x; e < kRows * kChunk; e += kThreads) {
-    const int r = e / kChunk;
-    const int l = e % kChunk;
-    sh[r][l] = rows16[r * b_pad + base + l];
-  }
-}
-
 // One chunk's staged rows, [kRows][kChunk].
 using ChunkRows = const float (*)[kChunk];
-
-// Chunk slot `rel` of a window staged by load_span.
-__device__ __forceinline__ ChunkRows span_chunk(const float* span, int rel) {
-  return reinterpret_cast<ChunkRows>(span + rel * (kRows * kChunk));
-}
 
 // A program of `tpp` consecutive tiles [i0, i0 + tpp) and the window of
 // `span_cap` chunks it may stage at once (the span path of K1-span, K2-span
@@ -153,22 +134,6 @@ __device__ __forceinline__ SpanProgram span_program(
   s.k0c = min(s.k0, n_chunks_arr - span_cap);
   s.fits = (s.k_end - s.k0c) <= span_cap;
   return s;
-}
-
-// Stages the 11 used rows of the program's chunks [k0, k_end) at their
-// window slots (the window's other slots are never read); the caller
-// synchronises before reading them.
-__device__ __forceinline__ void load_span(float* span,
-                                          const float* __restrict__ rows16,
-                                          int64_t b_pad, SpanProgram s) {
-  const int n = (s.k_end - s.k0) * (kRows * kChunk);
-  float* dst = span + (s.k0 - s.k0c) * (kRows * kChunk);
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int c = e / (kRows * kChunk);
-    const int r = (e / kChunk) % kRows;
-    const int l = e % kChunk;
-    dst[e] = rows16[r * b_pad + static_cast<int64_t>(s.k0 + c) * kChunk + l];
-  }
 }
 
 // The pixel map of K1, K2 and K3. A tile of 16 * kQ px (PPT = kQ * kQ
@@ -272,7 +237,8 @@ struct GlobalStage {
   }
 };
 
-// The forward walk of K1, K2 and K2-span, one tile per 256-thread block: for
+// The forward walk of K1, K2, K1-span and K2-span, one tile per 256-thread
+// block: for
 // every pixel
 //   w = alpha T;  T *= 1 - alpha;  sum w * (r, g, b, depth, 1)
 // over the tile's live instances in order, stopping after the first chunk
@@ -283,22 +249,23 @@ struct GlobalStage {
 // zeros for the tile's chunks after the exit, so "never started" reads as
 // "max boundary is 0". Both are pixel-index-major, as K3 and K4 read them.
 //
-// It walks as K3 does, where composite_tile (the span forms' walk) has
-// every warp classify every instance of the tile on all its pixels:
+// It walks as K3 does, where a plain walk would have every warp classify
+// every instance of the tile on all its pixels:
 //   - warp w owns a compact patch of the tile and each lane a quad of it
 //     (patch_pixel);
 //   - when a chunk is staged, each instance also gets its footprint box; a
 //     warp tests its patch against the 128 boxes with 4 ballots and walks
 //     only the instances that hit it, in ascending lane order. A skipped
-//     instance is dead at every pixel of the warp, where composite_tile
-//     changes no T or sum, so every pixel goes through the same float
-//     operations in the same order as there (chip_smoke holds the span
-//     forms bit-identical to K1 and K2);
+//     instance is dead at every pixel of the warp, where the update would
+//     change no T or sum, so every pixel goes through the same float
+//     operations in the same order as in the walk without the cull
+//     (tests/test_torch_fwd_cull.py emulates both, bit for bit);
 //   - a lane classifies its pixels first and then runs composite_pair on
 //     each, a dead pixel selected back, without a branch per pixel; a warp
 //     none of whose pixels sees the instance skips the update.
 // `stage` puts each chunk's rows and boxes in sh and boxes; where they come
-// from changes no bit of the result (K2-span is held bit-identical to K2).
+// from changes no bit of the result (chip_smoke holds K1-span and K2-span
+// bit-identical to K1 and K2).
 template <int PPT, bool kRecord, typename Stage = GlobalStage>
 __device__ __forceinline__ void composite_tile_patched(
     int tile, const int* __restrict__ starts, const int* __restrict__ counts,
@@ -426,191 +393,6 @@ __device__ __forceinline__ void composite_tile_patched(
   }
 }
 
-// K1-span's walk of one tile (one 256-thread block, PPT pixels per thread;
-// tile_size^2 == PPT * 256): the function of composite_tile_patched, with
-// its outputs, walked as the kernels were first written. Thread t owns
-// pixels t + i * 256, so every warp classifies every instance of the tile on
-// all its pixels. It is kept as the yardstick of the patched walk:
-// chip_smoke holds K1-span bit-identical to K1, and K2's output to
-// K1-span's.
-//
-// Where a chunk's rows come from is the only difference between its two
-// forms: with kSpan false each chunk is staged in `sh` (load_chunk) before
-// it is walked (a span program that does not fit its window); with kSpan
-// true the chunk kt + ci is read at slot kt + ci - k0c of `span`, which the
-// block staged once.
-//
-// kRecord records the boundaries as composite_tile_patched does; no kernel
-// takes it (K2-span runs the patched walk).
-//
-// A block may walk several tiles one after another: every chunk ends in a
-// barrier (the vote), so no thread still reads `sh` when the next tile's
-// first chunk is staged, and a tile keeps nothing else in shared memory.
-template <int PPT, bool kRecord, bool kSpan>
-__device__ __forceinline__ void composite_tile(
-    int tile, const int* __restrict__ starts, const int* __restrict__ counts,
-    const int* __restrict__ offsets, const float* __restrict__ rows16,
-    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
-    int tile_size, float bg0, float bg1, float bg2, float (*sh)[kChunk],
-    const float* span, int k0c) {
-  const int p = tile_size * tile_size;
-  const int start = starts[tile];
-  const int count = counts[tile];
-  const int kt = start / kChunk;
-  const int n_chunks = (start - kt * kChunk + count + kChunk - 1) / kChunk;
-  const int ox = (tile % tw) * tile_size;
-  const int oy = (tile / tw) * tile_size;
-  float* tb_tile = nullptr;
-  if (kRecord) tb_tile = tb + static_cast<int64_t>(offsets[tile]) * p;
-
-  float px[PPT], py[PPT], T[PPT];
-  float acc_r[PPT], acc_g[PPT], acc_b[PPT], acc_d[PPT], acc_w[PPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int pix = threadIdx.x + i * kThreads;
-    px[i] = static_cast<float>(ox + pix % tile_size);
-    py[i] = static_cast<float>(oy + pix / tile_size);
-    T[i] = 1.0f;
-    acc_r[i] = acc_g[i] = acc_b[i] = acc_d[i] = acc_w[i] = 0.0f;
-  }
-
-  // chunks walked, fewer when the exit fires
-  int walked = n_chunks;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    if (kRecord) {
-#pragma unroll
-      for (int i = 0; i < PPT; ++i)
-        tb_tile[static_cast<int64_t>(ci) * p + threadIdx.x + i * kThreads] = T[i];
-    }
-    const int64_t base = static_cast<int64_t>(kt + ci) * kChunk;
-    ChunkRows rows;
-    if (kSpan) {
-      rows = span_chunk(span, kt - k0c + ci);
-    } else {
-      load_chunk(sh, rows16, b_pad, base);
-      __syncthreads();
-      rows = const_cast<ChunkRows>(sh);
-    }
-
-    const int lo = chunk_lo(start, kt, ci);
-    const int hi = min(static_cast<int>(start + count - base), kChunk);
-    for (int j = lo; j < hi; ++j) {
-      const float gx = rows[kX][j], gy = rows[kY][j];
-      const float ca = rows[kA][j], cb = rows[kB][j], cc = rows[kC][j];
-      const float cr = rows[kR][j], cg = rows[kG][j], cbl = rows[kBl][j];
-      const float op = rows[kOp][j], dep = rows[kDepth][j], cut = rows[kCut][j];
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) {
-        float a_raw, alpha;
-        if (!splat_alpha(px[i] - gx, py[i] - gy, ca, cb, cc, op, cut, &a_raw,
-                         &alpha))
-          continue;
-        composite_pair(true, alpha, cr, cg, cbl, dep, T[i], acc_r[i], acc_g[i],
-                       acc_b[i], acc_d[i], acc_w[i]);
-      }
-    }
-
-    float t_max = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PPT; ++i) t_max = fmaxf(t_max, T[i]);
-    // barrier (the next chunk overwrites sh) and the tile-wide exit vote
-    if (!__syncthreads_or(t_max > kTransEps)) {
-      walked = ci + 1;
-      break;
-    }
-  }
-  if (kRecord) {
-    for (int ci = walked; ci < n_chunks; ++ci) {
-#pragma unroll
-      for (int i = 0; i < PPT; ++i)
-        tb_tile[static_cast<int64_t>(ci) * p + threadIdx.x + i * kThreads] = 0.0f;
-    }
-  }
-
-  float* o = out + static_cast<int64_t>(tile) * 8 * p;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int pix = threadIdx.x + i * kThreads;
-    const float t_final = 1.0f - acc_w[i];
-    o[0 * p + pix] = acc_r[i] + t_final * bg0;
-    o[1 * p + pix] = acc_g[i] + t_final * bg1;
-    o[2 * p + pix] = acc_b[i] + t_final * bg2;
-    o[3 * p + pix] = acc_d[i];
-    o[4 * p + pix] = acc_w[i];
-    o[5 * p + pix] = 0.0f;
-    o[6 * p + pix] = 0.0f;
-    o[7 * p + pix] = 0.0f;
-  }
-}
-
-// Says at compile time which walk a tile of a program takes.
-template <bool kSpan>
-struct SpanTag {
-  static constexpr bool value = kSpan;
-};
-
-// One program of K1-span: `tpp` consecutive tiles per block. When the
-// tiles' chunks fit the window, the block stages them once in `span`
-// (dynamic shared memory, span_cap chunks) and calls tile_fn(tile,
-// SpanTag<true>, nullptr, span, k0c) for each tile; otherwise every tile
-// takes the per-chunk walk, tile_fn(tile, SpanTag<false>, sh, nullptr, 0),
-// staging each chunk in the window's first slot `sh`. `fits` is uniform
-// over the block, so the barriers inside the walks are too.
-template <typename TileFn>
-__device__ __forceinline__ void for_each_tile_of_program(
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const float* __restrict__ rows16, int64_t b_pad, int tpp, int span_cap,
-    float* span, TileFn tile_fn) {
-  const int i0 = blockIdx.x * tpp;
-  const SpanProgram s = span_program(starts, counts, i0, tpp, span_cap,
-                                     static_cast<int>(b_pad / kChunk));
-  if (s.fits) {
-    load_span(span, rows16, b_pad, s);
-    __syncthreads();
-    for (int t = 0; t < tpp; ++t)
-      tile_fn(i0 + t, SpanTag<true>{}, nullptr, span, s.k0c);
-  } else {
-    float (*sh)[kChunk] = reinterpret_cast<float (*)[kChunk]>(span);
-    for (int t = 0; t < tpp; ++t)
-      tile_fn(i0 + t, SpanTag<false>{}, sh, nullptr, 0);
-  }
-}
-
-// One program of K1-span (kRecord false).
-template <int PPT, bool kRecord>
-__device__ __forceinline__ void composite_program(
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const int* __restrict__ offsets, const float* __restrict__ rows16,
-    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
-    int tile_size, float bg0, float bg1, float bg2, int tpp, int span_cap,
-    float* span) {
-  for_each_tile_of_program(
-      starts, counts, rows16, b_pad, tpp, span_cap, span,
-      [&](int tile, auto in_span, float (*sh)[kChunk], const float* window,
-          int k0c) {
-        composite_tile<PPT, kRecord, decltype(in_span)::value>(
-            tile, starts, counts, offsets, rows16, out, tb, tw, b_pad,
-            tile_size, bg0, bg1, bg2, sh, window, k0c);
-      });
-}
-
-// Launches K1-span on `stream`: n_tiles / tpp blocks with a window of
-// span_cap chunks of dynamic shared memory, which the kernel must opt in to
-// above 48 KB. `args` are the kernel's parameters before (tpp, span_cap).
-// Returns the CUDA error of the attribute call or of the launch.
-template <typename... Params, typename... Args>
-int launch_span(void (*kernel)(Params...), int n_tiles, int tpp, int span_cap,
-                cudaStream_t stream, Args... args) {
-  const size_t smem =
-      static_cast<size_t>(span_cap) * kRows * kChunk * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_tiles / tpp, kThreads, smem, stream>>>(args..., tpp, span_cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Whether (tpp, span_cap) are arguments a span kernel can be launched with.
 inline bool span_args_ok(int n_tiles, int64_t b_pad, int tpp, int span_cap) {
   return tpp >= 1 && n_tiles % tpp == 0 && span_cap >= 1 &&
@@ -618,22 +400,21 @@ inline bool span_args_ok(int n_tiles, int64_t b_pad, int tpp, int span_cap) {
 }
 
 // ---------------------------------------------------------------------------
-// The cluster program of K2-span and K4: one CTA per tile, a program of `tpp`
-// tiles run by tpp / c thread-block clusters of c CTAs, and the program's
-// window spread over the cluster's shared memory.
+// The cluster program of the span kernels K1-span, K2-span and K4: one CTA
+// per tile, a program of `tpp` tiles run by tpp / c thread-block clusters of
+// c CTAs, and the program's window spread over the cluster's shared memory.
 //
-// The JAX kernels (pallas_train.py, one_tile_vmem) give a program of tpp
-// consecutive tiles to one grid step, which fetches the chunks [k0, k_end)
-// of all its tiles into VMEM once when they fit span_cap chunks and walks
-// the tiles one after another. On the H100 a whole window in one block's
-// shared memory (41 chunks, 231 KB) leaves one 8-warp block an SM, and a
-// block per program gives 125 blocks at 800x800 for 132 SMs (K1-span's
-// layout, for_each_tile_of_program). Here CTA r of a cluster walks tile
-// i0 + r alone, so every tile of a program is in flight at once (625 CTAs
-// at 32 px), and each CTA holds only its share of the window: chunk
-// a + r + q c at its slot q,
-// ceil(span_cap / c) slots at most, where [a, b) are the chunks of the
-// cluster's own tiles (the whole program's [k0, k_end) when c == tpp).
+// The JAX kernels (pallas_tiled.py and pallas_train.py, the span branch)
+// give a program of tpp consecutive tiles to one grid step, which fetches
+// the chunks [k0, k_end) of all its tiles into VMEM once when they fit
+// span_cap chunks and walks the tiles one after another. On the H100 a
+// whole window in one block's shared memory (41 chunks, 231 KB) would leave
+// one 8-warp block an SM, and a block per program gives 125 blocks at
+// 800x800 for 132 SMs. Here CTA r of a cluster walks tile i0 + r alone, so
+// every tile of a program is in flight at once (625 CTAs at 32 px), and
+// each CTA holds only its share of the window: chunk a + r + q c at its
+// slot q, ceil(span_cap / c) slots at most, where [a, b) are the chunks of
+// the cluster's own tiles (the whole program's [k0, k_end) when c == tpp).
 // Each CTA fetches its share with cp.async.bulk (11 rows of 512 B a chunk,
 // completing on an mbarrier); after a cluster barrier, a CTA copies each
 // chunk it walks from the owner's slot into its own sh and boxes through
@@ -760,7 +541,7 @@ __device__ __forceinline__ void run_cluster_program(
   cluster.sync();  // no CTA leaves while another reads its slots
 }
 
-// The launch configuration of K2-span or K4: n_tiles CTAs in clusters of
+// The launch configuration of a span kernel: n_tiles CTAs in clusters of
 // span_cluster_size(tpp) (set in *attr), window_slots(span_cap, c) chunk
 // slots of dynamic shared memory each.
 inline cudaLaunchConfig_t cluster_config(int n_tiles, int tpp, int span_cap,
@@ -782,7 +563,7 @@ inline cudaLaunchConfig_t cluster_config(int n_tiles, int tpp, int span_cap,
   return cfg;
 }
 
-// The cluster launch of K2-span or K4 on `stream`. `args` are the kernel's
+// The cluster launch of a span kernel on `stream`. `args` are the kernel's
 // parameters before (tpp, span_cap). Returns the CUDA error of the
 // attribute call or of the launch: a refused cluster launch is an error,
 // not a fallback.
@@ -804,21 +585,26 @@ int launch_span_cluster(void (*kernel)(Params...), int n_tiles, int tpp,
 
 // What the occupancy calculator says of a cluster launch: out[0] blocks an
 // SM (registers and shared memory), out[1] clusters resident on the card at
-// once, out[2] the cluster size. Returns the CUDA error.
+// once, out[2] the cluster size, out[3] the kernel's static shared memory
+// (cudaFuncAttributes::sharedSizeBytes, what tiled_fwd.py's
+// SPAN_STATIC_BYTES states). Returns the CUDA error.
 template <typename... Params>
 int span_cluster_occupancy(void (*kernel)(Params...), int n_tiles, int tpp,
                            int span_cap, int* out) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(n_tiles, tpp, span_cap, 0, &attr);
   const void* fn = reinterpret_cast<const void*>(kernel);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(cfg.dynamicSmemBytes));
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cfg.dynamicSmemBytes));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kThreads,
                                                         cfg.dynamicSmemBytes);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&out[1], fn, &cfg);
   out[2] = attr.val.clusterDim.x;
+  out[3] = err == cudaSuccess ? static_cast<int>(fa.sharedSizeBytes) : -1;
   return static_cast<int>(err);
 }
 

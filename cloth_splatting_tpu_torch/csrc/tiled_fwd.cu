@@ -21,7 +21,7 @@
 // is <= 1e-4 (a tile-wide vote, not a per-pixel exit, to match the TPU
 // kernel). Output [n_tiles, 8, p]: r, g, b + bg (1 - sum w), depth,
 // alpha = sum w, then three zero rows. The walk itself is
-// composite.cuh::composite_tile_patched, shared with K2.
+// composite.cuh::composite_tile_patched, shared with K2, K1-span and K2-span.
 //
 // What bounds it on the H100. Its function is bound by bytes: the 11 used
 // rows per walked instance and 20 bytes written per pixel, a few
@@ -40,16 +40,18 @@
 // branch per pixel. The tile-wide exit vote ends each chunk. No tensor
 // cores, TMA or double buffering.
 //
-// K1-span gives one block `tpp` consecutive tiles. Their instances are one
-// contiguous run of the sorted array, so when the run's chunks fit a window
-// of span_cap chunks the block stages them once in dynamic shared memory
-// (5,632 bytes a chunk, at most 41 chunks under the 227 KB a block may opt
-// in to) and composites its tiles one after another from there; a program
-// that does not fit walks chunk by chunk. It keeps the first form's walk
-// (composite.cuh::composite_tile), the same function in the same order, so
-// its values are K1's bit for bit. It trades blocks in flight (n_tiles /
-// tpp) and occupancy (one block per SM at a large window) for one fetch per
-// program; whether that pays on this card is measured, not assumed.
+// K1-span runs the span options as the cluster program of composite.cuh
+// (run_cluster_program), as K2-span and K4 do: one CTA per tile, a program
+// of `tpp` consecutive tiles as clusters of CTAs. A program's instances are
+// one contiguous run of the sorted array, so when the run's chunks fit a
+// window of span_cap chunks the window is staged once, spread over the
+// cluster's shared memory (5,632 bytes a chunk, ceil(span_cap / c) chunks a
+// CTA), and each CTA copies the chunks its tile walks from their owners
+// through distributed shared memory; a program that does not fit stages
+// chunk by chunk from rows16, as K1 does. Its tile's walk is K1's
+// (composite_tile_patched), the same float operations in the same order,
+// so its values are K1's bit for bit; only where a chunk's rows come from
+// differs.
 
 #include "composite.cuh"
 
@@ -71,17 +73,26 @@ tiled_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
       bg0, bg1, bg2, sh, boxes);
 }
 
+// K1-span: K1's walk of this CTA's tile, from the cluster's window when its
+// program fits (composite.cuh::run_cluster_program).
 template <int PPT>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_span_kernel(const int* __restrict__ starts,
                       const int* __restrict__ counts,
                       const float* __restrict__ rows16, float* __restrict__ out,
-                      int tw, int64_t b_pad, int tile_size, float bg0,
-                      float bg1, float bg2, int tpp, int span_cap) {
-  extern __shared__ float span[];
-  composite::composite_program<PPT, false>(starts, counts, nullptr, rows16, out,
-                                           nullptr, tw, b_pad, tile_size, bg0,
-                                           bg1, bg2, tpp, span_cap, span);
+                      int tw, int64_t b_pad, float bg0, float bg1, float bg2,
+                      int tpp, int span_cap) {
+  extern __shared__ __align__(128) float window[];
+  __shared__ float sh[kRows][kChunk];
+  __shared__ float4 boxes[kChunk];
+  __shared__ uint64_t bar;
+  composite::run_cluster_program(
+      starts, counts, rows16, b_pad, tpp, span_cap, window, &bar,
+      [&](int tile, auto stage) {
+        composite::composite_tile_patched<PPT, false>(
+            tile, starts, counts, nullptr, rows16, out, nullptr, tw, b_pad, bg0,
+            bg1, bg2, sh, boxes, stage);
+      });
 }
 
 }  // namespace
@@ -127,18 +138,21 @@ extern "C" int tiled_fwd_blocks_per_sm(int tile_size) {
   return err == cudaSuccess ? n : -1;
 }
 
-// Launches K1-span on `stream`: as tiled_fwd_launch, with n_tiles / tpp
-// blocks of tpp tiles and a window of span_cap chunks (1 <= span_cap <=
-// b_pad / 128, tpp dividing n_tiles; the window's bytes must fit a block's
-// shared memory). Returns the CUDA error of the attribute call or of the
-// launch (cudaErrorInvalidValue for unsupported arguments).
+// Launches K1-span on `stream`: as tiled_fwd_launch, with n_tiles CTAs in
+// clusters of composite::span_cluster_size(tpp) and a window of span_cap
+// chunks spread over each cluster (1 <= span_cap <= b_pad / 128, tpp
+// dividing n_tiles, rows16 16 B aligned; a CTA's share of the window and
+// its static shared memory must fit a block's). Returns the CUDA error of
+// the attribute call or of the cluster launch (cudaErrorInvalidValue for
+// arguments it cannot take).
 extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
                                      const void* rows16, void* out, int n_tiles,
                                      int tw, int64_t b_pad, int tile_size,
                                      float bg0, float bg1, float bg2, int tpp,
                                      int span_cap, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap))
+  if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap) ||
+      !composite::bulk_rows_ok(rows16, b_pad))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* st = static_cast<const int*>(starts);
@@ -146,29 +160,28 @@ extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
   const float* rows = static_cast<const float*>(rows16);
   float* o = static_cast<float*>(out);
   if (tile_size == 32)
-    return composite::launch_span(tiled_fwd_span_kernel<4>, n_tiles, tpp,
-                                  span_cap, s, st, ct, rows, o, tw, b_pad,
-                                  tile_size, bg0, bg1, bg2);
+    return composite::launch_span_cluster(tiled_fwd_span_kernel<4>, n_tiles, tpp,
+                                          span_cap, s, st, ct, rows, o, tw, b_pad,
+                                          bg0, bg1, bg2);
   if (tile_size == 16)
-    return composite::launch_span(tiled_fwd_span_kernel<1>, n_tiles, tpp,
-                                  span_cap, s, st, ct, rows, o, tw, b_pad,
-                                  tile_size, bg0, bg1, bg2);
+    return composite::launch_span_cluster(tiled_fwd_span_kernel<1>, n_tiles, tpp,
+                                          span_cap, s, st, ct, rows, o, tw, b_pad,
+                                          bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Blocks of K1-span that one SM holds at once at `tile_size` with a window
-// of span_cap chunks, as the runtime's occupancy calculator counts them; -1
-// for an unsupported tile_size or a runtime error.
-extern "C" int tiled_fwd_span_blocks_per_sm(int tile_size, int span_cap) {
-  const size_t smem = static_cast<size_t>(span_cap) * kRows * kChunk * sizeof(float);
-  const void* fn = tile_size == 32 ? reinterpret_cast<const void*>(tiled_fwd_span_kernel<4>)
-                   : tile_size == 16 ? reinterpret_cast<const void*>(tiled_fwd_span_kernel<1>)
-                                     : nullptr;
-  if (fn == nullptr) return -1;
-  int n = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem);
-  return err == cudaSuccess ? n : -1;
+// The occupancy of K1-span launched on n_tiles tiles of `tile_size` with
+// (tpp, span_cap): out[0] blocks an SM, out[1] clusters resident on the card
+// at once, out[2] the cluster size, out[3] the kernel's static shared
+// memory. Returns the CUDA error (cudaErrorInvalidValue for an unsupported
+// tile_size).
+extern "C" int tiled_fwd_span_occupancy(int tile_size, int n_tiles, int tpp,
+                                        int span_cap, int* out) {
+  if (tile_size == 32)
+    return composite::span_cluster_occupancy(tiled_fwd_span_kernel<4>, n_tiles,
+                                             tpp, span_cap, out);
+  if (tile_size == 16)
+    return composite::span_cluster_occupancy(tiled_fwd_span_kernel<1>, n_tiles,
+                                             tpp, span_cap, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -79,8 +79,8 @@
 // rolling accumulator and read-modify-write (pallas_train.py:401-449), and
 // its tile-local moments (an MXU device), have no counterpart here.
 //
-// K2-span and K4 run the span options as the cluster program of
-// composite.cuh (run_cluster_program): one CTA per tile, a program of tpp
+// K2-span and K4, as K1-span, run the span options as the cluster program
+// of composite.cuh (run_cluster_program): one CTA per tile, a program of tpp
 // tiles as clusters of CTAs, the window that a fitting program stages once
 // spread over the cluster's shared memory and read through distributed
 // shared memory, so that a CTA's shared memory does not hold a whole window
@@ -796,9 +796,9 @@ extern "C" int tiled_bwd_reverse_launch(
 
 // The occupancy of K2-span (kernel 0) or K4 (kernel 1) launched on n_tiles
 // tiles of `tile_size` with (tpp, span_cap): out[0] blocks an SM, out[1]
-// clusters resident on the card at once, out[2] the cluster size. Returns
-// the CUDA error (cudaErrorInvalidValue for an unsupported kernel or
-// tile_size).
+// clusters resident on the card at once, out[2] the cluster size, out[3]
+// the kernel's static shared memory. Returns the CUDA error
+// (cudaErrorInvalidValue for an unsupported kernel or tile_size).
 extern "C" int tiled_train_span_occupancy(int kernel, int tile_size, int n_tiles,
                                           int tpp, int span_cap, int* out) {
   if (kernel == 0 && tile_size == 32)

@@ -25,14 +25,15 @@ it; ``cull_audit`` counts what that skips, none of which may be alive. The
 plain version needs neither: the skipped pairs are dead.
 
 The span options of the JAX rasterizer, ``tiles_per_program`` and
-``span_cap``, select K1-span (same source): one block owns
-``tiles_per_program`` consecutive tiles and, when their chunks fit a window
-of ``span_cap`` chunks, stages them once and composites every tile from
-shared memory; a program that does not fit walks chunk by chunk. Which
-branch a program takes never changes what it computes. ``resolve_span`` is
-the one place where the options are resolved, for this kernel and for the
-training tier's K2-span and K4, which run a program as clusters of one CTA
-per tile with the window spread over the cluster (``cluster_shares``).
+``span_cap``, select K1-span (same source): a program of
+``tiles_per_program`` consecutive tiles runs as thread-block clusters of one
+CTA per tile and, when its chunks fit a window of ``span_cap`` chunks,
+stages them once, spread over the cluster's shared memory
+(``cluster_shares``), and each CTA walks its tile as K1 does from there; a
+program that does not fit walks chunk by chunk. Which branch a program
+takes never changes what it computes. ``resolve_span`` is the one place
+where the options are resolved, for this kernel and for the training tier's
+K2-span and K4, which run the same cluster program.
 """
 
 from __future__ import annotations
@@ -55,13 +56,14 @@ CHUNK = 128      # instances per compositing chunk
 TRANS_EPS = 1e-4
 WIN_SMALL = 2    # slot window (tiles per axis) of the small-splat stream
 # shared memory of one H100 block: the 227 KB opt-in limit, one chunk's 11
-# used rows, and what each span kernel kept statically beside a whole window
-# in one block (K4: the reduction scratch red[10][8][128]). The clamps they
-# give (41, 34 for K4) stand for all three span kernels; K2-span and K4 now
-# hold ceil(span_cap / cluster size) chunks a CTA.
+# used rows, and each span kernel's static shared memory beside its CTA's
+# share of the window (cudaFuncAttributes::sharedSizeBytes, which chip_smoke
+# holds these literals to): a chunk's rows and boxes and an mbarrier,
+# padded to the window's 128 B alignment, and for K4 also the reduction
+# scratch red[10][8][128] and its masks.
 SMEM_LIMIT = 232_448
 CHUNK_BYTES = 11 * CHUNK * 4
-SPAN_STATIC_BYTES = {"fwd": 0, "fwd_train": 0, "bwd": 10 * 8 * CHUNK * 4}
+SPAN_STATIC_BYTES = {"fwd": 7_808, "fwd_train": 7_808, "bwd": 48_896}
 
 
 class RasterAux(NamedTuple):
@@ -258,10 +260,14 @@ def chunk_span(packed: PackedTiles):
     return starts, ends, kt, (ends - kt * CHUNK + CHUNK - 1) // CHUNK
 
 
-def max_span_cap(kernel: str) -> int:
-    """Chunks that fit one block's shared memory beside ``kernel``'s static
-    use: 41 for K1-span and K2-span, 34 for K4."""
-    return (SMEM_LIMIT - SPAN_STATIC_BYTES[kernel]) // CHUNK_BYTES
+def max_span_cap(kernel: str, tpp: int) -> int:
+    """The largest window a cluster of ``span_cluster_size(tpp)`` CTAs of
+    ``kernel`` holds: each CTA holds ``window_slots(span_cap, c)`` chunks
+    beside its static shared memory. At ``tpp=5`` 195 chunks for K1-span and
+    K2-span and 160 for K4; at a ``tpp`` of clusters of one CTA (11, say),
+    39 and 32."""
+    per_cta = (SMEM_LIMIT - SPAN_STATIC_BYTES[kernel]) // CHUNK_BYTES
+    return span_cluster_size(tpp) * per_cta
 
 
 def resolve_span(n_tiles: int, b_pad: int, tiles_per_program: int | None,
@@ -270,20 +276,22 @@ def resolve_span(n_tiles: int, b_pad: int, tiles_per_program: int | None,
     rules: tpp = 1 when it is None or does not divide ``n_tiles``;
     span_cap = 0 (the default kernels K1/K2/K3) when it is None or tpp is 1;
     span_cap <= the array's chunk count. The card adds one: span_cap <=
-    ``max_span_cap(kernel)``. ``kernel`` is 'fwd', 'fwd_train' or 'bwd'."""
+    ``max_span_cap(kernel, tpp)``, what a cluster's shared memory holds.
+    ``kernel`` is 'fwd', 'fwd_train' or 'bwd'."""
     tpp = tiles_per_program
     if tpp is None or tpp < 1 or n_tiles % tpp:
         tpp = 1
     if span_cap is None or tpp == 1:
         return tpp, 0
-    return tpp, max(0, min(int(span_cap), b_pad // CHUNK, max_span_cap(kernel)))
+    return tpp, max(0, min(int(span_cap), b_pad // CHUNK,
+                           max_span_cap(kernel, tpp)))
 
 
 def span_programs(packed: PackedTiles, tpp: int, span_cap: int):
     """Per program of ``tpp`` consecutive tiles: (k0c i64 [P], the first
     chunk of its window of ``span_cap`` chunks, shifted down at the end of
     the array; fits bool [P], whether the window holds all its tiles'
-    chunks). What the span kernels compute per block."""
+    chunks). What the span kernels compute per program."""
     starts = packed.starts.to(torch.int64)
     ends = starts + packed.counts.to(torch.int64)
     k0 = starts[0::tpp] // CHUNK
@@ -293,7 +301,7 @@ def span_programs(packed: PackedTiles, tpp: int, span_cap: int):
 
 
 def span_cluster_size(tpp: int) -> int:
-    """CTAs in a thread-block cluster of K2-span and K4 for ``tpp`` tiles a
+    """CTAs in a thread-block cluster of the span kernels for ``tpp`` tiles a
     program: ``tpp`` up to 8 (the portable limit), else its largest divisor
     <= 8. Plain copy of ``csrc/composite.cuh::span_cluster_size``."""
     for c in range(min(tpp, 8), 1, -1):
@@ -309,7 +317,7 @@ def window_slots(span_cap: int, c: int) -> int:
 
 
 class ClusterShares(NamedTuple):
-    """How K2-span and K4 spread a fitting program's window over a cluster
+    """How the span kernels spread a fitting program's window over a cluster
     (``csrc/composite.cuh::run_cluster_program``): cluster g holds the
     chunks [first[g], end[g]) of its own ``size`` tiles, chunk k at slot
     (k - first) // size of its CTA (k - first) % size."""

@@ -12,13 +12,15 @@ together), prints the kernels' registers, shared memory and spills, and holds
 every kernel against its plain version as ``chip_smoke.py`` does (K3 and K4
 also against a second launch, bit for bit) on chip_smoke's 65k packs: K1 and
 K1-span on the serving pack of orbit view 0, K2, K2-span, K3 and K4 on the
-training pack of camera 0 (span forms at ``tpp=5``, ``span_cap=41``; K4
-at its clamp, 34), and holds each of B's kernels against A's on the same
-inputs: bit for bit (K2 and K2-span: ``out`` and the boundaries over the
-laid rows; one JSON line, ``bit_identical_to_A``), except K4, whose
-reduction order may differ between trees: each of its gradient fields
-within chip_smoke's TOL_K3 of A's field's largest magnitude
-(``k4_vs_A_rel``). Then it times each kernel in four turns, A, B, B, A:
+training pack of camera 0 (the three span forms at ``tpp=5``,
+``span_cap=41``, a window both trees launch), and holds each of B's kernels
+against A's on the same inputs: bit for bit (K2 and K2-span: ``out`` and
+the boundaries over the laid rows; one JSON line, ``bit_identical_to_A``),
+except K4, whose reduction order may differ between trees: each of its
+gradient fields within chip_smoke's TOL_K3 of A's field's largest magnitude
+(``k4_vs_A_rel``). With the parent's tree as A, ``bit_identical_to_A`` is
+the yardstick of a changed walk: the parent's outputs, not a second walk
+kept in the tree. Then it times each kernel in four turns, A, B, B, A:
   - ``ms``, the wrapper call: CUDA events over ITERS back-to-back calls after
     a warm-up, as chip_smoke times it. Once the wrapper's host work takes
     longer than its kernels, this is host time;

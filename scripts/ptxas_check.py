@@ -3,19 +3,19 @@ K1-span, K2-span, K4) come out of ptxas.
 
 Builds ``cloth_splatting_tpu_torch/csrc`` at ptxas -O0, -O1 and -O3 (the
 default), once from the sources as they are and once with one rewrite of
-both of ``composite.cuh``'s tile walks (``composite_tile_patched``, K1's and
-K2's, and ``composite_tile``, the span forms') that is the same C++ function:
-the chunk loop's own index carried past the loop (``++ci; break;``) instead
-of the separate ``walked`` counter. Each build's K1, K2 and K3 are held
-against their plain versions on chip_smoke's deep synthetic packs at 32 px
-and 16 px tiles (K3, with its warp patches, footprint cull and
-reduce-scatter, also against a second launch, bit for bit), and so are
-K1-span, K2-span and K4 with a window most programs fit and with a window of
-one chunk (mostly the overflow walk), in programs of 2 tiles and of 8 (the
-cluster program of K2-span and K4 in clusters of 2 and of 8 CTAs, the
-largest portable size); K1-span and K2-span are also held bit-identical to
-K1 and K2, and K4 to its plain version and to K3. Before that it compares
-the PTX of every kernel between the two forms.
+``composite.cuh``'s one forward tile walk (``composite_tile_patched``: K1,
+K2, K1-span and K2-span) that is the same C++ function: the chunk loop's own
+index carried past the loop (``++ci; break;``) instead of the separate
+``walked`` counter. Each build's K1, K2 and K3 are held against their plain
+versions on chip_smoke's deep synthetic packs at 32 px and 16 px tiles (K3,
+with its warp patches, footprint cull and reduce-scatter, also against a
+second launch, bit for bit), and so are K1-span, K2-span and K4 with a
+window most programs fit and with a window of one chunk (mostly the
+overflow walk), in programs of 2 tiles and of 8 (the cluster program of the
+three span kernels in clusters of 2 and of 8 CTAs, the largest portable
+size); K1-span and K2-span are also held bit-identical to K1 and K2, and K4
+to its plain version and to K3. Before that it compares the PTX of every
+kernel between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
 
@@ -40,8 +40,7 @@ LEVELS = (0, 1, 3)
 FORMS = ("as-is", "loop-index")
 PACKS = ((32, 256, 20000), (16, 128, 6000), (16, 128, 300))
 SPANS = ((2, 41), (2, 1), (8, 41))   # (tiles_per_program, span_cap)
-# each line of the rewrite, once in each of the two walks
-WALKS = 2
+# each line of the rewrite, found once in the walk
 _WALKED = (
     ("  int walked = n_chunks;\n  for (int ci = 0; ci < n_chunks; ++ci) {",
      "  int ci = 0;\n  for (; ci < n_chunks; ++ci) {"),
@@ -64,9 +63,9 @@ def csrc_of(form: str) -> Path:
     header = out / "composite.cuh"
     text = header.read_text()
     for old, new in _WALKED:
-        if text.count(old) != WALKS:
-            raise RuntimeError(f"composite.cuh no longer holds {old!r} once "
-                               f"in each of its {WALKS} walks")
+        if text.count(old) != 1:
+            raise RuntimeError(f"composite.cuh holds {old!r} "
+                               f"{text.count(old)} times, not once in its walk")
         text = text.replace(old, new)
     header.write_text(text)
     return out

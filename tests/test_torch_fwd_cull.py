@@ -58,9 +58,12 @@ def warp_hits(blk, live, tile_ox, tile_oy, tile_size):
             & live[:, None])
 
 
-def sequential_walk(packed, width, height, tile_size, bg, cull: bool):
+def sequential_walk(packed, width, height, tile_size, bg, cull: bool,
+                    rows_of=None):
     """K1's and K2's walk in the kernel's order: (out [T, 8, p], tbounds
     [rows, p] as K2 writes them, rows past the laid chunks zero).
+    ``rows_of(tiles, chunks)`` gives the [A, 16, 128] rows each tile walks
+    for its global chunk (default: the pack's own, as K1 stages them).
 
     Per chunk and pixel, the instances go one at a time in lane order; with
     ``cull`` a pixel takes only those whose box meets its warp's patch. A
@@ -90,7 +93,8 @@ def sequential_walk(packed, width, height, tile_size, bg, cull: bool):
         if ta.numel() == 0:
             break
         tbounds[offsets[ta] + ci] = trans[ta]
-        blk = rows3d[kt[ta] + ci]                                       # [A, 16, 128]
+        blk = (rows3d[kt[ta] + ci] if rows_of is None
+               else rows_of(ta, kt[ta] + ci))                           # [A, 16, 128]
         pos = (kt[ta] + ci)[:, None] * tpt.CHUNK + lane[None, :]
         live = (pos >= starts[ta, None]) & (pos < ends[ta, None])
         _, _, _, alpha, dead = tpt.chunk_alpha(blk, px[ta], py[ta], live)

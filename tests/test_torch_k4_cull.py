@@ -48,7 +48,7 @@ from cloth_splatting_tpu_torch.ops.rasterize import tiled_train as ttr
 sys.path.insert(0, os.path.dirname(__file__))
 from test_rasterize import H, W, project_scene  # noqa: E402
 from test_torch_fwd_cull import random_pack, warp_hits  # noqa: E402
-from test_torch_k3_cull import edge_proj  # noqa: E402
+from test_torch_k3_cull import edge_proj, random_proj  # noqa: E402
 from test_torch_raster import to_torch  # noqa: E402
 from test_torch_train_raster import SCENES, assert_field_close  # noqa: E402
 
@@ -272,14 +272,22 @@ def wide_pack():
     return tpt.sorted_pack(to_torch(project_scene(n=300, seed=3)), 5, 5, 16, 5)
 
 
+def wide121_pack():
+    """176x176 at 16 px: 121 tiles of random anisotropic splats, up to 3
+    chunks a tile, so tpp 11 runs clusters of one CTA."""
+    return tpt.sorted_pack(random_proj(1500, 176, 176, seed=11), 11, 11, 16, 5)
+
+
 @pytest.mark.parametrize("name,tpp,span_cap", [
     ("scene16", 2, 41), ("scene16", 4, 8), ("scene16", 8, 1),
     ("scene16", 16, 41),      # clusters of 8: two a program
     ("random16", 2, 12), ("random16", 4, 34), ("random32", 2, 20),
     ("wide", 5, 41), ("wide", 25, 41),
+    ("wide121", 11, 96),      # clusters of one CTA, span_cap clamped to 39
 ])
 def test_cluster_window_holds_every_chunk_once(name, tpp, span_cap):
-    packed, ts = (wide_pack(), 16) if name == "wide" else case(name)
+    wide = {"wide": wide_pack, "wide121": wide121_pack}
+    packed, ts = (wide[name](), 16) if name in wide else case(name)
     n_tiles = packed.starts.numel()
     tpp, cap = tpt.resolve_span(n_tiles, packed.rows16.shape[1], tpp, span_cap,
                                 "fwd_train")

@@ -259,18 +259,33 @@ def test_span_function_grads_match_pallas():
     (625, 128 * 500, 5, None, "fwd", (5, 0)),      # no span asked for
     (625, 128 * 500, None, 8, "fwd", (1, 0)),      # no tpp: span off
     (16, 128 * 6, 4, 8, "fwd", (4, 6)),            # span_cap > chunks
-    (625, 128 * 500, 5, 96, "fwd", (5, 41)),       # shared-memory clamp
-    (625, 128 * 500, 5, 96, "fwd_train", (5, 41)),
-    (625, 128 * 500, 5, 96, "bwd", (5, 34)),       # beside red[10][8][128]
+    # clusters of 5: a fifth of the window a CTA, so 96 chunks fit
+    (625, 128 * 500, 5, 96, "fwd", (5, 96)),
+    (625, 128 * 500, 5, 96, "fwd_train", (5, 96)),
+    (625, 128 * 500, 5, 96, "bwd", (5, 96)),
     (2500, 128 * 500, 4, 24, "bwd", (4, 24)),
     (16, 128 * 6, 2, 0, "bwd", (2, 0)),
+    # the shared-memory clamp: 5 CTAs of 39 chunks (32 for K4, beside
+    # red[10][8][128])
+    (625, 128 * 500, 5, 400, "fwd", (5, 195)),
+    (625, 128 * 500, 5, 400, "fwd_train", (5, 195)),
+    (625, 128 * 500, 5, 400, "bwd", (5, 160)),
+    # tpp 11 runs clusters of one CTA, which holds the whole window
+    (121, 128 * 500, 11, 96, "fwd", (11, 39)),
+    (121, 128 * 500, 11, 96, "fwd_train", (11, 39)),
+    (121, 128 * 500, 11, 96, "bwd", (11, 32)),
 ])
 def test_resolve_span(n_tiles, b_pad, tpp, span_cap, kernel, expected):
     assert tpt.resolve_span(n_tiles, b_pad, tpp, span_cap, kernel) == expected
 
 
 def test_span_window_fits_shared_memory():
+    """Per CTA: at the clamp, a CTA's share of the window beside its static
+    shared memory fits a block's, and one slot more would not."""
     for kernel in ("fwd", "fwd_train", "bwd"):
-        used = (tpt.max_span_cap(kernel) * tpt.CHUNK_BYTES
-                + tpt.SPAN_STATIC_BYTES[kernel])
-        assert used <= tpt.SMEM_LIMIT < used + tpt.CHUNK_BYTES
+        for tpp in range(2, 17):
+            cap = tpt.max_span_cap(kernel, tpp)
+            c = tpt.span_cluster_size(tpp)
+            used = (tpt.window_slots(cap, c) * tpt.CHUNK_BYTES
+                    + tpt.SPAN_STATIC_BYTES[kernel])
+            assert used <= tpt.SMEM_LIMIT < used + tpt.CHUNK_BYTES, (kernel, tpp)
