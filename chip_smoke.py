@@ -48,10 +48,26 @@ Phases, each of which raises on failure:
      into uint8 banks) fitted for 300 iterations of ``fit_banks`` with
      density control, barycentric cleanup, one held-out evaluation and one
      checkpoint, checking the launch counts, that every event ran, finite
-     values, a rising PSNR and that the checkpoint reloads equal.
+     values, a rising PSNR and that the checkpoint reloads equal;
+  8. eval: the fit's final state, as the fit hands it to
+     ``save_scene_checkpoint``, through ``eval.render_sets.render_frames``
+     over the fit's 5 held-out frames and the 80-pose spherical video orbit
+     at 800x800 (FPS per split; K1 launched 2 n + 1 times a split and no
+     other kernel), the held-out frames scored in memory by
+     ``eval.metrics.score_images`` (PSNR, SSIM, LPIPS on the ``fixture-v1``
+     weights; the mean PSNR equal to the fit's own held-out evaluation
+     within 1e-3 dB, a frame's LPIPS against itself 0), and the tracked
+     trajectories (Gaussians, then vertices) written as ``all_trajs.npz``
+     and scored against the fit's true vertex trajectory by
+     ``eval.tracking.evaluate_tracking`` (finite MTE);
+  9. bench: ``cloth_splatting_tpu_torch.bench.run`` at the root bench.py's
+     default scales (65k FPS over 40 views on the serving scene; train
+     iterations per second at 4k, 24k and 65k over 20 steps), checking its
+     launch counts, and its JSON line.
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
-line, a {"fit": ...} line, a {"kernels": [...]} line and, last,
+line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
+{"kernels": [...]} line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
@@ -59,7 +75,6 @@ any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import math
 import os
@@ -67,13 +82,16 @@ import subprocess
 import sys
 import time
 
+# the field of view, background and training camera times of the benchmark
+# entry, whose serving scene and training configuration this script drives
+from cloth_splatting_tpu_torch.bench import BG, FOV, TRAIN_TIMES
+
 SEED = 0
 WIDTH = HEIGHT = 800
 MESH_RES = 128           # grid_cloth_mesh(128, 128): 65,024 Gaussians
 TRAIN_CAPACITY = 65536
 N_FRAMES = 8
 TRAIN_STEPS = 5
-TRAIN_TIMES = (0.0, 0.5, 1.0)
 # the span options: 625 tiles of 32 px are 5^4, so tiles_per_program must be
 # 5 there (4 or 8 would silently turn the span off); 2,500 tiles of 16 px
 # take 4. The three span kernels run a program as a cluster of
@@ -99,8 +117,16 @@ FIT_SCHEDULE = dict(iterations=FIT_ITERATIONS, densify_from_iter=100,
 # The last opacity reset (iteration 240) leaves 60 iterations before the
 # held-out evaluation at FIT_ITERATIONS: evaluated right after a reset, every
 # opacity is at its floor and the reading says nothing about the fit.
-FOV = 2.0 * math.atan(0.4)
-BG = (1.0, 1.0, 1.0)
+# the eval phase: the video split's spherical orbit (the JAX package's
+# default video cameras) and the limit on the held-out PSNR against the fit's
+# own evaluation of the same frames (same backend, float images: only the
+# mean's float rounding differs)
+VIDEO_POSES = 80
+TOL_EVAL_PSNR_DB = 1e-3
+# the bench phase: a warm-up frame and 40 timed views; a warm-up step and 20
+# timed steps of 3 cameras at each of the three training scales
+BENCH_K1 = 1 + 40
+BENCH_K2_K3 = 3 * 3 * (1 + 20)
 # K1 and K2 against their plain versions: both walk the same chunks in the
 # same order and stop at the same chunk, so they differ only by rounding
 # (sequential products in the kernels, cumprod in the plain versions); sound
@@ -215,19 +241,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
+def kernel_alone_ms(fn, kernel: str, iters: int = 20,
+                    per_call: int = 1) -> tuple[float, int]:
     """(mean device time of one launch of ``kernel``, a KERNEL_ENTRIES key,
-    over ``iters`` calls of ``fn``; the launch records it is the mean of),
-    from torch.profiler's kernel records: the kernel alone, without its
-    wrapper's small kernels and host time. The profiler can drop records in
-    a process that profiles many times: it profiles again, up to three
-    times, until it keeps a record of every launch, takes the session that
-    kept the most, and raises when that is fewer than half."""
+    over ``iters`` calls of ``fn``, each launching it ``per_call`` times;
+    the launch records it is the mean of), from torch.profiler's kernel
+    records: the kernel alone, without its wrapper's small kernels and host
+    time. The profiler can drop records in a process that profiles many
+    times: it profiles again, up to three times, until it keeps a record of
+    every launch, takes the session that kept the most, and raises when that
+    is fewer than half."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     entry = KERNEL_ENTRIES[kernel]
+    launches = iters * per_call
     fn()
     torch.cuda.synchronize()
     count, total_us = 0, 0.0
@@ -239,15 +268,16 @@ def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
         hits = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and entry in e.key]
         seen = sum(e.count for e in hits)
-        if seen > iters:
+        if seen > launches:
             raise RuntimeError(f"profiler saw {seen} launches of {entry} in "
-                               f"{iters} calls")
+                               f"{iters} calls of {per_call}")
         if seen > count:
             count, total_us = seen, sum(e.self_device_time_total for e in hits)
-        if count == iters:
+        if count == launches:
             break
-    if count < iters // 2:
-        raise RuntimeError(f"profiler saw {count} launches of {entry} in {iters} calls")
+    if count < launches // 2:
+        raise RuntimeError(f"profiler saw {count} launches of {entry} in {iters} "
+                           f"calls of {per_call}")
     return total_us / 1e3 / count, count
 
 
@@ -1007,8 +1037,14 @@ def fit_phase(mesh, tan, gpu):
     serving path into uint8 banks, the true trajectory as the mesh
     predictions; FIT_ITERATIONS iterations of ``fit_banks`` on
     FIT_SCHEDULE with one held-out evaluation and one checkpoint at the
-    end. Returns (the {"fit": ...} record, the launch counts of the fit)."""
+    end. Returns (the {"fit": ...} record, the launch counts of the fit, the
+    fitted scene for the eval phase: the trainer, the state the fit hands
+    ``save_scene_checkpoint`` at its end (its parameter average when
+    ``param_ema`` is on; the PLY and HDF5 writing is left out, so that no
+    h5py is needed), the active SH degree, the true vertex trajectory, the
+    held-out ground truth and the fit's held-out PSNR)."""
     import tempfile
+    import types
 
     import numpy as np
     import torch
@@ -1020,6 +1056,7 @@ def fit_phase(mesh, tan, gpu):
         render_scene_banks,
     )
     from cloth_splatting_tpu_torch.models import gaussians as G
+    from cloth_splatting_tpu_torch.train import loop
     from cloth_splatting_tpu_torch.train.config import Config
     from cloth_splatting_tpu_torch.train.loop import (
         EvalFrame,
@@ -1088,16 +1125,27 @@ def fit_phase(mesh, tan, gpu):
     trainer.cleanup_barycentric = counted("cleanup", trainer.cleanup_barycentric)
     trainer.grow_capacity = counted("grow_capacity", trainer.grow_capacity)
 
+    saved = {}
+
+    def capture_scene_checkpoint(out_dir, iteration, trainer_, state_):
+        saved[iteration] = state_
+
+    save_scene_checkpoint = loop.save_scene_checkpoint
+    loop.save_scene_checkpoint = capture_scene_checkpoint
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        (device_ms, host_ms, (final,)) = timed_calls(
-            lambda _: fit_banks(
-                trainer, state, cam_bank, gt_bank, None, out_dir=out_dir,
-                test_frames=test_frames, test_iterations=[FIT_ITERATIONS],
-                checkpoint_iterations=[FIT_ITERATIONS], seed=SEED,
-                progress_every=FIT_PROGRESS_EVERY), [0])
+        try:
+            (device_ms, host_ms, (final,)) = timed_calls(
+                lambda _: fit_banks(
+                    trainer, state, cam_bank, gt_bank, None, out_dir=out_dir,
+                    test_frames=test_frames, test_iterations=[FIT_ITERATIONS],
+                    save_iterations=[FIT_ITERATIONS],
+                    checkpoint_iterations=[FIT_ITERATIONS], seed=SEED,
+                    progress_every=FIT_PROGRESS_EVERY), [0])
+        finally:
+            loop.save_scene_checkpoint = save_scene_checkpoint
         counts = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
@@ -1124,6 +1172,8 @@ def fit_phase(mesh, tan, gpu):
         raise RuntimeError(f"fit: the alive count stayed at {alive0}")
     if int(final.step) != FIT_ITERATIONS:
         raise RuntimeError(f"fit: step counter {int(final.step)}")
+    if list(saved) != [FIT_ITERATIONS]:
+        raise RuntimeError(f"fit: scene checkpoints at {list(saved)}")
     train_ticks = {t["step"]: t for t in ticks if "ema_psnr" in t}
     test_tick = [t for t in ticks if "test_psnr" in t]
     if sorted(train_ticks) != list(range(FIT_PROGRESS_EVERY, FIT_ITERATIONS + 1,
@@ -1168,20 +1218,23 @@ def fit_phase(mesh, tan, gpu):
         f"{psnr_50:.3f} at {FIT_PROGRESS_EVERY} -> {psnr_end:.3f} at "
         f"{FIT_ITERATIONS}, held-out PSNR {held_out_start['psnr']:.3f} before the "
         f"fit -> {record['test_psnr']:.3f} [{gpu}]")
-    return record, counts
+    fitted = types.SimpleNamespace(
+        trainer=trainer, state=saved[FIT_ITERATIONS],
+        sh_degree=min(FIT_ITERATIONS // 1000, cfg.model.sh_degree), traj=traj,
+        test_gts=test_gts[0], test_psnr=record["test_psnr"])
+    return record, counts, fitted
 
 
-def train_phase(mesh, tan, gpu):
-    """bench.py's 65k training configuration through the port's Trainer:
+def train_phase(gpu):
+    """The 65k training configuration of the port's ``bench.train_setup``
+    (the root bench.py's) through the port's Trainer:
     a warm-up step, then TRAIN_STEPS timed steps with the launch counters
     set to 0 just before; then the span A/B over TRAIN_STEPS steps. Returns
     (the {"train": ...} record, K2 launches, K3 launches, the A/B's ms per
     step, the span kernels' launches in one span turn)."""
-    import numpy as np
     import torch
 
-    from cloth_splatting_tpu_torch.models import gaussians as G
-    from cloth_splatting_tpu_torch.ops.camera import Camera
+    from cloth_splatting_tpu_torch.bench import train_setup
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         raster_forward_tiles,
     )
@@ -1189,25 +1242,9 @@ def train_phase(mesh, tan, gpu):
         raster_forward_train,
         run_backward,
     )
-    from cloth_splatting_tpu_torch.render import CameraArrays, camera_arrays
-    from cloth_splatting_tpu_torch.train.config import Config
-    from cloth_splatting_tpu_torch.train.step import Trainer
 
-    dev = mesh.pos.device
-    cfg = Config()
-    trainer = Trainer(cfg, mesh, mesh.pos[None].repeat(3, 1, 1), WIDTH, HEIGHT,
-                      tan, tan, 2.0)
-    rng = np.random.default_rng(SEED)
-    params, gstate = G.init_from_mesh(rng, mesh, cfg.model.sh_degree, 2,
-                                      capacity=TRAIN_CAPACITY, device=dev)
-    state = trainer.init_state(rng, params, gstate)
-    cam = Camera.create(R=np.eye(3), t=np.asarray([0.0, 0.0, 3.0]), fovx=FOV,
-                        fovy=FOV, width=WIDTH, height=HEIGHT, time=0.5)
-    arrs = [camera_arrays(dataclasses.replace(cam, time=t), device=dev)
-            for t in TRAIN_TIMES]
-    cams = CameraArrays(*(torch.stack([getattr(a, f) for a in arrs])
-                          for f in CameraArrays._fields))
-    gts = torch.full((len(TRAIN_TIMES), 3, HEIGHT, WIDTH), 0.5, device=dev)
+    trainer, state, cams, gts = train_setup(WIDTH, HEIGHT, MESH_RES, TRAIN_CAPACITY,
+                                            torch.device("cuda"))
     n_alive = int(state.gstate.alive.sum())
 
     def step(s):
@@ -1294,10 +1331,153 @@ def train_phase(mesh, tan, gpu):
     return record, k2, k3, ab_ms, ab_launches
 
 
+def eval_phase(fitted, gpu: str):
+    """The fitted scene through the port's evaluation, on the card: the 5
+    held-out frames (the fit's held-out cameras, rebuilt) and the video
+    orbit through ``render_frames``, each split with the launch counters set
+    to 0 just before; the held-out frames scored in memory; the tracked
+    trajectories written and scored. K1's share of a frame is K1 alone
+    (torch.profiler over one more pass of the split, its 2 n + 1 launches)
+    over the split's frame time. Returns (the {"eval": ...} record, K1's
+    launches over both splits)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.scene import spherical_video_cameras
+    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera
+    from cloth_splatting_tpu_torch.eval import lpips as L
+    from cloth_splatting_tpu_torch.eval.metrics import score_images
+    from cloth_splatting_tpu_torch.eval.render_sets import (
+        render_frames,
+        write_trajectories,
+    )
+    from cloth_splatting_tpu_torch.eval.tracking import evaluate_tracking
+    from cloth_splatting_tpu_torch.models.deform import simulator_from_params
+
+    trainer, state = fitted.trainer, fitted.state
+    dev = trainer.device
+    simulator = simulator_from_params(state.sim_params)
+    splits = {
+        "test": [orbit_camera(1, 2 * FIT_VIEWS, FOV, WIDTH, HEIGHT, float(t))
+                 for t in np.linspace(0.0, 1.0, FIT_TIMES)],
+        "video": spherical_video_cameras(VIDEO_POSES, FOV, WIDTH, HEIGHT, 1.0)}
+    rendered, record = {}, {"gaussians": int(state.gstate.alive.sum()),
+                            "width": WIDTH, "height": HEIGHT,
+                            "sh_degree": fitted.sh_degree, "splits": {}}
+    k1 = 0
+    for split, cams in splits.items():
+        def run(keep_logs=False):
+            return render_frames(cams, state.params, state.gstate, trainer.mesh,
+                                 simulator, trainer.mesh_predictions, True,
+                                 fitted.sh_degree, keep_logs=keep_logs, device=dev)
+
+        reset_launch_counts()
+        rs = run(keep_logs=split == "test")
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != {"K1": 2 * len(cams) + 1}:
+            raise RuntimeError(f"eval {split}: launches {counts} for {len(cams)} "
+                               f"cameras, expected K1 = {2 * len(cams) + 1}")
+        k1 += counts["K1"]
+        # K1 alone on this split's own frames: the same pass again under the
+        # profiler, after the counts were read
+        k1_ms, k1_records = kernel_alone_ms(run, "K1", 1, counts["K1"])
+        covered = []
+        for i, frame in enumerate(rs.frames):
+            if frame.shape != (3, HEIGHT, WIDTH) or not np.isfinite(frame).all():
+                raise RuntimeError(f"eval {split} frame {i}: {frame.shape}, finite "
+                                   f"{bool(np.isfinite(frame).all())}")
+            covered.append(float((frame.min(axis=0) < 0.99).mean()))
+        if max(covered) <= 0.01:
+            raise RuntimeError(f"eval {split}: nothing rendered {covered}")
+        rendered[split] = rs
+        record["splits"][split] = {
+            "frames": len(cams), "fps": rs.fps, "elapsed_s": rs.elapsed,
+            "ms_per_frame": 1e3 / rs.fps, "k1_launches": counts["K1"],
+            "k1_ms": k1_ms, "k1_records": k1_records,
+            "k1_share_of_frame": k1_ms * rs.fps / 1e3,
+            "coverage_min": min(covered), "coverage_max": max(covered)}
+        log(f"eval {split}: {len(cams)} frames at {WIDTH}x{HEIGHT}, FPS "
+            f"{rs.fps:.3f} ({1e3 / rs.fps:.4f} ms a frame; K1 alone on these "
+            f"frames {k1_ms:.4f} ms of it, mean of {k1_records} launches), K1 "
+            f"launches {counts['K1']} [{gpu}]")
+
+    # the held-out frames scored in memory, against the fit's own reading
+    frames = [torch.from_numpy(f).to(dev) for f in rendered["test"].frames]
+    gts = fitted.test_gts.to(torch.float32) / 255.0
+    weights = L.to_torch(L.fixture_weights(), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = score_images(zip(frames, gts), weights)
+    score_s = time.perf_counter() - t0
+    means = {k: float(np.mean(v)) for k, v in scores.items()}
+    self_lpips = score_images([(frames[0], frames[0])], weights)["LPIPS"][0]
+    if not all(math.isfinite(v) for vs in scores.values() for v in vs) \
+            or len(scores["LPIPS"]) != FIT_TIMES:
+        raise RuntimeError(f"eval: scores {scores}")
+    if abs(means["PSNR"] - fitted.test_psnr) > TOL_EVAL_PSNR_DB:
+        raise RuntimeError(f"eval: held-out PSNR {means['PSNR']:.6f} dB, the fit's "
+                           f"evaluation {fitted.test_psnr:.6f}")
+    if self_lpips != 0.0:
+        raise RuntimeError(f"eval: LPIPS of a frame against itself {self_lpips}")
+
+    # tracking: the held-out split's logs against the true vertex trajectory
+    alive = state.gstate.alive.cpu().numpy()
+    mte = {}
+    with tempfile.TemporaryDirectory() as d:
+        gt_path = os.path.join(d, "gt.npz")
+        np.savez(gt_path, traj=fitted.traj)
+        for name, vertices in (("gaussians", False), ("vertices", True)):
+            path = os.path.join(d, f"all_trajs_{name}.npz")
+            write_trajectories(path, splits["test"], rendered["test"].deform_logs,
+                               alive, track_vertices=vertices)
+            mte[name] = evaluate_tracking(path, gt_path)
+            if not math.isfinite(mte[name]["mte_mean"]) \
+                    or mte[name]["n_times"] != FIT_TIMES:
+                raise RuntimeError(f"eval: tracking {name} {mte[name]}")
+    record.update(psnr=means["PSNR"], ssim=means["SSIM"], lpips=means["LPIPS"],
+                  lpips_weights=L.FIXTURE_VERSION, fit_test_psnr=fitted.test_psnr,
+                  lpips_self=self_lpips, score_s=score_s, per_view=scores,
+                  tracking=mte, gpu=gpu)
+    log(f"eval scores of {FIT_TIMES} held-out frames: PSNR {means['PSNR']:.4f} dB "
+        f"(the fit's evaluation {fitted.test_psnr:.4f}), SSIM {means['SSIM']:.4f}, "
+        f"LPIPS ({L.FIXTURE_VERSION}) {means['LPIPS']:.4f}, in {score_s:.3f} s; "
+        f"MTE {mte['gaussians']['mte_mean']:.6f} (Gaussians), "
+        f"{mte['vertices']['mte_mean']:.6f} (vertices) scene units [{gpu}]")
+    return record, k1
+
+
+def bench_phase(scene, gpu: str) -> dict:
+    """The port's benchmark entry at the root bench.py's default scales, the
+    65k render scale on ``scene`` (the serving scene, built once), with the
+    launch counters set to 0 just before; prints its JSON line. Returns the
+    launches it counted."""
+    import torch
+
+    from cloth_splatting_tpu_torch import bench
+
+    reset_launch_counts()
+    t0 = time.time()
+    result = bench.run(torch.device("cuda"), scene=scene)
+    seconds = time.time() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    expected = {"K1": BENCH_K1, "K2": BENCH_K2_K3, "K3": BENCH_K2_K3}
+    if counts != expected:
+        raise RuntimeError(f"bench: launches {counts}, expected {expected}")
+    rates = [v for k, v in result.items() if k not in ("metric", "unit")]
+    if not all(math.isfinite(v) and v > 0 for v in rates):
+        raise RuntimeError(f"bench: {result}")
+    print(json.dumps(result))
+    log(f"bench: {seconds:.1f} s, launches {json.dumps(counts)} [{gpu}]")
+    return counts
+
+
 def build_scenes(dev):
-    """The main paths' scenes at full width: bench.py's 65k serving scene
-    (mesh, Gaussians, a seeded residual simulator, N_FRAMES orbit cameras at
-    times 0..1, ``project(cam)``) and its 65k training configuration's pack
+    """The main paths' scenes at full width: the 65k serving scene of the
+    port's ``bench.serving_scene`` (mesh, Gaussians) with a seeded residual
+    simulator, N_FRAMES orbit cameras at times 0..1 and ``project(cam)``;
+    and the 65k training configuration's pack
     for the first camera (``t_proj``, ``train_pack``; the step renders with
     the fused pack order), at the tiling render's rasterizer picks."""
     import types
@@ -1305,8 +1485,8 @@ def build_scenes(dev):
     import numpy as np
     import torch
 
-    from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
-    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
+    from cloth_splatting_tpu_torch.bench import serving_scene
+    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera
     from cloth_splatting_tpu_torch.models import gaussians as G
     from cloth_splatting_tpu_torch.models.deform import init_residual_simulator
     from cloth_splatting_tpu_torch.ops.camera import Camera
@@ -1314,8 +1494,8 @@ def build_scenes(dev):
     from cloth_splatting_tpu_torch.render import camera_arrays, project_view
 
     tan = math.tan(FOV / 2.0)
-    mesh = grid_cloth_mesh(MESH_RES, MESH_RES, size=1.4, device=dev)
-    params, state = target_gaussians(mesh, 3, seed=SEED, device=dev)
+    serving = serving_scene(MESH_RES, dev)
+    mesh, params, state = serving
     rng = np.random.default_rng(SEED)
     simulator = init_residual_simulator(rng, int(mesh.pos.shape[0]), device=dev)
     preds = mesh.pos[None].repeat(3, 1, 1)
@@ -1341,7 +1521,8 @@ def build_scenes(dev):
     train_pack = sorted_pack(t_proj, WIDTH // tile, HEIGHT // tile, tile, win,
                              order="fused")
     return types.SimpleNamespace(
-        tan=tan, mesh=mesh, params=params, state=state, simulator=simulator,
+        serving=serving, tan=tan, mesh=mesh, params=params, state=state,
+        simulator=simulator,
         preds=preds, cams=cams, project=project, tile=tile, win=win,
         t_proj=t_proj, train_pack=train_pack)
 
@@ -1635,7 +1816,7 @@ def main() -> int:
 
     # 6. the training path: steps of the Trainer -------------------------------
     train, k2_launches, k3_launches, train_ab_ms, train_ab_launches = \
-        train_phase(mesh, tan, gpu)
+        train_phase(gpu)
     print(json.dumps({"train": train}))
     print(json.dumps({"span_ab": {
         "tiles_per_program": SPAN_32[0], "span_cap": SPAN_32[1],
@@ -1647,8 +1828,16 @@ def main() -> int:
         "wide": wide, "gpu": gpu}}))
 
     # 7. the full fit ----------------------------------------------------------
-    fit, fit_launches = fit_phase(mesh, tan, gpu)
+    fit, fit_launches, fitted = fit_phase(mesh, tan, gpu)
     print(json.dumps({"fit": fit}))
+
+    # 8. evaluation of the fitted scene ----------------------------------------
+    ev, eval_launches = eval_phase(fitted, gpu)
+    del fitted
+    print(json.dumps({"eval": ev}))
+
+    # 9. the port's benchmark entry --------------------------------------------
+    bench_launches = bench_phase(sc.serving, gpu)
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
@@ -1677,7 +1866,8 @@ def main() -> int:
     k3_entry = entry("K3 tiled_bwd forward-order gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
-                     {"train": k3_launches, "fit": fit_launches["K3"]}, k3_err, k3_ms, k3_plain_ms,
+                     {"train": k3_launches, "fit": fit_launches["K3"],
+                      "bench": bench_launches["K3"]}, k3_err, k3_ms, k3_plain_ms,
                      k3_bound)
     k3_entry["max_rel_err"] = k3_rel
     k3_entry["cull_audit"] = cull["65k train cam 0"]
@@ -1719,17 +1909,20 @@ def main() -> int:
     k1_entry = patched(entry("K1 tiled_fwd compositor",
                              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
                              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
-                             {"serving": k1_launches, "fit": fit_launches["K1"]},
+                             {"serving": k1_launches, "fit": fit_launches["K1"],
+                              "eval": eval_launches, "bench": bench_launches["K1"]},
                              k1_err, k1_ms, k1_plain_ms, k1_bound),
                        "K1", cull["65k view 0"])
     k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
                              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
-                             {"train": k2_launches, "fit": fit_launches["K2"]},
+                             {"train": k2_launches, "fit": fit_launches["K2"],
+                              "bench": bench_launches["K2"]},
                              k2_err, k2_ms, k2_plain_ms, k2_bound),
                        "K2", cull["65k train cam 0"])
-    # K1, K2, K3 over the serving frames, the Trainer steps and the fit; the
-    # span kernels over one span turn of the A/B's frames and steps
+    # K1, K2, K3 over the serving frames, the Trainer steps, the fit, the
+    # eval splits (K1) and the bench; the span kernels over one span turn of
+    # the A/B's frames and steps
     print(json.dumps({"kernels": [
         k1_entry,
         clustered(entry("K1-span tiled_fwd_span compositor, one window per program",

@@ -11,6 +11,8 @@ meshes; counterpart of ``cloth_splatting_tpu/data/scene.py``.
     masks from ``masks_gripper/<name>.png`` (mask = 1 - image).
   * NeRF++ normalization radius from the train camera centres.
   * ``init_mesh.hdf5`` and ``mesh_predictions/mesh_*.hdf5`` (GNN rollouts).
+  * the video cameras: ``video.json`` when the scene has one, else the
+    80-pose spherical orbit (``spherical_video_cameras``).
 
 Everything here is host-side numpy; ``train.loop.build_banks`` decodes the
 images once into a uint8 bank on the device. PIL and ``h5py`` are imported
@@ -142,6 +144,46 @@ def nerfpp_radius(cameras: list[Camera]) -> float:
     return float(np.linalg.norm(centers - center, axis=1).max() * 1.1)
 
 
+def spherical_video_cameras(n_poses: int, fovx: float, width: int, height: int,
+                            maxtime: float, radius: float = 4.0,
+                            phi_deg: float = -30.0,
+                            single_cam: bool = False) -> list[Camera]:
+    """The spherical orbit of ``n_poses`` cameras that video rendering uses,
+    times spread over [0, 1]; ``single_cam`` holds the camera at one pose."""
+
+    def pose_spherical(theta_deg: float) -> np.ndarray:
+        t = np.eye(4)
+        t[2, 3] = radius
+        phi = np.deg2rad(phi_deg)
+        rp = np.eye(4)
+        rp[1, 1], rp[1, 2] = np.cos(phi), -np.sin(phi)
+        rp[2, 1], rp[2, 2] = np.sin(phi), np.cos(phi)
+        th = np.deg2rad(theta_deg)
+        rt = np.eye(4)
+        rt[0, 0], rt[0, 2] = np.cos(th), -np.sin(th)
+        rt[2, 0], rt[2, 2] = np.sin(th), np.cos(th)
+        flip = np.asarray(
+            [[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=np.float64
+        )
+        return flip @ rt @ rp @ t
+
+    thetas = (np.ones(n_poses) * -90.0 if single_cam
+              else np.linspace(-180, 180, n_poses + 1)[:-1])
+    times = np.linspace(0, maxtime, n_poses) / max(maxtime, 1e-9)
+    fovy = focal2fov(fov2focal(fovx, width), height)
+    cams = []
+    for i, (theta, time) in enumerate(zip(thetas, times)):
+        c2w = pose_spherical(theta)
+        w2c = np.linalg.inv(c2w)
+        R = -w2c[:3, :3].T
+        R[:, 0] = -R[:, 0]
+        T = -w2c[:3, 3]
+        cams.append(Camera.create(R=R, t=T, fovx=fovx, fovy=fovy, width=width,
+                                  height=height, time=float(time), view_id=i,
+                                  time_id=i))
+    return cams
+
+
 class CameraGrid:
     """(view x time) grid of FrameRecords."""
 
@@ -176,6 +218,7 @@ class CameraGrid:
 class ClothScene:
     train: CameraGrid
     test: CameraGrid
+    video_cameras: list[Camera]
     initial_mesh: Mesh
     mesh_predictions: np.ndarray     # [T, V, 3]
     radius: float
@@ -201,9 +244,11 @@ def read_timeline(path: str) -> float:
 
 def load_cloth_scene(path: str, white_background: bool = True, eval_split: bool = True,
                      time_skip: int | None = None, view_skip: int | None = None,
+                     single_cam_video: bool = False,
                      device: str | torch.device = "cuda") -> ClothScene:
     """Read a scene directory; the mesh goes to ``device``. The video
-    cameras of the JAX package's scene come with the render entry point."""
+    cameras come from ``video.json`` when there is one, else from the
+    80-pose orbit at 800x800 (``single_cam_video``: one pose)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     maxtime = read_timeline(path)
@@ -215,6 +260,12 @@ def load_cloth_scene(path: str, white_background: bool = True, eval_split: bool 
     if not eval_split:
         train = train + test
         test = []
+
+    if os.path.exists(os.path.join(path, "video.json")):
+        video_cams = [r.camera for r in load_transforms(path, "video.json")]
+    else:
+        video_cams = spherical_video_cameras(
+            80, train[0].camera.fovx, 800, 800, maxtime, single_cam=single_cam_video)
 
     radius = nerfpp_radius([r.camera for r in train])
 
@@ -228,6 +279,7 @@ def load_cloth_scene(path: str, white_background: bool = True, eval_split: bool 
     return ClothScene(
         train=CameraGrid(train),
         test=CameraGrid(test) if test else CameraGrid(train),
+        video_cameras=video_cams,
         initial_mesh=initial_mesh,
         mesh_predictions=preds,
         radius=radius,

@@ -22,3 +22,10 @@ def check_on(device: torch.device, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.device.type != device.type:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work on a CUDA ``device``; nothing on the
+    CPU. Host clocks around device work start and stop at one."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

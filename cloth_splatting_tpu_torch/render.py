@@ -43,7 +43,7 @@ from cloth_splatting_tpu_torch.ops.sh import eval_sh
 SERVING_BACKEND = "tiled_fwd"
 TRAIN_BACKEND = "tiled_train"
 # backends of the JAX package that later slices of the port bring
-_LATER = {"tiled": "slice 4 (the dense tier and its k_cap)"}
+_LATER = {"tiled": "slice 4b, the dense tier and its k_cap (ROADMAP queue 1 item 3)"}
 
 
 class CameraArrays(NamedTuple):

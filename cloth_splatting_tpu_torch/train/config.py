@@ -81,7 +81,7 @@ class OptimizationConfig:
     gaussian_init_factor: int = 2
     no_coarse: bool = False
     # "auto" and "pallas" both render through K2/K3 in the port; the dense
-    # tier "tiled" comes with slice 4
+    # tier "tiled" comes with slice 4b (ROADMAP queue 1 item 3)
     raster_backend: str = "auto"
     raster_pack_order: str = "fused"
     # evaluate and save an exponential moving average of (Gaussian,

@@ -164,7 +164,8 @@ class Trainer:
         backend = cfg.opt.raster_backend
         if backend == "tiled":
             raise NotImplementedError(
-                "raster_backend 'tiled' comes with slice 4 of the port")
+                "raster_backend 'tiled' comes with slice 4b of the port, the "
+                "dense tier (ROADMAP queue 1 item 3)")
         if backend not in ("auto", "pallas"):
             raise ValueError(f"unknown raster_backend {backend!r}")
         self.backend = TRAIN_BACKEND

@@ -1,11 +1,13 @@
 """Checkpointing: a whole train state saved and restored as one tree of
 arrays in a numpy ``.npz`` file; counterpart of
 ``cloth_splatting_tpu/utils/checkpoints.py`` (its npz backend; same flat
-``a/b/c`` key layout, so either package reads the other's files)."""
+``a/b/c`` key layout, so either package reads the other's files), and the
+lookups of the latest saved step and iteration."""
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any
 
 import numpy as np
@@ -57,3 +59,26 @@ def restore_like(template: Any, flat: dict[str, np.ndarray], prefix: str = "") -
         return torch.from_numpy(np.array(arr)).to(dtype=template.dtype,
                                                    device=template.device)
     return arr
+
+
+def latest_checkpoint(directory: str, pattern: str = r".*model-(\d+)\.npz") -> str | None:
+    """The file of ``directory`` whose name matches ``pattern`` with the
+    highest step (its first group), or None."""
+    if not os.path.isdir(directory):
+        return None
+    best, best_step = None, -1
+    rx = re.compile(pattern)
+    for f in os.listdir(directory):
+        m = rx.fullmatch(f)
+        if m and int(m.group(1)) > best_step:
+            best, best_step = os.path.join(directory, f), int(m.group(1))
+    return best
+
+
+def search_max_iteration(directory: str) -> int | None:
+    """The largest n of the ``iteration_<n>`` subdirectories, or None."""
+    if not os.path.isdir(directory):
+        return None
+    iters = [int(d.split("_")[-1]) for d in os.listdir(directory)
+             if d.startswith("iteration_") and d.split("_")[-1].isdigit()]
+    return max(iters) if iters else None
