@@ -63,10 +63,24 @@ Phases, each of which raises on failure:
   9. bench: ``cloth_splatting_tpu_torch.bench.run`` at the root bench.py's
      default scales (65k FPS over 40 views on the serving scene; train
      iterations per second at 4k, 24k and 65k over 20 steps), checking its
-     launch counts, and its JSON line.
+     launch counts, and its JSON line;
+ 10. dense: the dense tier (``ops/rasterize/tiled.py``, plain PyTorch) on
+     the card against the same function on the CPU at 128x128 with a k_cap
+     that drops (values and gradients within 1e-5, the same dropped count
+     and deepest tile); the 65k serving frames through
+     ``render(backend="tiled")`` at k_cap 512 (launching none of the port's
+     kernels; ms per frame, dropped instances, the k_cap at which nothing
+     drops, PSNR against K1's frame); the fit's scene fitted through the
+     tier from k_cap 64: ``grow_k_cap`` runs and the final evaluation drops
+     nothing;
+ 11. parity: the parity arm at full width (800x800, 24 views, 8 times,
+     ``mesh_res`` 24, noise 0) through ``parity_bench``'s in-memory form for
+     300 iterations: finite numbers, the held-out PSNR above the initial
+     state's, K1, K2 and K3 launched as often as the run asks; its JSON line.
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
+{"dense": ...} line, the parity line, a {"parity": ...} line, a
 {"kernels": [...]} line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
@@ -127,6 +141,29 @@ TOL_EVAL_PSNR_DB = 1e-3
 # timed steps of 3 cameras at each of the three training scales
 BENCH_K1 = 1 + 40
 BENCH_K2_K3 = 3 * 3 * (1 + 20)
+# the dense phase: the dense tier (plain PyTorch, the JAX package's XLA tier)
+# on the card against the same function on the CPU at 128x128 with 2,116
+# Gaussians and a k_cap that drops instances: the two differ only in the
+# order of float32 sums; the 65k serving scene's frames at the tier's default
+# k_cap; a short fit through the tier from a k_cap that overflows
+DENSE_SIZE, DENSE_RES, DENSE_SMALL_CAP = 128, 24, (16, 8)
+TOL_DENSE = 1e-5
+DENSE_K_CAP = 512
+DENSE_FRAMES = 3
+DENSE_FIT_ITERATIONS = 12
+DENSE_FIT_K_CAP = 64
+# the parity phase: the arm parity_iso_zeronoise_ema (scripts/hwq_r05d.json)
+# at full width through parity_bench --in_memory, its depth cut 25x: 300 of
+# 7,500 iterations. The train command line runs a config's coarse stage as
+# the static stage (coarse_iterations, 3,000 of the arm's 7,500: --static sets
+# static_reconst_iteration, which that mapping replaces), so the cut scales
+# it to 120.
+PARITY_ITERATIONS, PARITY_STATIC, PARITY_COARSE = 300, 60, 120
+PARITY_ARGV = ["--in_memory", "--wave", "isometric", "--n_views", "24",
+               "--prediction_noise", "0", "--iterations", str(PARITY_ITERATIONS),
+               "--static", str(PARITY_STATIC), "--train_args",
+               "--time_sample balanced --lr_tail_start 0.75 --param_ema 0.995 "
+               f"--coarse_iterations {PARITY_COARSE}", "--device", "cuda"]
 # K1 and K2 against their plain versions: both walk the same chunks in the
 # same order and stop at the same chunk, so they differ only by rounding
 # (sequential products in the kernels, cumprod in the plain versions); sound
@@ -1031,13 +1068,51 @@ def state_tensors(state) -> dict:
     return out
 
 
+def fit_scene(mesh):
+    """The fit's scene built in memory: the 65k mesh on the inextensible
+    wave over FIT_TIMES times, FIT_VIEWS orbit views rendered at 800x800 by
+    the serving path into uint8 banks, and the held-out frames (the views
+    half way between the training views, at every time); checks the bank.
+    Returns (traj, cam_bank, gt_bank, the held-out ground truth [T, 3, H, W],
+    the held-out EvalFrames, the NeRF++ radius, seconds)."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.scene import nerfpp_radius
+    from cloth_splatting_tpu_torch.data.synthetic import (
+        cloth_wave_isometric,
+        orbit_camera,
+        render_scene_banks,
+    )
+    from cloth_splatting_tpu_torch.train.loop import EvalFrame
+
+    dev = mesh.pos.device
+    t0 = time.time()
+    rest = mesh.pos.cpu().numpy()
+    traj = np.stack([cloth_wave_isometric(rest, t)
+                     for t in np.linspace(0.0, 1.0, FIT_TIMES)]).astype(np.float32)
+    cam_bank, gt_bank = render_scene_banks(mesh, traj, range(FIT_VIEWS), FIT_VIEWS,
+                                           WIDTH, fov=FOV, seed=SEED, device=dev)
+    test_cams, test_gts = render_scene_banks(mesh, traj, [1], 2 * FIT_VIEWS, WIDTH,
+                                             fov=FOV, seed=SEED, device=dev)
+    test_frames = [EvalFrame(type(test_cams)(*(f[0, t] for f in test_cams)),
+                             test_gts[0, t], f"r_1_{t}") for t in range(FIT_TIMES)]
+    coverage = float((gt_bank.float().mean(dim=2) < 250).float().mean())
+    if tuple(gt_bank.shape) != (FIT_VIEWS, FIT_TIMES, 3, HEIGHT, WIDTH) \
+            or gt_bank.dtype != torch.uint8 or not 0.02 < coverage < 0.9:
+        raise RuntimeError(f"fit: ground-truth bank {tuple(gt_bank.shape)} "
+                           f"{gt_bank.dtype} coverage {coverage}")
+    radius = nerfpp_radius([orbit_camera(v, FIT_VIEWS, FOV, WIDTH, HEIGHT, 0.0)
+                            for v in range(FIT_VIEWS)])
+    return (traj, cam_bank, gt_bank, test_gts[0], test_frames, radius,
+            time.time() - t0)
+
+
 def fit_phase(mesh, tan, gpu):
-    """Fit a scene built in memory: the 65k mesh on the inextensible wave
-    over FIT_TIMES times, FIT_VIEWS orbit views rendered at 800x800 by the
-    serving path into uint8 banks, the true trajectory as the mesh
-    predictions; FIT_ITERATIONS iterations of ``fit_banks`` on
-    FIT_SCHEDULE with one held-out evaluation and one checkpoint at the
-    end. Returns (the {"fit": ...} record, the launch counts of the fit, the
+    """Fit the scene of ``fit_scene`` for FIT_ITERATIONS iterations of
+    ``fit_banks`` on FIT_SCHEDULE with one held-out evaluation and one
+    checkpoint at the end, the true trajectory as the mesh predictions.
+    Returns (the {"fit": ...} record, the launch counts of the fit, the
     fitted scene for the eval phase: the trainer, the state the fit hands
     ``save_scene_checkpoint`` at its end (its parameter average when
     ``param_ema`` is on; the PLY and HDF5 writing is left out, so that no
@@ -1049,17 +1124,10 @@ def fit_phase(mesh, tan, gpu):
     import numpy as np
     import torch
 
-    from cloth_splatting_tpu_torch.data.scene import nerfpp_radius
-    from cloth_splatting_tpu_torch.data.synthetic import (
-        cloth_wave_isometric,
-        orbit_camera,
-        render_scene_banks,
-    )
     from cloth_splatting_tpu_torch.models import gaussians as G
     from cloth_splatting_tpu_torch.train import loop
     from cloth_splatting_tpu_torch.train.config import Config
     from cloth_splatting_tpu_torch.train.loop import (
-        EvalFrame,
         evaluate_split,
         fit_banks,
         load_train_checkpoint,
@@ -1067,29 +1135,11 @@ def fit_phase(mesh, tan, gpu):
     from cloth_splatting_tpu_torch.train.step import Trainer
 
     dev = mesh.pos.device
-    t0 = time.time()
-    rest = mesh.pos.cpu().numpy()
-    traj = np.stack([cloth_wave_isometric(rest, t)
-                     for t in np.linspace(0.0, 1.0, FIT_TIMES)]).astype(np.float32)
-    cam_bank, gt_bank = render_scene_banks(mesh, traj, range(FIT_VIEWS), FIT_VIEWS,
-                                           WIDTH, fov=FOV, seed=SEED, device=dev)
-    # held out: the views half way between the training views, at every time
-    test_cams, test_gts = render_scene_banks(mesh, traj, [1], 2 * FIT_VIEWS, WIDTH,
-                                             fov=FOV, seed=SEED, device=dev)
-    test_frames = [EvalFrame(type(test_cams)(*(f[0, t] for f in test_cams)),
-                             test_gts[0, t], f"r_1_{t}") for t in range(FIT_TIMES)]
-    coverage = float((gt_bank.float().mean(dim=2) < 250).float().mean())
-    if tuple(gt_bank.shape) != (FIT_VIEWS, FIT_TIMES, 3, HEIGHT, WIDTH) \
-            or gt_bank.dtype != torch.uint8 or not 0.02 < coverage < 0.9:
-        raise RuntimeError(f"fit: ground-truth bank {tuple(gt_bank.shape)} "
-                           f"{gt_bank.dtype} coverage {coverage}")
-    scene_s = time.time() - t0
+    traj, cam_bank, gt_bank, test_gts, test_frames, radius, scene_s = fit_scene(mesh)
 
     cfg = Config()
     for key, value in FIT_SCHEDULE.items():
         setattr(cfg.opt, key, value)
-    radius = nerfpp_radius([orbit_camera(v, FIT_VIEWS, FOV, WIDTH, HEIGHT, 0.0)
-                            for v in range(FIT_VIEWS)])
     trainer = Trainer(cfg, mesh, torch.from_numpy(traj).to(dev), WIDTH, HEIGHT,
                       tan, tan, radius)
     rng = np.random.default_rng(SEED)
@@ -1221,7 +1271,7 @@ def fit_phase(mesh, tan, gpu):
     fitted = types.SimpleNamespace(
         trainer=trainer, state=saved[FIT_ITERATIONS],
         sh_degree=min(FIT_ITERATIONS // 1000, cfg.model.sh_degree), traj=traj,
-        test_gts=test_gts[0], test_psnr=record["test_psnr"])
+        test_gts=test_gts, test_psnr=record["test_psnr"])
     return record, counts, fitted
 
 
@@ -1471,6 +1521,219 @@ def bench_phase(scene, gpu: str) -> dict:
     print(json.dumps(result))
     log(f"bench: {seconds:.1f} s, launches {json.dumps(counts)} [{gpu}]")
     return counts
+
+
+def dense_phase(sc, gpu: str) -> dict:
+    """The dense tier on the card: (1) against the same function on the
+    CPU at DENSE_SIZE with a k_cap that drops (values, the binning's
+    counts, gradients); (2) the 65k serving scene's frames through
+    ``render(backend="tiled")`` at DENSE_K_CAP, timed, with the launch
+    counters set to 0 just before (the tier launches none of the port's
+    kernels), the dropped count, the deepest tile, the k_cap at which
+    nothing drops and the frame's PSNR against K1's; (3) the fit's scene
+    fitted through the tier for DENSE_FIT_ITERATIONS iterations from
+    DENSE_FIT_K_CAP, every iteration a tick: ``grow_k_cap`` must run and the
+    final evaluation must drop nothing. Returns the {"dense": ...} record."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
+    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
+    from cloth_splatting_tpu_torch.models import gaussians as G
+    from cloth_splatting_tpu_torch.ops.image import psnr
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
+    from cloth_splatting_tpu_torch.render import camera_arrays, project_view, render
+    from cloth_splatting_tpu_torch.train.config import Config
+    from cloth_splatting_tpu_torch.train.loop import evaluate_split, fit_banks
+    from cloth_splatting_tpu_torch.train.step import Trainer
+
+    dev = sc.mesh.pos.device
+    tan = sc.tan
+    record = {"gpu": gpu}
+
+    # 1. the card against the CPU, the same projected inputs
+    size = DENSE_SIZE
+    mesh = grid_cloth_mesh(DENSE_RES, DENSE_RES, size=1.4, device=dev)
+    params, state = target_gaussians(mesh, 3, seed=SEED, device=dev)
+    cam = camera_arrays(orbit_camera(1, 8, FOV, size, size, 0.0), device=dev)
+    with torch.no_grad():
+        proj = project_view(cam, size, size, tan, tan, params, state, mesh, None,
+                            None, 3)[0]
+    gen = torch.Generator().manual_seed(SEED)
+    cot = [torch.randn(shape, generator=gen)
+           for shape in ((3, size, size), (1, size, size), (1, size, size))]
+    fields = ("xy", "conic", "color", "opacity", "depth")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = proj._replace(**{k: getattr(proj, k).to(where) for k in proj._fields})
+        leaves = {f: getattr(p, f).clone().requires_grad_() for f in fields}
+        out = rasterize_tiled(p._replace(**leaves), size, size, BG,
+                              k_cap=DENSE_SMALL_CAP[0], k_chunk=DENSE_SMALL_CAP[1])
+        loss = sum((o * c.to(where)).sum() for o, c in zip(out[:3], cot))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        runs.append(([o.detach().cpu() for o in out[:3]],
+                     (int(out[3].n_dropped), int(out[3].max_tile_count)),
+                     [g.cpu() for g in grads]))
+    (vg, ag, gg), (vc, ac, gc) = runs
+    value_err = max(float((a - b).abs().max()) for a, b in zip(vg, vc))
+    grad_rel = {f: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for f, a, b in zip(fields, gg, gc)}
+    log(f"dense {size}x{size}, {int(state.alive.sum())} Gaussians, k_cap "
+        f"{DENSE_SMALL_CAP[0]}: card vs CPU max|diff| {value_err:.3e}, gradients "
+        f"(of each field's max) {json.dumps(grad_rel)}, dropped / deepest tile "
+        f"{ag} (card) {ac} (CPU)")
+    if not value_err <= TOL_DENSE or not max(grad_rel.values()) <= TOL_DENSE \
+            or ag != ac or ag[0] == 0:
+        raise RuntimeError(f"dense: card against CPU {value_err}, {grad_rel}, "
+                           f"binning {ag} against {ac}")
+    record["card_vs_cpu"] = {"size": size, "gaussians": int(state.alive.sum()),
+                             "k_cap": DENSE_SMALL_CAP[0], "max_abs_err": value_err,
+                             "grad_rel_err": grad_rel, "n_dropped": ag[0],
+                             "max_tile_count": ag[1]}
+
+    # 2. the 65k serving frames through render(backend="tiled")
+    def frame(c, k_cap=DENSE_K_CAP):
+        return render(c, WIDTH, HEIGHT, tan, tan, sc.params, sc.state, sc.mesh,
+                      sc.simulator, sc.preds, BG, 3, k_cap=k_cap, backend="tiled",
+                      device=dev)
+
+    with torch.no_grad():
+        frame(sc.cams[0])
+        reset_launch_counts()
+        device_ms, host_ms, outs = timed_calls(frame, sc.cams[:DENSE_FRAMES])
+        counts = {k: v for k, v in launch_counts().items() if v}
+        proj0 = sc.project(sc.cams[0])
+
+        def raster(k_cap):
+            return rasterize_tiled(proj0, WIDTH, HEIGHT, BG, k_cap=k_cap,
+                                   k_chunk=min(32, k_cap))
+
+        raster_ms = timed_calls(lambda _: raster(DENSE_K_CAP), range(3))[0]
+        caps = {}
+        cap = DENSE_K_CAP
+        while True:
+            aux = raster(cap)[3]
+            caps[cap] = int(aux.n_dropped)
+            if caps[cap] == 0 or cap >= 8192:
+                break
+            cap *= 2
+        exact = frame(sc.cams[0], cap).rgb
+        k1_rgb = render(sc.cams[0], WIDTH, HEIGHT, tan, tan, sc.params, sc.state,
+                        sc.mesh, sc.simulator, sc.preds, BG, 3, device=dev).rgb
+    if counts:
+        raise RuntimeError(f"dense: the dense frames launched {counts}")
+    for i, out in enumerate(outs):
+        for name in ("rgb", "depth", "alpha"):
+            if not bool(torch.isfinite(getattr(out, name)).all()):
+                raise RuntimeError(f"dense frame {i}: non-finite {name}")
+    if caps[cap] != 0:
+        raise RuntimeError(f"dense: instances still drop at k_cap {cap}: {caps}")
+    with torch.no_grad():
+        aux512 = raster(DENSE_K_CAP)[3]
+    record["serving"] = {
+        "frames": DENSE_FRAMES, "width": WIDTH, "height": HEIGHT,
+        "gaussians": int(sc.state.alive.sum()), "k_cap": DENSE_K_CAP,
+        "ms_per_frame": device_ms, "host_ms_per_frame": host_ms,
+        "rasterize_ms": raster_ms, "n_dropped": int(outs[0].n_dropped),
+        "max_tile_count": int(aux512.max_tile_count), "n_dropped_by_k_cap": caps,
+        "k_cap_nothing_dropped": cap,
+        "psnr_vs_k1_db": float(psnr(torch.clamp(outs[0].rgb, 0, 1),
+                                    torch.clamp(k1_rgb, 0, 1))),
+        "psnr_vs_k1_db_nothing_dropped": float(psnr(torch.clamp(exact, 0, 1),
+                                                    torch.clamp(k1_rgb, 0, 1)))}
+    log(f"dense 65k {WIDTH}x{HEIGHT} k_cap {DENSE_K_CAP}: {device_ms:.3f} ms/frame "
+        f"(device), {host_ms:.3f} (host), rasterize_tiled {raster_ms:.3f} ms, "
+        f"dropped {record['serving']['n_dropped']}, deepest tile "
+        f"{record['serving']['max_tile_count']}, nothing drops at k_cap {cap} "
+        f"({json.dumps(caps)}), PSNR vs K1 "
+        f"{record['serving']['psnr_vs_k1_db']:.3f} dB "
+        f"({record['serving']['psnr_vs_k1_db_nothing_dropped']:.3f} at k_cap "
+        f"{cap}) [{gpu}]")
+
+    # 3. a short fit through the tier from an overflowing k_cap
+    traj, cam_bank, gt_bank, _, test_frames, radius, _ = fit_scene(sc.mesh)
+    cfg = Config()
+    for key, value in dict(iterations=DENSE_FIT_ITERATIONS, raster_backend="tiled",
+                           raster_k_cap=DENSE_FIT_K_CAP, densify_from_iter=10**6,
+                           opacity_reset_interval=10**6, bary_cleanup=10**6).items():
+        setattr(cfg.opt, key, value)
+    trainer = Trainer(cfg, sc.mesh, torch.from_numpy(traj).to(dev), WIDTH, HEIGHT,
+                      tan, tan, radius)
+    rng = np.random.default_rng(SEED)
+    fparams, fstate = G.init_from_mesh(rng, sc.mesh, cfg.model.sh_degree, 2,
+                                       capacity=TRAIN_CAPACITY, device=dev)
+    state0 = trainer.init_state(rng, fparams, fstate)
+    grown = []
+    grow = trainer.grow_k_cap
+
+    def counted_grow(*args, **kwargs):
+        grown.append(grow(*args, **kwargs))
+        return grown[-1]
+
+    trainer.grow_k_cap = counted_grow
+    ticks = []
+    reset_launch_counts()
+    t0 = time.time()
+    final = fit_banks(trainer, state0, cam_bank, gt_bank, None, seed=SEED,
+                      on_iteration=lambda i, m: ticks.append(m["psnr"]))
+    ev = evaluate_split(trainer, final, test_frames, cfg.model.white_background, 0)
+    fit_s = time.time() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts:
+        raise RuntimeError(f"dense fit: launched {counts}")
+    if not grown or ev["n_dropped"] != 0 or not all(map(math.isfinite, ticks)) \
+            or not math.isfinite(ev["psnr"]):
+        raise RuntimeError(f"dense fit: k_cap grew to {grown}, evaluation {ev}, "
+                           f"PSNR ticks {ticks}")
+    record["fit"] = {"iterations": DENSE_FIT_ITERATIONS, "k_cap_start": DENSE_FIT_K_CAP,
+                     "k_cap_grown_to": grown, "seconds": fit_s,
+                     "eval_k_cap": ev["k_cap"], "eval_n_dropped": ev["n_dropped"],
+                     "test_psnr": ev["psnr"], "train_psnr": ticks}
+    log(f"dense fit: {DENSE_FIT_ITERATIONS} iterations from k_cap {DENSE_FIT_K_CAP}, "
+        f"grown to {grown}, evaluation at k_cap {ev['k_cap']} dropped "
+        f"{ev['n_dropped']}, test PSNR {ev['psnr']:.3f}, {fit_s:.1f} s [{gpu}]")
+    return record
+
+
+def parity_phase(gpu: str) -> tuple[dict, dict]:
+    """The parity arm at full width through ``parity_bench``'s in-memory
+    form (PARITY_ARGV), with the launch counters set to 0 just before: every
+    number finite, the held-out PSNR above the initial state's, and K1, K2
+    and K3 launched as often as the run asks and nothing else. Prints the
+    run's JSON line. Returns (the {"parity": ...} record, its launches)."""
+    from cloth_splatting_tpu_torch import parity_bench
+
+    args = parity_bench.build_parser().parse_args(PARITY_ARGV)
+    reset_launch_counts()
+    run = parity_bench.run_in_memory(args)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    line = run["line"]
+    n_test = len(parity_bench.TEST_VIEWS) * args.n_times
+    # K1: the ground truth of every view and time, the test split scored
+    # before and after the fit (a warm-up, a timed and an export pass each)
+    # and the fit's own evaluation; K2 and K3: one camera a static step,
+    # three a dynamic one
+    static = PARITY_COARSE - 1
+    expected = {"K1": args.n_views * args.n_times + 2 * (2 * n_test + 1) + n_test,
+                "K2": static + 3 * (PARITY_ITERATIONS - static)}
+    expected["K3"] = expected["K2"]
+    numbers = [line[k] for k in ("value", "ssim", "lpips", "mte_mm")] + [
+        v for k, v in run.items() if k != "line"]
+    if counts != expected:
+        raise RuntimeError(f"parity: launches {counts}, expected {expected}")
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) for v in numbers):
+        raise RuntimeError(f"parity: {run}")
+    if not line["value"] > run["test_psnr_before"]:
+        raise RuntimeError(f"parity: test PSNR {run['test_psnr_before']:.3f} before "
+                           f"the fit, {line['value']} after")
+    print(json.dumps(line))
+    log(f"parity: {PARITY_ITERATIONS} iterations (the arm's 7,500 cut 25x; static "
+        f"{static} of them), {run['iterations_per_second']:.3f} it/s, "
+        f"{run['n_gaussians']} Gaussians, test PSNR {run['test_psnr_before']:.3f} "
+        f"-> {line['value']} dB, launches {json.dumps(counts)} [{gpu}]")
+    record = {"argv": PARITY_ARGV, "line": line, "launches": counts, "gpu": gpu,
+              **{k: v for k, v in run.items() if k != "line"}}
+    return record, counts
 
 
 def build_scenes(dev):
@@ -1839,6 +2102,13 @@ def main() -> int:
     # 9. the port's benchmark entry --------------------------------------------
     bench_launches = bench_phase(sc.serving, gpu)
 
+    # 10. the dense tier -------------------------------------------------------
+    print(json.dumps({"dense": dense_phase(sc, gpu)}))
+
+    # 11. the parity run --------------------------------------------------------
+    parity, parity_launches = parity_phase(gpu)
+    print(json.dumps({"parity": parity}))
+
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
 
@@ -1867,7 +2137,8 @@ def main() -> int:
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
                      {"train": k3_launches, "fit": fit_launches["K3"],
-                      "bench": bench_launches["K3"]}, k3_err, k3_ms, k3_plain_ms,
+                      "bench": bench_launches["K3"], "parity": parity_launches["K3"]},
+                     k3_err, k3_ms, k3_plain_ms,
                      k3_bound)
     k3_entry["max_rel_err"] = k3_rel
     k3_entry["cull_audit"] = cull["65k train cam 0"]
@@ -1910,14 +2181,16 @@ def main() -> int:
                              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
                              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
                              {"serving": k1_launches, "fit": fit_launches["K1"],
-                              "eval": eval_launches, "bench": bench_launches["K1"]},
+                              "eval": eval_launches, "bench": bench_launches["K1"],
+                              "parity": parity_launches["K1"]},
                              k1_err, k1_ms, k1_plain_ms, k1_bound),
                        "K1", cull["65k view 0"])
     k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
                              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
                              {"train": k2_launches, "fit": fit_launches["K2"],
-                              "bench": bench_launches["K2"]},
+                              "bench": bench_launches["K2"],
+                              "parity": parity_launches["K2"]},
                              k2_err, k2_ms, k2_plain_ms, k2_bound),
                        "K2", cull["65k train cam 0"])
     # K1, K2, K3 over the serving frames, the Trainer steps, the fit, the

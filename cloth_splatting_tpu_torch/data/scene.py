@@ -55,6 +55,19 @@ def _ids_from_name(name: str, transform, time, unique_transforms, unique_times):
     return view_id, time_id
 
 
+def camera_from_transform(transform_matrix, fovx: float, fovy: float, width: int,
+                          height: int, time: float, view_id: int,
+                          time_id: int) -> Camera:
+    """The camera of a frame's OpenGL/Blender camera-to-world
+    ``transform_matrix``: COLMAP-convention W2C with R stored transposed."""
+    c2w = np.asarray(transform_matrix, dtype=np.float64).copy()
+    c2w[:3, 1:3] *= -1
+    w2c = np.linalg.inv(c2w)
+    return Camera.create(R=w2c[:3, :3].T, t=w2c[:3, 3], fovx=fovx, fovy=fovy,
+                         width=width, height=height, time=time,
+                         view_id=view_id, time_id=time_id)
+
+
 def load_transforms(path: str, transformsfile: str, extension: str = ".png",
                     time_skip: int | None = None, view_skip: int | None = None
                     ) -> list[FrameRecord]:
@@ -89,13 +102,6 @@ def load_transforms(path: str, transformsfile: str, extension: str = ".png",
         if view_skip and view_id % view_skip != 0:
             continue
 
-        # OpenGL/Blender c2w -> COLMAP-convention W2C with transposed R.
-        c2w = np.asarray(fr["transform_matrix"], dtype=np.float64).copy()
-        c2w[:3, 1:3] *= -1
-        w2c = np.linalg.inv(c2w)
-        R = w2c[:3, :3].T
-        T = w2c[:3, 3]
-
         img_path = os.path.join(path, file_path)
         with open(img_path, "rb") as imf:
             # decode lazily later; read size from the PNG header via PIL
@@ -105,9 +111,8 @@ def load_transforms(path: str, transformsfile: str, extension: str = ".png",
                 width, height = im.size
 
         fovy_eff = fovy if fovy is not None else focal2fov(fov2focal(fovx, width), height)
-        cam = Camera.create(R=R, t=T, fovx=fovx, fovy=fovy_eff, width=width,
-                            height=height, time=float(time),
-                            view_id=view_id, time_id=time_id)
+        cam = camera_from_transform(fr["transform_matrix"], fovx, fovy_eff, width,
+                                    height, float(time), view_id, time_id)
         mask_path = os.path.join(mask_dir, name + ".png") if has_masks else None
         records.append(FrameRecord(camera=cam, image_path=img_path,
                                    image_name=name, mask_path=mask_path))

@@ -142,6 +142,37 @@ def smooth_prediction_error(rest: np.ndarray, n_times: int, rms: float,
     return field * scale
 
 
+def scene_motion(rest: np.ndarray, n_times: int, wave: str,
+                 prediction_noise: float, noise_mode: str, seed: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(the true vertex trajectory [T, V, 3] at times linspace(0, 1, T) of
+    the ``wave`` deformation of ``rest``, the mesh predictions [T, V, 3]
+    float32: the trajectory plus the ``prediction_noise`` error, drawn from
+    ``default_rng(seed + 1)``)."""
+    rng = np.random.default_rng(seed + 1)
+    traj = np.stack([WAVES[wave](rest, t) for t in np.linspace(0.0, 1.0, n_times)])
+    if prediction_noise > 0 and noise_mode == "smooth":
+        err = smooth_prediction_error(rest, n_times, prediction_noise, rng)
+    elif prediction_noise > 0:
+        err = rng.normal(0, prediction_noise, (n_times,) + rest.shape)
+    else:
+        err = np.zeros((n_times,) + rest.shape)
+    return traj, (traj + err).astype(np.float32)
+
+
+@torch.no_grad()
+def gaussian_trajectory(params: G.GaussianParams, state: G.GaussianState,
+                        mesh: G.Mesh, traj: np.ndarray) -> np.ndarray:
+    """The alive Gaussians' centres [T, M, 3] on the vertex trajectory
+    ``traj``: the ground truth of tracking (``gt.npz``)."""
+    alive = state.alive.cpu().numpy()
+    return np.stack([
+        G.gaussian_positions(params, state, mesh,
+                             torch.as_tensor(v, dtype=torch.float32,
+                                             device=mesh.pos.device)).cpu().numpy()[alive]
+        for v in traj])
+
+
 @torch.no_grad()
 def render_rgba(cam: Camera, params: G.GaussianParams, state: G.GaussianState,
                 mesh: G.Mesh, vertices: torch.Tensor,
@@ -235,33 +266,17 @@ def generate_synthetic_scene(
     os.makedirs(out_dir, exist_ok=True)
     rest_mesh = grid_cloth_mesh(mesh_res, mesh_res, size=1.4, device=dev)
     params, state = target_gaussians(rest_mesh, sh_degree=3, seed=seed, device=dev)
-    rng = np.random.default_rng(seed + 1)
-
-    rest = rest_mesh.pos.cpu().numpy()
     times = np.linspace(0.0, 1.0, n_times)
-    wave_fn = WAVES[wave]
-    traj = np.stack([wave_fn(rest, t) for t in times])              # [T, V, 3]
+    traj, preds = scene_motion(rest_mesh.pos.cpu().numpy(), n_times, wave,
+                               prediction_noise, noise_mode, seed)
 
     save_mesh_h5(os.path.join(out_dir, "init_mesh.hdf5"), rest_mesh)
-    if prediction_noise > 0 and noise_mode == "smooth":
-        err = smooth_prediction_error(rest, n_times, prediction_noise, rng)
-    elif prediction_noise > 0:
-        err = rng.normal(0, prediction_noise, (n_times,) + rest.shape)
-    else:
-        err = np.zeros((n_times,) + rest.shape)
     for i in range(n_times):
         save_positions_h5(
             os.path.join(out_dir, "mesh_predictions", f"mesh_{i:03d}.hdf5"),
-            rest_mesh, (traj[i] + err[i]).astype(np.float32))
-
-    # Gaussian ground-truth trajectory for tracking evaluation
-    alive = state.alive.cpu().numpy()
-    xyz_t = np.stack([
-        G.gaussian_positions(params, state, rest_mesh,
-                             torch.as_tensor(traj[i], dtype=torch.float32,
-                                             device=dev)).cpu().numpy()[alive]
-        for i in range(n_times)])
-    np.savez(os.path.join(out_dir, "gt.npz"), traj=xyz_t)
+            rest_mesh, preds[i])
+    np.savez(os.path.join(out_dir, "gt.npz"),
+             traj=gaussian_trajectory(params, state, rest_mesh, traj))
 
     frames = {"train": [], "test": []}
     for ti, t in enumerate(times):

@@ -11,9 +11,12 @@ reference's ``render.py`` writes: per-frame PNGs under
 flow overlays under ``flow/``, ``deform_log_*.npz`` and, with
 ``log_deform``, the tracked trajectories ``<model>/all_trajs.npz``.
 
-Frames go through the serving backend ``"tiled_fwd"``: K1 on the card, its
-plain version on the CPU. It tiles a frame by 16 px; other sizes need the
-dense tier, which is not ported yet (ROADMAP queue 1 item 3).
+A frame that tiles by 16 px goes through the serving backend
+``"tiled_fwd"``: K1 on the card, its plain version on the CPU. Any other
+frame goes to the dense tier, as in the JAX package, and that tier raises
+its ``ValueError``: it tiles by 16 px as well, so such frames render in
+neither package. The JAX package's per-split ``k_cap`` doubling serves only
+that tier, which no frame the port renders reaches, so it is left out.
 """
 
 from __future__ import annotations
@@ -33,7 +36,12 @@ from cloth_splatting_tpu_torch.models.deform import (
     RESIDUAL_FIELDS,
     simulator_from_params,
 )
-from cloth_splatting_tpu_torch.render import SERVING_BACKEND, camera_arrays, render
+from cloth_splatting_tpu_torch.render import (
+    DENSE_BACKEND,
+    SERVING_BACKEND,
+    camera_arrays,
+    render,
+)
 from cloth_splatting_tpu_torch.utils.checkpoints import (
     latest_checkpoint,
     load_flat,
@@ -124,7 +132,8 @@ def render_frames(cameras, params, state, mesh, simulator, preds,
                   keep_logs: bool = False,
                   device: str | torch.device = "cuda") -> RenderedSet:
     """Render ``cameras`` (``ops.camera.Camera``s of one size) through the
-    serving backend: one warm-up frame outside the clock, a timed pass over
+    serving backend (the dense tier for a frame that does not tile by 16 px,
+    which raises there): one warm-up frame outside the clock, a timed pass over
     every camera that keeps nothing (on CUDA the clock starts and stops at a
     synchronize), then every camera once more for the returned frames and,
     with ``keep_logs``, each frame's deformation log (deformed means and
@@ -132,16 +141,14 @@ def render_frames(cameras, params, state, mesh, simulator, preds,
     dev = resolve_device(device)
     cam0 = cameras[0]
     w, h = cam0.width, cam0.height
-    if w % TILE_MULTIPLE or h % TILE_MULTIPLE:
-        raise NotImplementedError(
-            f"a {w}x{h} frame does not tile by {TILE_MULTIPLE} px: it needs the "
-            "dense tier, which is not ported yet (ROADMAP queue 1 item 3)")
+    backend = (SERVING_BACKEND if w % TILE_MULTIPLE == 0 and h % TILE_MULTIPLE == 0
+               else DENSE_BACKEND)
     bg = (1.0, 1.0, 1.0) if white_background else (0.0, 0.0, 0.0)
 
     def render_one(cam_arr):
         return render(cam_arr, w, h, cam0.tanfovx, cam0.tanfovy, params, state,
                       mesh, simulator, preds, bg, sh_degree,
-                      backend=SERVING_BACKEND, device=dev)
+                      backend=backend, device=dev)
 
     cam_arrs = [camera_arrays(cam, dev) for cam in cameras]
     render_one(cam_arrs[0])
@@ -168,12 +175,12 @@ def render_frames(cameras, params, state, mesh, simulator, preds,
     return RenderedSet(frames, logs, fps, elapsed)
 
 
-def write_trajectories(path: str, cameras, deform_logs, alive: np.ndarray,
-                       track_vertices: bool = False) -> None:
-    """``all_trajs.npz`` {'traj', 'rotations'}: ONE entry per unique time,
-    in time order (views that share a time share its deformation; stacking
-    the camera order of an interleaved grid would corrupt the time axis).
-    Tracks the alive Gaussians' means, or the mesh vertices."""
+def trajectories(cameras, deform_logs, alive: np.ndarray,
+                 track_vertices: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """(traj [T, M, 3], rotations [T, M, 4]): ONE entry per unique time, in
+    time order (views that share a time share its deformation; stacking the
+    camera order of an interleaved grid would corrupt the time axis), of the
+    alive Gaussians' means or of the mesh vertices."""
     traj_key = "vertice_deform" if track_vertices else "means3D_deform"
     by_time: dict = {}
     for cam, d in zip(cameras, deform_logs):
@@ -187,6 +194,13 @@ def write_trajectories(path: str, cameras, deform_logs, alive: np.ndarray,
     rots = np.stack([d["rotations"] for d in time_logs])
     if not track_vertices:
         rots = rots[:, alive]
+    return trajs, rots
+
+
+def write_trajectories(path: str, cameras, deform_logs, alive: np.ndarray,
+                       track_vertices: bool = False) -> None:
+    """``all_trajs.npz`` {'traj', 'rotations'} of ``trajectories``."""
+    trajs, rots = trajectories(cameras, deform_logs, alive, track_vertices)
     np.savez(path, traj=trajs, rotations=rots)
 
 

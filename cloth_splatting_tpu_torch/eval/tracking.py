@@ -57,14 +57,11 @@ def align_trajectories(pred_traj: np.ndarray, pred_rot: np.ndarray | None,
     return aligned, mte
 
 
-def evaluate_tracking(all_trajs_path: str, gt_path: str,
-                      save_aligned: str | None = None) -> dict:
-    """``all_trajs.npz`` (from ``eval.render --log_deform``) against the
-    dataset's ``gt.npz`` {'traj': [T, M, 3]}."""
-    data = np.load(all_trajs_path)
-    pred = data["traj"]
-    rot = data["rotations"] if "rotations" in data.files else None
-    gt = np.load(gt_path, allow_pickle=True)["traj"]
+def score_tracking(pred: np.ndarray, rot: np.ndarray | None, gt: np.ndarray,
+                   save_aligned: str | None = None) -> dict:
+    """MTE of inferred trajectories ``pred`` [T, N, 3] (with rotations
+    [T, N, 4], or None) against ground truth ``gt`` [T', M, 3], over their
+    common times; ``save_aligned`` writes {'aligned', 'mte'}."""
     t = min(pred.shape[0], gt.shape[0])
     aligned, mte = align_trajectories(pred[:t], rot[:t] if rot is not None else None,
                                       gt[:t])
@@ -72,3 +69,13 @@ def evaluate_tracking(all_trajs_path: str, gt_path: str,
         np.savez(save_aligned, aligned=aligned, mte=mte)
     return {"mte_mean": float(mte.mean()), "mte_median": float(np.median(mte)),
             "n_points": int(mte.shape[0]), "n_times": int(t)}
+
+
+def evaluate_tracking(all_trajs_path: str, gt_path: str,
+                      save_aligned: str | None = None) -> dict:
+    """``all_trajs.npz`` (from ``eval.render --log_deform``) against the
+    dataset's ``gt.npz`` {'traj': [T, M, 3]}."""
+    data = np.load(all_trajs_path)
+    rot = data["rotations"] if "rotations" in data.files else None
+    gt = np.load(gt_path, allow_pickle=True)["traj"]
+    return score_tracking(data["traj"], rot, gt, save_aligned)

@@ -2,14 +2,18 @@
 
 Pipeline per camera: residual simulator -> deformed vertices -> barycentric
 Gaussian means + face rotations -> SH colours -> EWA projection -> sort
-binning -> tile compositor. Two backends:
+binning -> tile compositor. Three backends:
 
 - ``"tiled_fwd"`` (serving, the JAX package's ``"pallas_fwd"``): K1, run
   under ``torch.no_grad``;
 - ``"tiled_train"`` (training, the JAX package's ``"pallas"``): K2 with K3
   as its backward; autograd flows through the whole front end (simulator,
   barycentric positions, face rotations, SH, EWA) and to ``screen_offset``,
-  whose gradient is the density-control statistic.
+  whose gradient is the density-control statistic;
+- ``"tiled"`` (the JAX package's default, its dense XLA tier): the plain
+  PyTorch dense tier of ``ops/rasterize/tiled.py``, differentiable, with a
+  per-tile list capacity ``k_cap`` whose overflow it reports in
+  ``n_dropped``.
 """
 
 from __future__ import annotations
@@ -36,14 +40,14 @@ from cloth_splatting_tpu_torch.ops.projection import (
     project_gaussians,
 )
 from cloth_splatting_tpu_torch.ops.quaternion import quat_normalize
+from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fwd
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import rasterize_tiled_train
 from cloth_splatting_tpu_torch.ops.sh import eval_sh
 
 SERVING_BACKEND = "tiled_fwd"
 TRAIN_BACKEND = "tiled_train"
-# backends of the JAX package that later slices of the port bring
-_LATER = {"tiled": "slice 4b, the dense tier and its k_cap (ROADMAP queue 1 item 3)"}
+DENSE_BACKEND = "tiled"
 
 
 class CameraArrays(NamedTuple):
@@ -65,7 +69,7 @@ class RenderOutput(NamedTuple):
     vertices: torch.Tensor     # [V, 3] deformed mesh vertices
     rotations: torch.Tensor    # [C, 4]
     projections: torch.Tensor  # [C, 2] pixel-space projections
-    n_dropped: torch.Tensor    # binning overflow (always 0 here)
+    n_dropped: torch.Tensor    # binning overflow (0 but on the dense tier)
 
 
 def camera_arrays(cam, device: str | torch.device = "cuda") -> CameraArrays:
@@ -151,24 +155,24 @@ def render(
     scaling_modifier: float = 1.0,
     override_color: torch.Tensor | None = None,
     override_vertices: torch.Tensor | None = None,
+    k_cap: int = 512,
+    k_chunk: int = 32,
     backend: str = SERVING_BACKEND,
     pack_order: str = "fused",
     device: str | torch.device = "cuda",
 ) -> RenderOutput:
     """Render one camera; ``sh_degree`` is the active SH degree.
 
-    ``backend`` is ``"tiled_fwd"`` (serving, no autograd) or
-    ``"tiled_train"`` (differentiable). ``override_vertices`` renders at explicitly given deformed vertices
+    ``backend`` is ``"tiled_fwd"`` (serving, no autograd),
+    ``"tiled_train"`` (differentiable) or ``"tiled"`` (the dense tier,
+    differentiable; ``k_cap`` and ``k_chunk`` are its per-tile list
+    capacity and compositing chunk, as in the JAX package). ``override_vertices`` renders at explicitly given deformed vertices
     (bypassing the simulator). ``bg_color`` is a static RGB triple (it is
     part of the compositor's epilogue). ``screen_offset`` [C, 2] shifts the
     projected means by ``offset * (W/2, H/2)`` pixels. All tensors must lie
     on ``device``."""
     dev = resolve_device(device)
-    if backend not in (SERVING_BACKEND, TRAIN_BACKEND):
-        if backend in _LATER:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet: it comes with "
-                f"{_LATER[backend]}")
+    if backend not in (SERVING_BACKEND, TRAIN_BACKEND, DENSE_BACKEND):
         raise ValueError(f"unknown backend {backend!r}")
     check_on(dev, face_bary=params.face_bary, alive=state.alive, mesh_pos=mesh.pos,
              world_view=cam.world_view)
@@ -184,6 +188,10 @@ def render(
         if serving:
             rgb, depth, alpha, aux = rasterize_tiled_fwd(
                 proj, width, height, bg, pack_order=pack_order)
+            n_dropped = aux.n_dropped
+        elif backend == DENSE_BACKEND:
+            rgb, depth, alpha, aux = rasterize_tiled(
+                proj, width, height, bg, k_cap=k_cap, k_chunk=min(k_chunk, k_cap))
             n_dropped = aux.n_dropped
         else:
             rgb, depth, alpha = rasterize_tiled_train(

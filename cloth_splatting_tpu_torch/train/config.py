@@ -2,13 +2,13 @@
 ``cloth_splatting_tpu/train/config.py`` that the port reads, under the same
 group and field names, with the same defaults.
 
-The port has only the fields its code reads (the train step, density
-control, the loop and its command line); the dense tier's ``raster_k_cap``
-and ``raster_k_chunk`` come with that tier. So an override of a field the
-port does not have raises instead of doing nothing, except for the fields
-that nothing reads in the JAX package either (``IGNORED``), which the
-published config files set (``cloth_splatting_tpu/configs/``, overlaid by
-``load_config_file`` as the root ``train.py --configs`` overlays them).
+The port has only the fields its code reads (the train step, the dense
+tier's ``raster_k_cap`` and ``raster_k_chunk``, density control, the loop
+and its command line). The fields that nothing reads in the JAX package
+either are ``IGNORED``: accepted (the published config files under
+``cloth_splatting_tpu/configs/`` set some, and the root ``train.py`` has a
+flag for each) and dropped. An override of any other field raises instead
+of doing nothing.
 """
 
 from __future__ import annotations
@@ -80,8 +80,12 @@ class OptimizationConfig:
     bary_cleanup: int = 200
     gaussian_init_factor: int = 2
     no_coarse: bool = False
-    # "auto" and "pallas" both render through K2/K3 in the port; the dense
-    # tier "tiled" comes with slice 4b (ROADMAP queue 1 item 3)
+    # the dense tier's per-tile list capacity (grown on overflow by the
+    # loop) and compositing chunk
+    raster_k_cap: int = 512
+    raster_k_chunk: int = 32
+    # "auto" and "pallas" both render through K2/K3 in the port; "tiled"
+    # trains through the dense tier
     raster_backend: str = "auto"
     raster_pack_order: str = "fused"
     # evaluate and save an exponential moving average of (Gaussian,
@@ -109,15 +113,29 @@ _GROUP_MAP = {
     "MeshnetParams": "meshnet",
 }
 
-# What the JAX package accepts and never reads, so the port accepts and
-# ignores it too: the k-planes group (vestigial in the reference) and four
-# OptimizationParams fields that the config files set (the JAX package's
-# train/config.py keeps them for the files' sake; its renderer reads
-# ModelParams' white_background, not this one).
+# What the JAX package accepts and never reads, with its defaults there, so
+# the port accepts and ignores it too: the k-planes group (vestigial in the
+# reference), PipelineParams, and the fields of the other groups that the
+# JAX package keeps for the reference's config files and command line (its
+# renderer reads ModelParams' white_background, not OptimizationParams').
 IGNORED = {
     "ModelHiddenParams": None,            # the whole group
-    "OptimizationParams": ("mesh_type", "pruningy_until_iter",
-                           "position_lr_static", "white_background"),
+    "ModelParams": {"images": "images", "resolution": -1, "data_device": "tpu",
+                    "render_process": False},
+    "PipelineParams": {"convert_SHs_python": False, "compute_cov3D_python": False,
+                       "debug": False},
+    "OptimizationParams": {
+        "dataloader": False, "position_lr_static": 0.0016,
+        "deformation_lr_init": 0.00016, "deformation_lr_final": 0.000016,
+        "deformation_lr_delay_mult": 0.01, "grid_lr_init": 0.0016,
+        "grid_lr_final": 0.00016, "lambda_lpips": 0.0,
+        "weight_constraint_init": 1.0, "weight_constraint_after": 0.2,
+        "weight_decay_iteration": 5000, "densify_grad_threshold_coarse": 0.0002,
+        "pruningy_until_iter": 4500, "opacity_threshold_coarse": 0.005,
+        "initial_gaussians": 2000, "mesh_type": "multi",
+        "white_background": True},
+    "MeshnetParams": {"meshnet_path": "", "meshnet_file": "latest",
+                      "lr_decay_rate": 0.1, "lr_decay_steps": 5e6},
 }
 
 
@@ -126,16 +144,17 @@ def apply_overrides(cfg: Config, group_dicts: dict[str, dict[str, Any]]) -> Conf
     what ``IGNORED`` lists is skipped, other unknown groups and fields
     raise."""
     for group_name, values in group_dicts.items():
-        ignored = IGNORED.get(group_name, ())
+        ignored = IGNORED.get(group_name, {})
         if ignored is None:
             continue
-        if group_name not in _GROUP_MAP:
+        if group_name not in _GROUP_MAP and group_name not in IGNORED:
             raise KeyError(f"Unknown config group: {group_name}")
-        group = getattr(cfg, _GROUP_MAP[group_name])
+        group = getattr(cfg, _GROUP_MAP[group_name]) if group_name in _GROUP_MAP \
+            else None
         for key, value in values.items():
             if key in ignored:
                 continue
-            if not hasattr(group, key):
+            if group is None or not hasattr(group, key):
                 raise KeyError(f"{group_name} has no field {key!r} in the port")
             setattr(group, key, value)
     return cfg

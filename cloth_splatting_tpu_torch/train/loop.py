@@ -11,8 +11,13 @@ scene on disk and hands them to ``fit_banks``, the loop itself, which a
 caller with banks made in memory can call directly (it needs neither
 ``h5py`` nor an image library unless it is asked to save or evaluate).
 
-Not ported yet: the live viewer hook, ``wandb``, the multi-device mesh and
-the dense tier's ``k_cap`` growth.
+The dense tier truncates each tile's list at ``raster_k_cap``: the loop
+reads the dropped count at its progress ticks and doubles the cap after two
+overflowing ticks in a row, up to ``K_CAP_MAX``; a held-out evaluation
+through that tier doubles it until the split drops nothing. The loop also
+polls the live viewer (``utils/viewer.py``) and logs to a ``wandb``
+adapter when given one. Not ported yet: the multi-device mesh (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from cloth_splatting_tpu_torch.models import gaussians as G
 from cloth_splatting_tpu_torch.models.deform import simulator_from_params
 from cloth_splatting_tpu_torch.ops.image import psnr as psnr_fn
 from cloth_splatting_tpu_torch.render import (
+    DENSE_BACKEND,
     SERVING_BACKEND,
     CameraArrays,
     camera_arrays,
@@ -44,6 +50,9 @@ from cloth_splatting_tpu_torch.train.config import Config
 from cloth_splatting_tpu_torch.train.step import SplatTrainState, StepCarry, Trainer
 from cloth_splatting_tpu_torch.utils import checkpoints
 from cloth_splatting_tpu_torch.utils.logging import MetricsLogger
+
+# the dense tier's k_cap grows no further (the JAX package's limit)
+K_CAP_MAX = 8192
 
 
 def build_banks(grid: CameraGrid, white_background: bool,
@@ -97,29 +106,48 @@ def evaluate_split(trainer: Trainer, state: SplatTrainState,
                    frames: Sequence[EvalFrame] | CameraGrid,
                    white_background: bool, sh_degree: int,
                    max_cameras: int = 20,
-                   save_dir: str | None = None) -> dict[str, float]:
+                   save_dir: str | None = None) -> dict:
     """Held-out L1 and PSNR over (a subset of) a camera grid or a list of
-    ``EvalFrame``s, rendered by the serving backend, which drops nothing;
-    ``save_dir`` dumps the first four renders as PNG."""
+    ``EvalFrame``s; ``save_dir`` dumps the first four renders as PNG.
+
+    A trainer on K2/K3 is evaluated by the serving backend (K1), which has
+    no list capacity and drops nothing. A trainer on the dense tier is
+    evaluated through that tier, from its ``raster_k_cap`` doubled until no
+    frame of the split drops an instance (up to ``K_CAP_MAX``), as the JAX
+    package does. Returns {"psnr", "l1", "k_cap" (None on K1), "n_dropped"
+    (the most any frame dropped at that cap)}."""
     if isinstance(frames, CameraGrid):
         frames = eval_frames(frames, trainer.device, max_cameras)
     frames = list(frames)[:max_cameras]
     simulator = simulator_from_params(state.sim_params)
-    psnrs, l1s, images = [], [], []
+    dense = trainer.backend == DENSE_BACKEND
+    k_cap = trainer.cfg.opt.raster_k_cap if dense else None
+    gts = []
     for fr in frames:
         gt = fr.image
         if isinstance(gt, str):
             gt = torch.from_numpy(decode_image(gt, white_background))
-        gt = gt.to(trainer.device).to(torch.float32) / 255.0
-        out = render(fr.camera, trainer.width, trainer.height, trainer.tanfovx,
-                     trainer.tanfovy, state.params, state.gstate, trainer.mesh,
-                     simulator, trainer.mesh_predictions, trainer.bg, sh_degree,
-                     backend=SERVING_BACKEND, device=trainer.device)
-        img = torch.clamp(out.rgb, 0.0, 1.0)
-        psnrs.append(psnr_fn(img, gt))
-        l1s.append((img - gt).abs().mean())
-        if save_dir and len(images) < 4:
-            images.append((fr.name, img))
+        gts.append(gt.to(trainer.device).to(torch.float32) / 255.0)
+    while True:
+        tier = (dict(backend=DENSE_BACKEND, k_cap=k_cap,
+                     k_chunk=min(trainer.cfg.opt.raster_k_chunk, k_cap))
+                if dense else dict(backend=SERVING_BACKEND))
+        psnrs, l1s, images, dropped = [], [], [], 0
+        for fr, gt in zip(frames, gts):
+            out = render(fr.camera, trainer.width, trainer.height, trainer.tanfovx,
+                         trainer.tanfovy, state.params, state.gstate, trainer.mesh,
+                         simulator, trainer.mesh_predictions, trainer.bg, sh_degree,
+                         device=trainer.device, **tier)
+            if dense:
+                dropped = max(dropped, int(out.n_dropped))
+            img = torch.clamp(out.rgb, 0.0, 1.0)
+            psnrs.append(psnr_fn(img, gt))
+            l1s.append((img - gt).abs().mean())
+            if save_dir and len(images) < 4:
+                images.append((fr.name, img))
+        if not dense or dropped == 0 or k_cap >= K_CAP_MAX:
+            break
+        k_cap *= 2
     if save_dir:
         import imageio.v2 as imageio
 
@@ -128,7 +156,8 @@ def evaluate_split(trainer: Trainer, state: SplatTrainState,
             imageio.imwrite(os.path.join(save_dir, f"{name}_render.png"),
                             (img.permute(1, 2, 0) * 255).to(torch.uint8).cpu().numpy())
     values = torch.stack([torch.stack(psnrs).mean(), torch.stack(l1s).mean()]).cpu()
-    return {"psnr": float(values[0]), "l1": float(values[1])}
+    return {"psnr": float(values[0]), "l1": float(values[1]), "k_cap": k_cap,
+            "n_dropped": dropped}
 
 
 def save_scene_checkpoint(out_dir: str, iteration: int, trainer: Trainer,
@@ -168,6 +197,48 @@ def save_train_checkpoint(out_dir: str, iteration: int,
 
 def load_train_checkpoint(path: str, template: SplatTrainState) -> SplatTrainState:
     return checkpoints.restore_like(template, checkpoints.load_flat(path))
+
+
+@torch.no_grad()
+def _poll_viewer(trainer: Trainer, state: SplatTrainState, sh_degree: int) -> None:
+    """The viewer's poll of one iteration: accept a waiting client, answer
+    one render request if a camera arrived, and drop the connection on any
+    error while answering (nothing renders in its place). The request
+    renders through the dense tier at the trainer's ``k_cap``, with the
+    request's ``scaling_modifier``, as the JAX package's poll does."""
+    from cloth_splatting_tpu_torch.utils import viewer
+
+    if viewer.conn is None:
+        viewer.try_connect()
+    if viewer.conn is None:
+        return
+    try:
+        cam, _do_training, keep_alive, scaling = viewer.receive()
+        if cam is not None:
+            wv = np.asarray(cam["world_view"], np.float32)
+            fp = np.asarray(cam["full_proj"], np.float32)
+            center = np.linalg.inv(wv.T)[:3, 3]
+
+            def t(x):
+                return torch.as_tensor(np.asarray(x, np.float32), device=trainer.device)
+
+            arr = CameraArrays(world_view=t(wv), full_proj=t(fp),
+                               camera_center=t(center), time=t(cam["time"]))
+            o = trainer.cfg.opt
+            out = render(arr, cam["width"], cam["height"], trainer.tanfovx,
+                         trainer.tanfovy, state.params, state.gstate, trainer.mesh,
+                         simulator_from_params(state.sim_params),
+                         trainer.mesh_predictions, trainer.bg, sh_degree,
+                         scaling_modifier=scaling, k_cap=o.raster_k_cap,
+                         k_chunk=o.raster_k_chunk, backend=DENSE_BACKEND,
+                         device=trainer.device)
+            img = torch.clamp(out.rgb, 0.0, 1.0).cpu().numpy()
+            viewer.send((img.transpose(1, 2, 0) * 255).astype(np.uint8).tobytes())
+        if not keep_alive:
+            viewer.disconnect()
+    except Exception as exc:     # a bad request must not stop the fit
+        print(f"viewer: dropped the connection ({exc!r})")
+        viewer.disconnect()
 
 
 def sample_time_ids(rng: np.random.Generator, n_times: int,
@@ -220,16 +291,24 @@ def fit_banks(
     on_iteration: Optional[Callable[[int, dict], None]] = None,
     three_steps_batch: bool = True,
     save_test_images: bool = False,
+    wandb=None,
+    viewer_enabled: bool = False,
+    on_save: Optional[Callable[[int, SplatTrainState], None]] = None,
 ) -> SplatTrainState:
     """The optimization loop from the banks on: iterations ``first_iter`` ..
     ``cfg.opt.iterations`` on ``cam_bank`` / ``gt_bank`` / ``mask_bank``
-    ([V, T, ...], on the trainer's device). One iteration, in order: SH
-    anneal, kNN refresh, (view, time) sampling from the dedicated stream
-    ``default_rng([seed, 1])``, the banked step, the parameter average and
-    its row-wise repair, density control, barycentric cleanup, progress,
-    evaluation, saves. Metrics stay on the device between progress ticks;
-    ``on_iteration(iteration, {"loss", "psnr"})`` makes every iteration a
-    tick."""
+    ([V, T, ...], on the trainer's device). One iteration, in order: the
+    viewer's poll (``viewer_enabled``), SH anneal, kNN refresh, (view, time)
+    sampling from the dedicated stream ``default_rng([seed, 1])``, the
+    banked step, the parameter average and its row-wise repair, density
+    control, barycentric cleanup, progress (and the dense tier's ``k_cap``
+    growth), evaluation, saves. Metrics stay on the device between progress
+    ticks; ``on_iteration(iteration, {"loss", "psnr"})`` makes every
+    iteration a tick. ``wandb`` (``utils.logging.WandbAdapter``) receives
+    the progress and evaluation scalars. At each of ``save_iterations`` the
+    evaluation-facing state (the parameter average when ``param_ema`` is
+    on) goes to ``save_scene_checkpoint`` when there is an ``out_dir`` and
+    to ``on_save(iteration, state)`` when given."""
     cfg = trainer.cfg
     o = cfg.opt
     dev = trainer.device
@@ -253,6 +332,7 @@ def fit_banks(
     knn_state = None
     knn_capacity = -1
     carry = StepCarry.zeros(dev)
+    overflow_ticks = 0
 
     ema_decay = float(o.param_ema)
     ema_avg = None
@@ -266,6 +346,9 @@ def fit_banks(
 
     for iteration in range(first_iter, o.iterations + 1):
         static = o.static_reconst and iteration < o.static_reconst_iteration
+
+        if viewer_enabled:
+            _poll_viewer(trainer, state, sh_degree)
 
         if iteration % 1000 == 0 and sh_degree < cfg.model.sh_degree:
             sh_degree += 1
@@ -333,10 +416,21 @@ def fit_banks(
             loss, psnr, ema_loss, ema_psnr = (fetched[0], fetched[1],
                                               fetched[3], fetched[4])
             n_alive = int(fetched[2])
-            if fetched[5] > 0:
-                print(f"[iter {iteration}] WARNING: rasterizer dropped "
-                      f"{int(fetched[5])} tile instances since the last tick")
             carry = carry._replace(drop_accum=torch.zeros_like(carry.drop_accum))
+            # the dense tier truncates each tile's list at k_cap, which must
+            # never pass silently (K2/K3 have no cap and report 0); two
+            # overflowing ticks in a row double it
+            if fetched[5] > 0:
+                overflow_ticks += 1
+                print(f"[iter {iteration}] WARNING: rasterizer dropped "
+                      f"{int(fetched[5])} tile instances since the last tick "
+                      f"(k_cap={o.raster_k_cap})")
+                if overflow_ticks >= 2 and o.raster_k_cap < K_CAP_MAX:
+                    new_cap = trainer.grow_k_cap()
+                    overflow_ticks = 0
+                    print(f"[iter {iteration}] growing raster_k_cap -> {new_cap}")
+            else:
+                overflow_ticks = 0
         if iteration % progress_every == 0:
             rate = (iteration - first_iter + 1) / (time_mod.time() - t_start)
             print(f"[{'static' if static else 'dyn'} {iteration}/{o.iterations}] "
@@ -346,6 +440,9 @@ def fit_banks(
                        ema_psnr=ema_psnr, n_gaussians=n_alive,
                        capacity=int(state.params.face_bary.shape[0]),
                        iters_per_sec=rate)
+            if wandb is not None:
+                wandb.log({"loss": loss, "psnr": psnr, "n_gaussians": n_alive},
+                          step=iteration)
 
         if iteration in test_iterations and test_frames is not None:
             ev = evaluate_split(
@@ -356,11 +453,17 @@ def fit_banks(
                           if save_test_images and out_dir else None))
             print(f"[ITER {iteration}] test psnr={ev['psnr']:.2f} l1={ev['l1']:.4f}")
             logger.log(iteration, test_psnr=ev["psnr"], test_l1=ev["l1"])
+            if wandb is not None:
+                wandb.log({"test_psnr": ev["psnr"], "test_l1": ev["l1"]},
+                          step=iteration)
 
-        if out_dir and iteration in save_iterations:
+        if iteration in save_iterations:
             # the saved PLY and mesh are what evaluation scores: averaged
             # parameters; the resume checkpoints below keep the raw iterate
-            save_scene_checkpoint(out_dir, iteration, trainer, with_ema(state))
+            if out_dir:
+                save_scene_checkpoint(out_dir, iteration, trainer, with_ema(state))
+            if on_save is not None:
+                on_save(iteration, with_ema(state))
 
         if out_dir and iteration in checkpoint_iterations:
             path = save_train_checkpoint(out_dir, iteration, state)
@@ -386,12 +489,15 @@ def train_scene(
     on_iteration: Optional[Callable[[int, dict], None]] = None,
     three_steps_batch: bool = True,
     save_test_images: bool = False,
+    wandb=None,
+    viewer_enabled: bool = False,
     device: str | torch.device = "cuda",
 ) -> SplatTrainState:
     """Run the full static + dynamic optimization of one scene on ``device``
     (the scene's mesh must lie there). ``three_steps_batch=False`` takes ONE
     random (view, time) camera per dynamic iteration instead of the
-    3-consecutive-time batch."""
+    3-consecutive-time batch; ``wandb`` and ``viewer_enabled`` go to
+    ``fit_banks``."""
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -414,4 +520,5 @@ def train_scene(
         save_iterations=save_iterations,
         checkpoint_iterations=checkpoint_iterations, first_iter=first_iter,
         seed=seed, progress_every=progress_every, on_iteration=on_iteration,
-        three_steps_batch=three_steps_batch, save_test_images=save_test_images)
+        three_steps_batch=three_steps_batch, save_test_images=save_test_images,
+        wandb=wandb, viewer_enabled=viewer_enabled)

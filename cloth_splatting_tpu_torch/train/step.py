@@ -2,7 +2,9 @@
 ``cloth_splatting_tpu/train/step.py``.
 
 One step renders the camera batch (one camera after another, each through
-the differentiable backend ``tiled_train``: K2 forward, K3 backward), sums
+the differentiable backend ``tiled_train``: K2 forward, K3 backward; or,
+with ``raster_backend="tiled"``, through the dense tier, whose per-tile
+list capacity ``grow_k_cap`` raises), sums
 the photometric loss and the regularizers, takes one backward pass to the
 Gaussian parameters, the simulator's parameters and the screen-space
 offsets, and then applies two Adams with per-group learning rates: the
@@ -44,7 +46,12 @@ from cloth_splatting_tpu_torch.models.deform import (
 )
 from cloth_splatting_tpu_torch.ops.image import psnr
 from cloth_splatting_tpu_torch.ops.knn import knn
-from cloth_splatting_tpu_torch.render import TRAIN_BACKEND, CameraArrays, render
+from cloth_splatting_tpu_torch.render import (
+    DENSE_BACKEND,
+    TRAIN_BACKEND,
+    CameraArrays,
+    render,
+)
 from cloth_splatting_tpu_torch.train.config import Config
 from cloth_splatting_tpu_torch.train.losses import (
     KnnState,
@@ -159,16 +166,18 @@ class Trainer:
         self.spatial_lr_scale = float(spatial_lr_scale)
         self.device = mesh.pos.device
         self.bg = (1.0, 1.0, 1.0) if cfg.model.white_background else (0.0, 0.0, 0.0)
-        # the JAX package's "auto" picks its Pallas tier off the CPU, whose
-        # counterpart here is "tiled_train" on every device
+        # "tiled" trains through the dense tier. The JAX package's "auto"
+        # means its Pallas tier off the CPU (the dense tier on it); the
+        # port's counterpart of that Pallas tier is K2/K3, on the card and
+        # (as their plain versions) on the CPU alike, so "auto" and "pallas"
+        # both mean K2/K3 here on every device.
         backend = cfg.opt.raster_backend
-        if backend == "tiled":
-            raise NotImplementedError(
-                "raster_backend 'tiled' comes with slice 4b of the port, the "
-                "dense tier (ROADMAP queue 1 item 3)")
-        if backend not in ("auto", "pallas"):
+        if backend == DENSE_BACKEND:
+            self.backend = DENSE_BACKEND
+        elif backend in ("auto", "pallas"):
+            self.backend = TRAIN_BACKEND
+        else:
             raise ValueError(f"unknown raster_backend {backend!r}")
-        self.backend = TRAIN_BACKEND
 
     # ------------------------------------------------------------------ init
 
@@ -251,6 +260,7 @@ class Trainer:
                 params, state.gstate, self.mesh, simulator,
                 self.mesh_predictions, self.bg, sh_degree,
                 screen_offset=screen_offset, render_static=static,
+                k_cap=o.raster_k_cap, k_chunk=o.raster_k_chunk,
                 backend=self.backend, pack_order=o.raster_pack_order,
                 device=self.device))
         images = torch.stack([out.rgb for out in outs])              # [B, 3, H, W]
@@ -355,6 +365,14 @@ class Trainer:
             ema_psnr=0.4 * metrics.psnr + 0.6 * carry.ema_psnr,
             drop_accum=carry.drop_accum + metrics.n_dropped.to(torch.int32))
         return new_state, metrics, new_carry
+
+    def grow_k_cap(self, factor: int = 2) -> int:
+        """Multiply the dense tier's per-tile list capacity (the loop calls
+        this under persistent overflow, as ``grow_capacity`` after a
+        densify overflow); K2/K3 have no such cap. Returns the new cap."""
+        o = self.cfg.opt
+        o.raster_k_cap = int(o.raster_k_cap * factor)
+        return o.raster_k_cap
 
     # ------------------------------------------------------------------- knn
 

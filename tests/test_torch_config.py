@@ -66,14 +66,28 @@ def test_configs_flag_applies_the_file(name):
 
 
 def test_ignored_fields_are_ignored_and_unported_ones_raise(tmp_path):
-    ignored = {k: "x" for k in IGNORED["OptimizationParams"]}
-    tcfg = apply_overrides(TConfig(), {"OptimizationParams": ignored,
-                                       "ModelHiddenParams": {"kplanes": 1}})
+    """Every field of the JAX package's groups is ported or ignored: the
+    ignored ones change nothing, ``raster_k_cap`` and ``raster_k_chunk``
+    overlay as in JAX, and a field neither package has raises."""
+    ignored = {g: {k: "x" for k in fields} for g, fields in IGNORED.items()
+               if fields is not None}
+    ignored["ModelHiddenParams"] = {"kplanes": 1}
+    tcfg = apply_overrides(TConfig(), ignored)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(TConfig())
     cfg_file = tmp_path / "k_cap.py"
     cfg_file.write_text("OptimizationParams = dict(lambda_dssim=0.5, "
-                        "raster_k_cap=64)\n")
-    with pytest.raises(KeyError, match="raster_k_cap"):
+                        "raster_k_cap=64, raster_k_chunk=16)\n")
+    jcfg = jload(JConfig(), str(cfg_file))
+    for tcfg in (tload(TConfig(), str(cfg_file)),
+                 config_from_args(build_parser().parse_args(
+                     ["--configs", str(cfg_file)]))):
+        assert_fields_equal(tcfg, jcfg)
+        assert (tcfg.opt.raster_k_cap, tcfg.opt.raster_k_chunk) == (64, 16)
+    args = build_parser().parse_args(["--configs", str(cfg_file),
+                                      "--raster_k_cap", "128"])
+    assert config_from_args(args).opt.raster_k_cap == 128
+    cfg_file.write_text("OptimizationParams = dict(raster_k_capp=64)\n")
+    with pytest.raises(KeyError, match="raster_k_capp"):
         tload(TConfig(), str(cfg_file))
-    with pytest.raises(KeyError, match="raster_k_cap"):
+    with pytest.raises(KeyError, match="raster_k_capp"):
         config_from_args(build_parser().parse_args(["--configs", str(cfg_file)]))

@@ -257,11 +257,19 @@ def test_render_frames_match_jax_pallas(model):
 
 def test_render_set_refuses_untiled_frames_and_missing_card(model, monkeypatch,
                                                             tmp_path):
+    """A frame that does not tile by 16 px goes to the dense tier in both
+    packages, which raises the same ValueError; without a card the port
+    refuses its default device."""
     params, state, mesh, simulator, _ = model.port
+    jparams, jstate, jmesh, jsim, _ = model.jax
     cams = [jorbit_camera(0, 4, 0.8, 40, 40, 0.0)]
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(ValueError, match="multiples of tile_size") as jerr:
+        jrs.render_set(str(tmp_path / "jax"), "test", 1, cams, None, jparams,
+                       jstate, jmesh, jsim, model.jpreds, True, SH_DEGREE)
+    with pytest.raises(ValueError, match="multiples of tile_size") as terr:
         trs.render_set(str(tmp_path), "test", 1, cams, None, params, state, mesh,
                        simulator, model.tpreds, True, SH_DEGREE, device="cpu")
+    assert str(terr.value) == str(jerr.value)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trs.render_set(str(tmp_path), "test", 1, [jorbit_camera(0, 4, 0.8, 32, 32, 0.0)],

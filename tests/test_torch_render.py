@@ -110,12 +110,27 @@ def test_render_screen_offset_matches_jax(tiny):
 
 
 def test_render_other_backends_raise(tiny):
-    cam, _, ps = tiny
-    tcam = convert.camera_arrays(arrays(jcamera_arrays(cam)), "cpu")
+    """The dense tier renders as the JAX package's default backend does (same
+    tier, values within 1e-5, the same dropped count at a small k_cap); an
+    unknown backend raises."""
+    cam, js, ps = tiny
+    jcam = jcamera_arrays(cam)
+    tcam = convert.camera_arrays(arrays(jcam), "cpu")
     args = (tcam, cam.width, cam.height, cam.tanfovx, cam.tanfovy, ps["params"],
             ps["state"], ps["mesh"], ps["simulator"], ps["preds"], BG, 3)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        trender(*args, backend="tiled", device="cpu")
+    for k_cap, k_chunk in ((512, 32), (8, 4)):
+        out_j = jrender(jcam, cam.width, cam.height, cam.tanfovx, cam.tanfovy,
+                        js["params"], js["state"], js["mesh"], js["sim"],
+                        js["preds"], jnp.asarray(BG), 3, k_cap=k_cap,
+                        k_chunk=k_chunk, backend="tiled")
+        out_t = trender(*args, k_cap=k_cap, k_chunk=k_chunk, backend="tiled",
+                        device="cpu")
+        for name in ("rgb", "depth", "alpha"):
+            np.testing.assert_allclose(getattr(out_t, name).detach().numpy(),
+                                       np.asarray(getattr(out_j, name)),
+                                       atol=1e-5, err_msg=name)
+        assert int(out_t.n_dropped) == int(out_j.n_dropped)
+    assert int(out_t.n_dropped) > 0
     with pytest.raises(ValueError, match="unknown backend"):
         trender(*args, backend="nope", device="cpu")
 

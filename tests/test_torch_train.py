@@ -309,12 +309,15 @@ def test_trainer_init_state_draws_like_jax():
 
 def test_trainer_backend_choice():
     """The JAX package's "auto" and "pallas" both train through the port's
-    K2/K3 tier; its dense "tiled" tier is not ported yet."""
+    K2/K3 tier; "tiled" trains through the dense tier (its step against
+    JAX: tests/test_torch_dense.py)."""
     for backend in ("auto", "pallas"):
         _, _, ttr = trainers({"OptimizationParams": {"raster_backend": backend}})
         assert ttr.backend == "tiled_train"
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        trainers({"OptimizationParams": {"raster_backend": "tiled"}})
+    _, jtr, ttr = trainers({"OptimizationParams": {"raster_backend": "tiled"}})
+    assert ttr.backend == jtr.backend == "tiled"
+    assert ttr.grow_k_cap() == jtr.grow_k_cap() == 1024
+    assert ttr.cfg.opt.raster_k_cap == jtr.cfg.opt.raster_k_cap == 1024
     with pytest.raises(ValueError, match="unknown raster_backend"):
         trainers({"OptimizationParams": {"raster_backend": "nope"}})
 
@@ -328,9 +331,16 @@ def test_config_defaults_match_jax():
 
 
 def test_apply_overrides_rejects_fields_the_port_lacks():
-    tcfg = apply_overrides(TConfig(), {"MeshnetParams": {"lr_init": 1e-3}})
-    assert tcfg.meshnet.lr_init == 1e-3
-    with pytest.raises(KeyError, match="raster_k_cap"):
-        apply_overrides(TConfig(), {"OptimizationParams": {"raster_k_cap": 1}})
-    with pytest.raises(KeyError, match="PipelineParams"):
-        apply_overrides(TConfig(), {"PipelineParams": {"debug": True}})
+    """The dense tier's fields are ported and PipelineParams is accepted and
+    ignored (the JAX package reads none of it); a field or group that
+    neither package has raises."""
+    tcfg = apply_overrides(TConfig(), {"MeshnetParams": {"lr_init": 1e-3},
+                                       "OptimizationParams": {"raster_k_cap": 1},
+                                       "PipelineParams": {"debug": True}})
+    assert tcfg.meshnet.lr_init == 1e-3 and tcfg.opt.raster_k_cap == 1
+    with pytest.raises(KeyError, match="raster_k_capp"):
+        apply_overrides(TConfig(), {"OptimizationParams": {"raster_k_capp": 1}})
+    with pytest.raises(KeyError, match="PipelineParams has no field 'debugg'"):
+        apply_overrides(TConfig(), {"PipelineParams": {"debugg": True}})
+    with pytest.raises(KeyError, match="NopeParams"):
+        apply_overrides(TConfig(), {"NopeParams": {"debug": True}})
