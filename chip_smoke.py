@@ -42,7 +42,9 @@ Phases, each of which raises on failure:
      launch counters set to 0 just before, checking that K2 and K3 ran 3
      times per step, that the loss is finite and that the Gaussians and the
      simulator moved; then 5 steps with the span options on (K2-span, K4),
-     beside the default's time;
+     beside the default's time; then what determinism costs: 5 steps with
+     the package's deterministic switch off, on, on, off, device and host
+     ms per step (the dense phase does the same for its frames);
   7. fit: a scene built in memory (the 65k mesh on an inextensible wave over
      5 times, 4 orbit views rendered at 800x800 by the port's serving path
      into uint8 banks) fitted for 300 iterations of ``fit_banks`` with
@@ -76,12 +78,25 @@ Phases, each of which raises on failure:
  11. parity: the parity arm at full width (800x800, 24 views, 8 times,
      ``mesh_res`` 24, noise 0) through ``parity_bench``'s in-memory form for
      300 iterations: finite numbers, the held-out PSNR above the initial
-     state's, K1, K2 and K3 launched as often as the run asks; its JSON line.
+     state's, K1, K2 and K3 launched as often as the run asks; its JSON line;
+     then the same fit again in the same process: every tensor of the final
+     state, the alive count and the line bit-identical to the first fit's;
+ 12. gnn: the GNN dynamics at the full width of the root
+     ``train_meshnet_sim.py`` (latent 128, 15 message-passing layers, batch
+     32, 200 nodes) on the root ``datacollection.py``'s data (20 trajectories
+     of a 20x20 cloth, 25 steps) made on the card in memory (trajectory 0
+     against the CPU's), ``train_meshnet`` over 6 curriculum epochs of 10
+     steps (the loss must fall within each unroll length) and once more,
+     bit for bit; one training step at unroll lengths 1 and 3 against the
+     same step on the CPU; ms per step at unroll lengths 1, 2, 3; a timed
+     validation rollout; a real-world rollout from a start with 3 mm
+     tracking noise whose refinement must lower the edge-length deviation
+     (and from the clean start, reported); no tile kernel launched.
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
-{"dense": ...} line, the parity line, a {"parity": ...} line, a
-{"kernels": [...]} line and, last,
+{"dense": ...} line, the parity line, a {"parity": ...} line, a {"gnn": ...}
+line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
@@ -164,6 +179,53 @@ PARITY_ARGV = ["--in_memory", "--wave", "isometric", "--n_views", "24",
                "--static", str(PARITY_STATIC), "--train_args",
                "--time_sample balanced --lr_tail_start 0.75 --param_ema 0.995 "
                f"--coarse_iterations {PARITY_COARSE}", "--device", "cuda"]
+# the gnn phase: the root train_meshnet_sim.py's defaults at full width
+# (latent 128, 15 message-passing layers, MLPs of 2 hidden layers, history 2,
+# batch 32, 200 nodes, Delaunay graphs, normalizers, lr 3e-4 decaying 0.1 per
+# 300 epochs) on the root datacollection.py's defaults (20 trajectories of a
+# 20x20 cloth of 0.3 m, 25 steps, seed 0; 4 held-out ones of seed 1), made
+# on the card in memory. Depth cut: 6 epochs of 10 steps instead of 300 of
+# len(ds) / 32 = 15, with the curriculum on, so that unroll lengths 1, 2 and
+# 3 run 2 epochs each (at 5 steps an epoch, batch noise outweighs an
+# epoch's progress and the loss of a later epoch of one unroll length can
+# exceed the earlier one's).
+GNN_DATA = dict(nx=20, ny=20, cloth_size=0.3, n_steps=25)
+GNN_TRAIN_TRAJS, GNN_VAL_TRAJS = 20, 4
+GNN_MODEL = dict(input_sequence_length=2, n_message_passing=15, latent=128)
+GNN_TRAINER = dict(lr_init=3e-4, lr_decay_rate=0.1, lr_decay_steps=300.0,
+                   noise_std=0.0, normalize=True, input_seq_len=2)
+GNN_NODES, GNN_BATCH, GNN_EPOCHS, GNN_STEPS_PER_EPOCH = 200, 32, 6, 10
+GNN_TIMED_STEPS = 5
+GNN_REAL_WORLD_STEPS = 5
+# the real-world rollout starts from the held-out mesh as a tracker sees it:
+# each point off by this much (m, per coordinate; the CPU tests' synthetic
+# captures use the same tracking noise)
+GNN_TRACKING_NOISE = 3e-3
+# the card's trajectory 0 against the CPU's, positions: the CPU tests hold
+# the port's settles and 14-step pick-and-place runs to JAX's at 1e-5
+# (TOL_RUN of tests/test_torch_pbd.py), where the two packages sum the
+# constraint corrections in different orders; the card sums them in yet
+# another order
+TOL_GNN_DATA = 1e-5
+# one MeshnetTrainer step on the card against the same step on the CPU, from
+# the trained state, on one batch with velocity noise of GNN_STEP_NOISE
+# passed in: the loss within TOL_GNN_STEP relative (TOL_STEP of
+# tests/test_torch_gnn.py), the normalizers' statistics within TOL_GNN_NORM
+# relative (that file's limit), all gradients together within
+# TOL_GNN_GRAD_ALL of their norm and each parameter's within
+# TOL_GNN_GRAD_LEAF of its norm: the limits of that file's
+# test_meshnet_trainer_step_matches_jax_at_full_depth, where at 15 layers
+# of latent 128 rounding flips ReLU units near their kink and the port's
+# step read 8.9e-5 / 2.0e-5 (all) and 5.2e-4 / 7.9e-5 (worst leaf) against
+# JAX's at unroll lengths 1 / 3; a wrong edge, offset or sum moves them by
+# O(1). The largest element error of a leaf (relative to that leaf's
+# largest) is reported, not held: a flipped unit moved single elements by
+# 1.6e-3 of it there.
+TOL_GNN_STEP = 1e-5
+TOL_GNN_NORM = 1e-6
+TOL_GNN_GRAD_ALL = 5e-4
+TOL_GNN_GRAD_LEAF = 2e-3
+GNN_STEP_NOISE = 1e-3
 # K1 and K2 against their plain versions: both walk the same chunks in the
 # same order and stop at the same chunk, so they differ only by rounding
 # (sequential products in the kernels, cumprod in the plain versions); sound
@@ -1053,6 +1115,30 @@ def span_ab(run_default, run_span, span, what: str, n: int, expected: dict):
     return ms, per_turn
 
 
+DET_ORDER = ("off", "on", "on", "off")
+
+
+def determinism_ab(warm, timed, what: str, gpu: str) -> dict:
+    """Device and host ms per call of ``timed()`` (``timed_calls``' first two
+    results) with the package's deterministic switch in turns DET_ORDER; one
+    ``warm()`` call starts each turn. The switch is on again at the end."""
+    from cloth_splatting_tpu_torch import set_deterministic
+
+    det = {"order": list(DET_ORDER), "per": what, "ms": [], "host_ms": []}
+    try:
+        for turn in DET_ORDER:
+            set_deterministic(turn == "on")
+            warm()
+            ms, host, _ = timed()
+            det["ms"].append(ms)
+            det["host_ms"].append(host)
+    finally:
+        set_deterministic(True)
+    log(f"determinism A/B, ms per {what} (device / host) in turns {det['order']}: "
+        f"{json.dumps(det['ms'])} / {json.dumps(det['host_ms'])} [{gpu}]")
+    return det
+
+
 def state_tensors(state) -> dict:
     """Every tensor of a SplatTrainState by a flat name."""
     out = {"step": state.step, "g_opt.count": state.g_opt.count,
@@ -1361,6 +1447,12 @@ def train_phase(gpu):
         run_steps, run_steps, SPAN_32, "step", TRAIN_STEPS,
         {"K2-span": n_cams * TRAIN_STEPS, "K4": n_cams * TRAIN_STEPS})
 
+    # what determinism costs: the same steps with the package's switch off
+    # and on, in turns off, on, on, off
+    det = determinism_ab(lambda: step(state),
+                         lambda: timed_calls(lambda _: step(state), range(TRAIN_STEPS)),
+                         "step", gpu)
+
     trace = profile_calls(lambda _: step(state), [0])
     record = {
         "steps": TRAIN_STEPS, "cameras": len(TRAIN_TIMES), "gaussians": n_alive,
@@ -1371,7 +1463,7 @@ def train_phase(gpu):
         "peak_memory_gb": peak_gb,
         "device_busy_share": trace["device_busy_share"],
         "kernels_per_step": trace["kernels_per_call"],
-        "gpu": gpu}
+        "determinism_ab": det, "gpu": gpu}
     log(f"train: {TRAIN_STEPS} steps, {step_ms:.4f} ms/step (device), "
         f"{host_ms:.4f} ms/step (host), stages {json.dumps(stages)}, K2 {k2} "
         f"K3 {k3} launches, loss {losses[0]:.6f} -> {losses[-1]:.6f}, largest "
@@ -1609,6 +1701,9 @@ def dense_phase(sc, gpu: str) -> dict:
                                    k_chunk=min(32, k_cap))
 
         raster_ms = timed_calls(lambda _: raster(DENSE_K_CAP), range(3))[0]
+        det = determinism_ab(lambda: frame(sc.cams[0]),
+                             lambda: timed_calls(frame, sc.cams[:DENSE_FRAMES]),
+                             "frame", gpu)
         caps = {}
         cap = DENSE_K_CAP
         while True:
@@ -1634,6 +1729,7 @@ def dense_phase(sc, gpu: str) -> dict:
         "frames": DENSE_FRAMES, "width": WIDTH, "height": HEIGHT,
         "gaussians": int(sc.state.alive.sum()), "k_cap": DENSE_K_CAP,
         "ms_per_frame": device_ms, "host_ms_per_frame": host_ms,
+        "determinism_ab": det,
         "rasterize_ms": raster_ms, "n_dropped": int(outs[0].n_dropped),
         "max_tile_count": int(aux512.max_tile_count), "n_dropped_by_k_cap": caps,
         "k_cap_nothing_dropped": cap,
@@ -1700,7 +1796,11 @@ def parity_phase(gpu: str) -> tuple[dict, dict]:
     form (PARITY_ARGV), with the launch counters set to 0 just before: every
     number finite, the held-out PSNR above the initial state's, and K1, K2
     and K3 launched as often as the run asks and nothing else. Prints the
-    run's JSON line. Returns (the {"parity": ...} record, its launches)."""
+    run's JSON line. Then the same fit again in this process: every tensor
+    of its final state, the alive count and the line must be the same bits.
+    Returns (the {"parity": ...} record, its launches)."""
+    import torch
+
     from cloth_splatting_tpu_torch import parity_bench
 
     args = parity_bench.build_parser().parse_args(PARITY_ARGV)
@@ -1718,7 +1818,7 @@ def parity_phase(gpu: str) -> tuple[dict, dict]:
                 "K2": static + 3 * (PARITY_ITERATIONS - static)}
     expected["K3"] = expected["K2"]
     numbers = [line[k] for k in ("value", "ssim", "lpips", "mte_mm")] + [
-        v for k, v in run.items() if k != "line"]
+        v for k, v in run.items() if k not in ("line", "state")]
     if counts != expected:
         raise RuntimeError(f"parity: launches {counts}, expected {expected}")
     if not all(isinstance(v, (int, float)) and math.isfinite(v) for v in numbers):
@@ -1731,9 +1831,292 @@ def parity_phase(gpu: str) -> tuple[dict, dict]:
         f"{static} of them), {run['iterations_per_second']:.3f} it/s, "
         f"{run['n_gaussians']} Gaussians, test PSNR {run['test_psnr_before']:.3f} "
         f"-> {line['value']} dB, launches {json.dumps(counts)} [{gpu}]")
+    # the same fit again, same seed, same process: every tensor of the final
+    # state, the alive count and the held-out PSNR must be the same bits
+    again = parity_bench.run_in_memory(args)
+    a, b = state_tensors(run["state"]), state_tensors(again["state"])
+    differ = [k for k in a if not (a[k].shape == b[k].shape and torch.equal(a[k], b[k]))]
+    repeat = {"state_tensors": len(a), "differ": differ,
+              "n_gaussians": [run["n_gaussians"], again["n_gaussians"]],
+              "test_psnr": [line["value"], again["line"]["value"]],
+              "bit_identical": not differ
+              and run["n_gaussians"] == again["n_gaussians"]
+              and line == again["line"]}
+    if not repeat["bit_identical"]:
+        raise RuntimeError(f"parity: the fit run twice from one seed differs: {repeat}")
+    log(f"parity: the second fit gave the same bits in all {len(a)} state tensors, "
+        f"{again['n_gaussians']} Gaussians, test PSNR {again['line']['value']} dB")
     record = {"argv": PARITY_ARGV, "line": line, "launches": counts, "gpu": gpu,
-              **{k: v for k, v in run.items() if k != "line"}}
+              "repeat": repeat,
+              **{k: v for k, v in run.items() if k not in ("line", "state")}}
     return record, counts
+
+
+def gnn_tensors(state: dict) -> dict:
+    """Every tensor of a GNN simulator state by its checkpoint path."""
+    from cloth_splatting_tpu_torch.models.meshnet import flat_params
+
+    return flat_params({k: v if isinstance(v, dict) else v._asdict()
+                        for k, v in state.items()})
+
+
+def edge_length_deviation(traj, edge_index, grasped: int, rest) -> float:
+    """Mean |edge length - rest length| over the steps after the first and
+    the edges not incident to the grasped node (those the real-world
+    refinement holds)."""
+    free = (edge_index[0] != grasped) & (edge_index[1] != grasped)
+    e = edge_index[:, free]
+    lengths = (traj[1:, e[0]] - traj[1:, e[1]]).norm(dim=-1)
+    return float((lengths - rest[free]).abs().mean())
+
+
+def gnn_step_vs_cpu(trainer, state: dict, ds, gpu: str) -> dict:
+    """One ``trainer.train_step`` at unroll lengths 1 and 3 from ``state``
+    against the same step of a CPU trainer from a copy of it, on one batch of
+    ``ds`` and the same velocity noise (the limits at TOL_GNN_STEP). The
+    gradients are read back from the first moments: one step from zero
+    moments leaves mu = 0.1 g. Raises on a miss; returns the readings."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.models.meshnet import (
+        NormalizerState,
+        flat_params,
+        unflat_params,
+    )
+    from cloth_splatting_tpu_torch.train.meshnet_train import MeshnetTrainer
+
+    host = MeshnetTrainer(device="cpu", **GNN_TRAINER)
+    host_state = {
+        "gnn": unflat_params(state["gnn"], {k: v.cpu() for k, v in
+                                            flat_params(state["gnn"]).items()}),
+        **{k: NormalizerState(*(x.cpu() for x in state[k]))
+           for k in ("node_norm", "out_norm")}}
+    out = {}
+    for future in (1, 3):
+        ds.set_future_seq_len(future)
+        batch = ds.batch(np.random.default_rng(10 + future), GNN_BATCH)
+        noise = torch.from_numpy(np.random.default_rng(20 + future).normal(
+            0, GNN_STEP_NOISE, batch["velocity"].shape).astype(np.float32))
+        (c_state, c_opt, c_loss), (h_state, h_opt, h_loss) = (
+            t.train_step(s, t.init_opt(s), batch, 0, future, noise=noise)
+            for t, s in ((trainer, state), (host, host_state)))
+        card = {k: v.cpu().double() for k, v in c_opt.mu.items()}
+        cpu = {k: v.double() for k, v in h_opt.mu.items()}
+        diff = {k: (card[k] - v).norm() for k, v in cpu.items()}
+        leaf = {k: float(diff[k] / cpu[k].norm().clamp_min(1e-30)) for k in cpu}
+        elem = {k: float((card[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                for k, v in cpu.items()}
+        norm = {f"{k}.{f}": float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for k in ("node_norm", "out_norm")
+                for f, a, b in zip(h_state[k]._fields, c_state[k], h_state[k])}
+        reading = {
+            "loss_rel": abs(float(c_loss) - float(h_loss)) / abs(float(h_loss)),
+            "grad_rel_all": float(torch.stack(list(diff.values())).norm()
+                                  / torch.stack([v.norm() for v in cpu.values()]).norm()),
+            "grad_rel_worst_leaf": max(leaf.values()), "worst_leaf": max(leaf, key=leaf.get),
+            "grad_elem_rel_of_leaf_max": max(elem.values()),
+            "normalizer_max_rel": max(norm.values())}
+        out[f"unroll_{future}"] = reading
+        if not (reading["loss_rel"] <= TOL_GNN_STEP
+                and reading["normalizer_max_rel"] <= TOL_GNN_NORM
+                and reading["grad_rel_all"] <= TOL_GNN_GRAD_ALL
+                and reading["grad_rel_worst_leaf"] <= TOL_GNN_GRAD_LEAF):
+            raise RuntimeError(f"gnn: the card's training step at unroll {future} is "
+                               f"not the CPU's: {out}")
+    log(f"gnn step, card vs CPU: {json.dumps(out)} [{gpu}]")
+    return {**out, "limits": {"loss_rel": TOL_GNN_STEP, "normalizer": TOL_GNN_NORM,
+                              "grad_rel_all": TOL_GNN_GRAD_ALL,
+                              "grad_rel_worst_leaf": TOL_GNN_GRAD_LEAF},
+            "noise_std": GNN_STEP_NOISE}
+
+
+def gnn_phase(gpu: str, dev=None) -> dict:
+    """The GNN dynamics at full width (GNN_*): data made on the card by
+    ``collect_trajectories`` (trajectory 0 also on the CPU: within
+    TOL_GNN_DATA), ``train_meshnet`` over GNN_EPOCHS curriculum epochs with
+    a held-out validation rollout each epoch (the loss must fall within each
+    unroll length), then the same training again, bit for bit; one training
+    step at unroll lengths 1 and 3 against the CPU's (``gnn_step_vs_cpu``);
+    ms per training step at each unroll length (device and host, kernels per step,
+    busy share), a timed validation rollout (finite per-step MSE), and a
+    real-world rollout of GNN_REAL_WORLD_STEPS steps from the held-out start
+    with tracking noise, with and without the edge-length refinement
+    (refining must lower the mean edge-length deviation from the noise-free
+    rest lengths). None of the six tile kernels may launch. Returns the
+    {"gnn": ...} record."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.trajectories import (
+        ClothSampleDataset,
+        process_trajectory,
+    )
+    from cloth_splatting_tpu_torch.manipulation.collect import collect_trajectories
+    from cloth_splatting_tpu_torch.models.cloth_simulator import (
+        init_cloth_simulator,
+        rollout,
+    )
+    from cloth_splatting_tpu_torch.train.meshnet_train import (
+        MeshnetTrainer,
+        curriculum_future,
+        train_meshnet,
+    )
+
+    dev = dev or torch.device("cuda")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    train_raw = collect_trajectories(GNN_TRAIN_TRAJS, seed=0, device=dev, **GNN_DATA)
+    val_raw = collect_trajectories(GNN_VAL_TRAJS, seed=1, device=dev, **GNN_DATA)
+    data_s = time.time() - t0
+    cpu0 = collect_trajectories(1, seed=0, device="cpu", **GNN_DATA)[0]
+    data_err = float(np.abs(train_raw[0]["pos"] - cpu0["pos"]).max())
+    if not data_err <= TOL_GNN_DATA:
+        raise RuntimeError(f"gnn: trajectory 0 on the card is {data_err} from the "
+                           f"CPU's (limit {TOL_GNN_DATA})")
+
+    def dataset(raws):
+        return ClothSampleDataset(None, GNN_MODEL["input_sequence_length"], 1,
+                                  num_samples=GNN_NODES, trajectories=[
+                                      process_trajectory(r, num_samples=GNN_NODES)
+                                      for r in raws])
+
+    train_ds, val_ds = dataset(train_raw), dataset(val_raw)
+    trainer = MeshnetTrainer(device=dev, **GNN_TRAINER)
+
+    def train():
+        state = init_cloth_simulator(np.random.default_rng(0), device=dev, **GNN_MODEL)
+        torch.cuda.synchronize()
+        t = time.time()
+        state, losses = train_meshnet(trainer, state, train_ds, val_ds,
+                                      n_epochs=GNN_EPOCHS, batch_size=GNN_BATCH,
+                                      curriculum=True, steps_per_epoch=GNN_STEPS_PER_EPOCH,
+                                      seed=0)
+        torch.cuda.synchronize()
+        return state, losses, time.time() - t
+
+    state, losses, train_s = train()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts:
+        raise RuntimeError(f"gnn: tile kernels launched on the GNN path: {counts}")
+    # the loss falls within each unroll length of the curriculum: an epoch's
+    # loss sums its unroll steps' losses, so the last epochs' 3-step loss and
+    # the first epochs' 1-step loss are not comparable (both are reported)
+    unroll = [curriculum_future(e, GNN_EPOCHS) for e in range(GNN_EPOCHS)]
+    stages = {f: [x for x, u in zip(losses, unroll) if u == f] for f in sorted(set(unroll))}
+    falls = {"within_each_unroll_length": all(v[-1] < v[0] for v in stages.values()),
+             "last_epoch_below_first": losses[-1] < losses[0]}
+    if not (all(math.isfinite(x) for x in losses) and falls["within_each_unroll_length"]):
+        raise RuntimeError(f"gnn: the loss did not fall within an unroll length: "
+                           f"per epoch {losses} (unroll {unroll})")
+    again, losses2, _ = train()
+    a, b = gnn_tensors(state), gnn_tensors(again)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    identical = not differ and losses == losses2
+    if not identical:
+        raise RuntimeError(f"gnn: two trainings from one seed differ: losses {losses} "
+                           f"and {losses2}; tensors {differ[:8]}")
+
+    step_vs_cpu = gnn_step_vs_cpu(trainer, state, train_ds, gpu)
+
+    # ms per training step at each unroll length, from the trained state
+    steps = {}
+    for future in (1, 2, 3):
+        train_ds.set_future_seq_len(future)
+        rng = np.random.default_rng(future)
+        batches = [train_ds.batch(rng, GNN_BATCH) for _ in range(GNN_TIMED_STEPS + 1)]
+        opt = trainer.init_opt(state)
+        s, opt, _ = trainer.train_step(state, opt, batches[0], 0, future)   # warm-up
+        carry = [s, opt]
+
+        def one(batch):
+            carry[0], carry[1], loss = trainer.train_step(carry[0], carry[1], batch,
+                                                          0, future)
+            return loss
+
+        ms, host_ms, _ = timed_calls(one, batches[1:])
+        trace = profile_calls(one, batches[1:2])
+        steps[f"unroll_{future}"] = {
+            "ms_per_step": ms, "host_ms_per_step": host_ms,
+            "kernels_per_step": trace["kernels_per_call"],
+            "device_busy_share": trace["device_busy_share"],
+            "device_ms_per_step_profiled": trace["device_ms_per_call"],
+            "top_kernels_ms_per_step": trace["top_kernels_ms_per_call"]}
+        log(f"gnn step at unroll {future}: {ms:.3f} ms (device), {host_ms:.3f} ms "
+            f"(host), {trace['kernels_per_call']:.0f} kernels, busy "
+            f"{trace['device_busy_share']} [{gpu}]")
+
+    # a timed validation rollout over the held-out trajectory 0
+    item = val_ds.rollout_item(0)
+    trainer.validate_rollout(state, item)                       # warm-up
+    ms, host_ms, (val,) = timed_calls(lambda it: trainer.validate_rollout(state, it),
+                                      [item])
+    n_roll = val["per_step_mse"].shape[0]
+    if not np.isfinite(val["per_step_mse"]).all():
+        raise RuntimeError(f"gnn: rollout MSE {val['per_step_mse']}")
+
+    # a real-world rollout: the held-out start as a tracker sees it (each
+    # point off by GNN_TRACKING_NOISE), the rest lengths of the noise-free
+    # mesh, the same steps with and without the refinement (the root
+    # generate_rw_predictions.py's 10 Adam steps at lr 1e-3); the clean start
+    # too, for the record: the simulated cloth barely stretches, and there
+    # the refinement's steps of about lr are larger than what they correct
+    def tensor(x, dtype):
+        return torch.from_numpy(np.asarray(x, dtype)).to(dev)
+
+    p0, edge_index = item["pos"][0], tensor(item["edge_index"], np.int64)
+    grasped = int(item["grasped"])
+    d0 = p0[item["edge_index"][0]] - p0[item["edge_index"][1]]
+    rest = tensor(np.sqrt((d0 * d0).sum(-1) + 1e-20), np.float32)
+    noisy = p0 + np.random.default_rng(SEED).normal(0, GNN_TRACKING_NOISE, p0.shape)
+    deviation = {}
+    for start, pos0 in (("tracked", noisy), ("clean", p0)):
+        for refine in (False, True):
+            torch.cuda.synchronize()
+            t = time.time()
+            traj, _ = rollout(state, tensor(pos0, np.float32),
+                              tensor(item["init_velocity"], np.float32),
+                              tensor(item["node_type"], np.int64), edge_index,
+                              tensor(item["actions"], np.float32), grasped,
+                              n_steps=GNN_REAL_WORLD_STEPS, real_world=refine,
+                              rest_lengths=rest)
+            torch.cuda.synchronize()
+            deviation[f"{start}_{'refined' if refine else 'plain'}"] = {
+                "mean_edge_length_deviation": edge_length_deviation(
+                    traj, edge_index, grasped, rest),
+                "ms_per_step": (time.time() - t) * 1e3 / GNN_REAL_WORLD_STEPS,
+                "finite": bool(torch.isfinite(traj).all())}
+    refined, plain = deviation["tracked_refined"], deviation["tracked_plain"]
+    if not (refined["finite"] and refined["mean_edge_length_deviation"]
+            < plain["mean_edge_length_deviation"]):
+        raise RuntimeError(f"gnn: the refinement did not hold edge lengths: {deviation}")
+
+    record = {
+        "data": {"trajectories": GNN_TRAIN_TRAJS, "held_out": GNN_VAL_TRAJS,
+                 **GNN_DATA, "seconds": data_s,
+                 "card_vs_cpu_pos_max_abs_traj0": data_err, "limit": TOL_GNN_DATA},
+        "model": {**GNN_MODEL, "mlp_hidden_layers": 2, "nodes": train_ds.n_nodes,
+                  "edges_max": train_ds.e_max, "batch": GNN_BATCH},
+        "epochs": GNN_EPOCHS, "steps_per_epoch": GNN_STEPS_PER_EPOCH,
+        "unroll_by_epoch": unroll,
+        "epoch_loss": losses, "loss_falls": falls, "train_seconds": train_s,
+        "second_training_bit_identical": identical,
+        "step_card_vs_cpu": step_vs_cpu,
+        "step": steps,
+        "validate_rollout": {"steps": n_roll, "mean_mse": val["mean_mse"],
+                             "per_step_mse": val["per_step_mse"].tolist(),
+                             "ms_per_step": ms / n_roll,
+                             "host_ms_per_step": host_ms / n_roll},
+        "real_world_rollout": {"steps": GNN_REAL_WORLD_STEPS,
+                               "tracking_noise_m": GNN_TRACKING_NOISE, **deviation},
+        "tile_kernel_launches": counts, "gpu": gpu}
+    log(f"gnn: data {data_s:.1f} s (card vs CPU {data_err:.3g}), losses "
+        f"{json.dumps(losses)}, training {train_s:.1f} s, the second training "
+        f"bit-identical, rollout {ms / n_roll:.3f} ms/step, tracked start's "
+        f"edge-length deviation {plain['mean_edge_length_deviation']:.4g} -> "
+        f"{refined['mean_edge_length_deviation']:.4g} refined [{gpu}]")
+    return record
 
 
 def build_scenes(dev):
@@ -2108,6 +2491,9 @@ def main() -> int:
     # 11. the parity run --------------------------------------------------------
     parity, parity_launches = parity_phase(gpu)
     print(json.dumps({"parity": parity}))
+
+    # 12. the GNN dynamics -----------------------------------------------------
+    print(json.dumps({"gnn": gnn_phase(gpu)}))
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)

@@ -6,11 +6,13 @@ JAX structure nests (an optax ``ScaleByAdamState`` is ``{"count", "mu",
 "nu"}`` with ``mu`` and ``nu`` dicts of the parameters' fields); this module
 never imports JAX. Field names and layouts are the same in both packages;
 integer index fields become int64 (torch's index type), except the Adam
-and step counters, which stay int32 as in JAX.
+and step counters, which stay int32 as in JAX. The GNN's converters also
+take a flat npz checkpoint (``model-N.npz``, ``train_state-N.npz``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
@@ -133,3 +135,70 @@ def train_state_from_checkpoint(path: str, device: str | torch.device = "cuda"
     was saved."""
     with np.load(path) as data:
         return train_state(nest({k: data[k] for k in data.files}), device)
+
+
+# --------------------------------------------------------------------------- #
+# The GNN dynamics: parameter trees, normalizers and Adam state
+# --------------------------------------------------------------------------- #
+
+def _as_tree(arrays) -> dict:
+    """A JAX pytree of numpy arrays (NamedTuples as dicts), or the tree of a
+    flat npz file of either package (``nest``), or that file's path."""
+    if isinstance(arrays, (str, os.PathLike)):
+        with np.load(arrays) as data:
+            return nest({k: data[k] for k in data.files})
+    if hasattr(arrays, "_asdict"):
+        return dict(arrays._asdict())
+    return arrays
+
+
+def meshnet_params(arrays, device: str | torch.device = "cuda"):
+    """An Encode-Process-Decode parameter tree (``models/meshnet.py``; the
+    same layout in both packages: ``w`` is [in, out]) as tensors; lists
+    that a flat file stores as "0", "1", ... keys come back as lists."""
+    dev = resolve_device(device)
+
+    def tree(a):
+        a = _as_tree(a)
+        if isinstance(a, dict):
+            if a and all(k.isdigit() for k in a):
+                return [tree(a[str(i)]) for i in range(len(a))]
+            return {k: tree(v) for k, v in a.items()}
+        if isinstance(a, (list, tuple)):
+            return [tree(v) for v in a]
+        return _tensor(a, dev)
+
+    return tree(arrays)
+
+
+def normalizer_state(arrays, device: str | torch.device = "cuda"):
+    from cloth_splatting_tpu_torch.models.meshnet import NormalizerState
+
+    return _build(NormalizerState, _as_tree(arrays), resolve_device(device))
+
+
+def cloth_simulator_state(arrays, device: str | torch.device = "cuda") -> dict:
+    """A cloth (or time) simulator state {"gnn", "node_norm", "out_norm"}:
+    the JAX state as numpy arrays, or a ``model-N.npz`` of either package."""
+    tree = _as_tree(arrays)
+    return {"gnn": meshnet_params(tree["gnn"], device),
+            "node_norm": normalizer_state(tree["node_norm"], device),
+            "out_norm": normalizer_state(tree["out_norm"], device)}
+
+
+time_simulator_state = cloth_simulator_state
+
+
+def meshnet_adam_state(arrays, device: str | torch.device = "cuda") -> AdamState:
+    """An optax ``ScaleByAdamState`` of the GNN parameters (as numpy arrays,
+    or a ``train_state-N.npz`` of either package, whose "opt" it reads) as
+    the port's ``AdamState``: the moments keyed by each parameter's path, as
+    ``MeshnetTrainer.init_opt`` keys them."""
+    from cloth_splatting_tpu_torch.models.meshnet import flat_params
+
+    dev = resolve_device(device)
+    tree = _as_tree(arrays)
+    tree = _as_tree(tree.get("opt", tree))
+    return AdamState(count=_counter(tree["count"], dev),
+                     mu=flat_params(meshnet_params(tree["mu"], dev)),
+                     nu=flat_params(meshnet_params(tree["nu"], dev)))

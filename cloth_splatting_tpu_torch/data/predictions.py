@@ -1,11 +1,8 @@
 """Mesh predictions into a scene directory; counterpart of
 ``cloth_splatting_tpu/data/predictions.py``: the files the trainer reads as
 the GNN's rollout, ``init_mesh.hdf5`` and ``mesh_predictions/mesh_%03d.hdf5``,
-from given vertex positions or from the noisy ground-truth ablation. Needs
-``h5py``.
-
-``generate_gnn_predictions`` needs the GNN dynamics model, which the port
-does not have yet (ROADMAP queue 1 item 6), and raises.
+from a rollout of the trained GNN, from given vertex positions or from the
+noisy ground-truth ablation. Needs ``h5py``.
 """
 
 from __future__ import annotations
@@ -51,11 +48,26 @@ def save_mesh_predictions(scene_dir: str, faces: np.ndarray,
 
 def generate_gnn_predictions(scene_dir: str, sim_state: dict, ds,
                              traj_idx: int = 0, normalize: bool = True) -> np.ndarray:
-    """The JAX package rolls its trained GNN out over a trajectory here; the
-    port has no GNN yet."""
-    raise NotImplementedError(
-        "generate_gnn_predictions needs the GNN dynamics model, which the "
-        "port does not have yet (ROADMAP queue 1 item 6, GNN dynamics)")
+    """Roll the trained GNN (``sim_state``, on its device) out over
+    trajectory ``traj_idx`` of dataset ``ds`` and write the predictions into
+    ``scene_dir``. Returns [T, V, 3]."""
+    from cloth_splatting_tpu_torch.models.cloth_simulator import rollout
+
+    dev = sim_state["out_norm"].acc_sum.device
+    item = ds.rollout_item(traj_idx)
+
+    def tensor(a, dtype):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    traj, _ = rollout(sim_state, tensor(item["pos"][0], np.float32),
+                      tensor(item["init_velocity"], np.float32),
+                      tensor(item["node_type"], np.int64),
+                      tensor(item["edge_index"], np.int64),
+                      tensor(item["actions"], np.float32), int(item["grasped"]),
+                      n_steps=item["actions"].shape[0], normalize=normalize)
+    positions = traj.cpu().numpy()
+    save_mesh_predictions(scene_dir, np.asarray(item["faces"]), positions)
+    return positions
 
 
 def generate_noisy_gt_predictions(scene_dir: str, faces: np.ndarray,

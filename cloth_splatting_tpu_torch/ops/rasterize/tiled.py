@@ -12,9 +12,9 @@ JAX tier reaches no Pallas kernel, so this one has none either.
   3. A stable rank of the instances' tile ids gives each instance its place
      in its tile's front-to-back list; one scatter fills a dense
      [tiles, k_cap, 12] grid. Instances past ``k_cap`` in a tile are
-     dropped and counted (``RasterAux.n_dropped``); the scatter writes them
-     to one extra trash row that is sliced off, so its gradient is the
-     gather of the kept rows.
+     dropped and counted (``RasterAux.n_dropped``); the scatter writes each
+     of them to a trash row of its own past the grid, sliced off, so its
+     gradient is the gather of the kept rows.
   4. Front-to-back alpha compositing over chunks of ``k_chunk`` list
      entries, each chunk under ``torch.utils.checkpoint``, so the backward
      holds one chunk's intermediates at a time.
@@ -98,16 +98,19 @@ def bin_gaussians(proj: ProjectedGaussians, tw: int, th: int, tile_size: int,
         offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
         local = pos.long() - offsets[torch.clamp_max(tile_id, n_tiles).long()]
         keep = (tile_id < n_tiles) & (local < k_cap)
+        # a dropped instance writes a trash row of its own: with every index
+        # distinct, the card's deterministic scatter runs in parallel (one
+        # shared trash row serializes its ~10^6 writes)
         trash = n_tiles * k_cap
-        scatter_idx = torch.where(keep, tile_id.long() * k_cap + local,
-                                  torch.full_like(local, trash))
-        gauss_of_inst = torch.arange(n * slots, device=dev) // slots
+        inst = torch.arange(n * slots, device=dev)
+        scatter_idx = torch.where(keep, tile_id.long() * k_cap + local, trash + inst)
+        gauss_of_inst = inst // slots
 
     rows = torch.cat([xy, proj.conic[inverse], proj.color[inverse],
                       opacity[:, None], depth[:, None],
                       proj.power_cut[inverse][:, None],
                       torch.zeros_like(depth)[:, None]], dim=1)[gauss_of_inst]
-    dense = rows.new_zeros((trash + 1, PACK)).index_put((scatter_idx,), rows)
+    dense = rows.new_zeros((trash + n * slots, PACK)).index_put((scatter_idx,), rows)
     dense = dense[:trash].reshape(n_tiles, k_cap, PACK)
     aux = RasterAux(n_dropped=torch.clamp_min(counts - k_cap, 0).sum(),
                     max_tile_count=counts.max())

@@ -176,11 +176,12 @@ def loader_cameras(args, views) -> list[list]:
         for ti, t in enumerate(times)] for v in views]
 
 
-def run_in_memory(args) -> dict:
+def run_in_memory(args, on_iteration=None) -> dict:
     """The same run without a file. Returns {"line": the JSON line,
     "test_psnr_before": the test split's PSNR at the initial state, scored
     the same way, "fit_seconds", "iterations_per_second", "n_gaussians" (alive
-    at the end), "scene_seconds", "eval_seconds"}."""
+    at the end), "scene_seconds", "eval_seconds", "state": the fitted state
+    that was scored}. ``on_iteration`` goes to ``fit_banks``."""
     import torch
 
     from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
@@ -271,6 +272,7 @@ def run_in_memory(args) -> dict:
               test_iterations=targs.test_iterations,
               save_iterations=targs.save_iterations, seed=targs.seed,
               three_steps_batch=targs.three_steps_batch,
+              on_iteration=on_iteration,
               on_save=lambda it, st: saved.__setitem__(it, st))
     synchronize(dev)
     fit_s = time.time() - t_fit
@@ -282,7 +284,8 @@ def run_in_memory(args) -> dict:
             "test_psnr_before": before["PSNR"], "fit_seconds": fit_s,
             "iterations_per_second": args.iterations / fit_s,
             "n_gaussians": int(final.gstate.alive.sum()),
-            "scene_seconds": scene_s, "eval_seconds": time.time() - t_eval}
+            "scene_seconds": scene_s, "eval_seconds": time.time() - t_eval,
+            "state": final}
 
 
 def main(argv=None) -> dict:

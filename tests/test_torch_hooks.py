@@ -10,8 +10,8 @@
   - ``utils/logging.py`` and ``utils/profiling.py``: the adapters, timers,
     timestamped stdout, seeding, traces and the NaN checks;
   - ``data/predictions.py``: the files equal to the JAX writers' (positions,
-    faces and edges exactly, normals within 1e-6); the GNN rollout raises
-    and names its queue item.
+    faces and edges exactly, normals within 1e-6); the GNN rollout's files
+    are held in ``tests/test_torch_gnn.py``.
 """
 
 import dataclasses
@@ -308,8 +308,6 @@ def test_prediction_writers_match_jax(tmp_path):
     for field in ("pos", "faces", "edge_index", "edge_norm"):
         np.testing.assert_array_equal(getattr(tm, field).numpy(),
                                       np.asarray(getattr(jm, field)), err_msg=field)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tpred.generate_gnn_predictions(str(tmp_path), {}, None)
 
 
 def test_config_dataclasses_unchanged_by_the_cli_flags():
