@@ -91,12 +91,26 @@ Phases, each of which raises on failure:
      same step on the CPU; ms per step at unroll lengths 1, 2, 3; a timed
      validation rollout; a real-world rollout from a start with 3 mm
      tracking noise whose refinement must lower the edge-length deviation
-     (and from the clean start, reported); no tile kernel launched.
+     (and from the clean start, reported); no tile kernel launched;
+ 13. planning: the closed manipulation loop at the root ``planning.py``'s
+     defaults (16 candidates, horizon 4, plans of 12 steps, the 64-sample
+     estimation mesh of a 12x12 cloth, 5 views of 96x96, 150 static and
+     200 refine steps), planning with the GNN the gnn phase trained:
+     ``MPC.model_rollout`` on the card against the CPU (positions within
+     1e-5; ms per call); one ``mpc-cs`` episode of 3 steps (max_steps cut
+     from 20) through the in-memory path, with K2 and K3 launched once per
+     camera of every refiner step and no other kernel, finite costs and a
+     finite refined history [4, 64, 3]; the same episode again, bit for bit
+     (costs, history, every tensor of the refiner's state); K2 and K3
+     against their plain versions on the final refiner state's pack at
+     96x96 (16 px tiles); ms per refine step and per observation render;
+     and 3-step episodes of ``fixed``, ``random``, ``mpc-oracle`` and
+     ``mpc-ol`` (finite costs, no kernel).
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
 {"dense": ...} line, the parity line, a {"parity": ...} line, a {"gnn": ...}
-line, a {"kernels": [...]} line and, last,
+line, a {"planning": ...} line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
@@ -226,6 +240,25 @@ TOL_GNN_NORM = 1e-6
 TOL_GNN_GRAD_ALL = 5e-4
 TOL_GNN_GRAD_LEAF = 2e-3
 GNN_STEP_NOISE = 1e-3
+# The closed manipulation loop (phase 13) at the root planning.py's
+# defaults, planning with the GNN the gnn phase trained at full width: 16
+# candidates over a horizon of 4, bezier plans of 12 steps, the 64-sample
+# estimation mesh of a 12x12 cloth, history 2; mpc-cs renders 5 views of
+# 96x96 through the dense tier and refines 150 static and 200 refine steps
+# on K2/K3. Depth cut: 3 planning steps instead of max_steps 20.
+PLAN_CFG = dict(n_candidates=16, horizon=4, traj_len=12, action_repetition=1,
+                input_sequence_length=2, num_samples=64, refine_steps=200,
+                static_steps=150, n_views=5, image_size=96, seed=0)
+PLAN_STEPS, PLAN_STEPS_FULL = 3, 20
+PLAN_OTHER_MODALITIES = ("fixed", "random", "mpc-oracle", "mpc-ol")
+PLAN_ROLLOUT_REPS = 10
+PLAN_TIMED_REFINE = 20
+# the card's candidate rollouts (positions, m) against the CPU's from the
+# same state and inputs: the CPU tests hold the port's batched rollout to
+# JAX's vmap and to single rollouts at 1e-5 (TOL_ROLLOUT of
+# tests/test_torch_manipulation.py and tests/test_torch_gnn.py; they read 0
+# at latent 32, 2 layers)
+TOL_PLAN_ROLLOUT = 1e-5
 # K1 and K2 against their plain versions: both walk the same chunks in the
 # same order and stop at the same chunk, so they differ only by rounding
 # (sequential products in the kernels, cumprod in the plain versions); sound
@@ -1879,19 +1912,10 @@ def gnn_step_vs_cpu(trainer, state: dict, ds, gpu: str) -> dict:
     import numpy as np
     import torch
 
-    from cloth_splatting_tpu_torch.models.meshnet import (
-        NormalizerState,
-        flat_params,
-        unflat_params,
-    )
     from cloth_splatting_tpu_torch.train.meshnet_train import MeshnetTrainer
 
     host = MeshnetTrainer(device="cpu", **GNN_TRAINER)
-    host_state = {
-        "gnn": unflat_params(state["gnn"], {k: v.cpu() for k, v in
-                                            flat_params(state["gnn"]).items()}),
-        **{k: NormalizerState(*(x.cpu() for x in state[k]))
-           for k in ("node_norm", "out_norm")}}
+    host_state = gnn_state_on(state, "cpu")
     out = {}
     for future in (1, 3):
         ds.set_future_seq_len(future)
@@ -1931,7 +1955,7 @@ def gnn_step_vs_cpu(trainer, state: dict, ds, gpu: str) -> dict:
             "noise_std": GNN_STEP_NOISE}
 
 
-def gnn_phase(gpu: str, dev=None) -> dict:
+def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
     """The GNN dynamics at full width (GNN_*): data made on the card by
     ``collect_trajectories`` (trajectory 0 also on the CPU: within
     TOL_GNN_DATA), ``train_meshnet`` over GNN_EPOCHS curriculum epochs with
@@ -1943,8 +1967,8 @@ def gnn_phase(gpu: str, dev=None) -> dict:
     real-world rollout of GNN_REAL_WORLD_STEPS steps from the held-out start
     with tracking noise, with and without the edge-length refinement
     (refining must lower the mean edge-length deviation from the noise-free
-    rest lengths). None of the six tile kernels may launch. Returns the
-    {"gnn": ...} record."""
+    rest lengths). None of the six tile kernels may launch. Returns (the
+    {"gnn": ...} record, the trained state)."""
     import numpy as np
     import torch
 
@@ -2116,7 +2140,233 @@ def gnn_phase(gpu: str, dev=None) -> dict:
         f"bit-identical, rollout {ms / n_roll:.3f} ms/step, tracked start's "
         f"edge-length deviation {plain['mean_edge_length_deviation']:.4g} -> "
         f"{refined['mean_edge_length_deviation']:.4g} refined [{gpu}]")
-    return record
+    return record, state
+
+
+def gnn_state_on(state: dict, device) -> dict:
+    """A copy of a GNN simulator state on ``device``."""
+    from cloth_splatting_tpu_torch.models.meshnet import (
+        NormalizerState,
+        flat_params,
+        unflat_params,
+    )
+
+    return {"gnn": unflat_params(state["gnn"], {k: v.to(device) for k, v in
+                                               flat_params(state["gnn"]).items()}),
+            **{k: NormalizerState(*(x.to(device) for x in state[k]))
+               for k in ("node_norm", "out_norm")}}
+
+
+def planning_rollout_vs_cpu(sim_state: dict, gpu: str, dev) -> dict:
+    """``MPC.model_rollout`` of PLAN_CFG's candidates on the card and on the
+    CPU from one state of the planning episode's estimation mesh (after one
+    step of the fixed plan, so the velocity history is not zero): positions
+    within TOL_PLAN_ROLLOUT; ms per call on the card."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.trajectories import process_trajectory
+    from cloth_splatting_tpu_torch.manipulation.env import ClothEnv
+    from cloth_splatting_tpu_torch.manipulation.mpc import MPC
+    from cloth_splatting_tpu_torch.manipulation.planning import _estimator_features
+    from cloth_splatting_tpu_torch.manipulation.trajectory_gen import bezier_actions
+
+    c = PLAN_CFG
+    env = ClothEnv(seed=c["seed"], device=dev)
+    full0 = env.reset()
+    pick_idx, pick, place = env.sample_pick_place()
+    proc = process_trajectory({"pos": np.stack([full0, full0]),
+                               "actions": np.zeros((1, 3), np.float32),
+                               "pick": pick, "place": place},
+                              num_samples=c["num_samples"], norm_threshold=0.2,
+                              seed=c["seed"])
+    env.grasp_particle(pick_idx)
+    env.step(bezier_actions(pick, place, 0.05, c["traj_len"])[0])
+    ids = proc["fps_ids"] if "fps_ids" in proc else None
+    from cloth_splatting_tpu_torch.data.meshing import farthest_point_sampling
+
+    ids = farthest_point_sampling(full0[:, [0, 2, 1]], c["num_samples"], seed=c["seed"])
+    hist = np.stack([full0[ids], env.positions[ids]])[:, :, [0, 2, 1]].astype(np.float32)
+    feats = _estimator_features(proc, hist, c["input_sequence_length"])
+    mpcs = {name: MPC(s, c["n_candidates"], c["horizon"], c["input_sequence_length"],
+                      seed=c["seed"])
+            for name, s in (("card", sim_state), ("cpu", gnn_state_on(sim_state, "cpu")))}
+    for m in mpcs.values():
+        m.init_sampler(1.0, 1, pick[[0, 2, 1]], place[[0, 2, 1]], c["traj_len"])
+    card, cpu = (mpcs[k].model_rollout(feats) for k in ("card", "cpu"))
+    err = float(np.abs(card - cpu).max())
+    shape = list(card.shape)
+    if shape != [c["n_candidates"], c["horizon"] + 1, c["num_samples"], 3] \
+            or not np.isfinite(card).all() or not err <= TOL_PLAN_ROLLOUT:
+        raise RuntimeError(f"planning: the card's candidate rollouts {shape} are "
+                           f"{err} from the CPU's (limit {TOL_PLAN_ROLLOUT})")
+    ms, host_ms, _ = timed_calls(lambda f: mpcs["card"].model_rollout(f),
+                                 [feats] * PLAN_ROLLOUT_REPS)
+    log(f"planning: model_rollout [{shape}] card vs CPU {err:.3g}, {ms:.3f} ms "
+        f"(device), {host_ms:.3f} ms (host) per call [{gpu}]")
+    return {"shape": shape, "card_vs_cpu_pos_max_abs": err, "limit": TOL_PLAN_ROLLOUT,
+            "ms_per_call": ms, "host_ms_per_call": host_ms, "calls": PLAN_ROLLOUT_REPS}
+
+
+def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
+    """Phase 13: the closed manipulation loop on the card, planning with the
+    GNN state the gnn phase trained. Candidate rollouts against the CPU's
+    (``planning_rollout_vs_cpu``); one ``mpc-cs`` episode through the
+    in-memory path at PLAN_CFG with PLAN_STEPS steps, from launch counters
+    set to 0 just before: finite costs, K2 and K3 launched once per camera
+    of every refiner step and no other kernel, a finite refined history of
+    [PLAN_STEPS + 1, 64, 3]; the same episode again, bit for bit (costs,
+    history, every tensor of the refiner's state); K2 and K3 against their
+    plain versions on the pack of the final refiner state's newest camera at
+    96x96; ms per refine step and per observation render; then
+    PLAN_STEPS-step episodes of the other four modalities (finite costs, no
+    kernel). Returns (the {"planning": ...} record, K2/K3's launches and
+    readings at this shape)."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.manipulation.planning import (
+        PlanningConfig,
+        closed_loop_planning,
+    )
+    from cloth_splatting_tpu_torch.models.deform import simulator_from_params
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_and_win
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
+        raster_forward_train,
+        raster_forward_train_plain,
+        run_backward,
+        run_backward_plain,
+    )
+    from cloth_splatting_tpu_torch.render import CameraArrays, project_view
+
+    dev = dev or torch.device("cuda")
+    rollout = planning_rollout_vs_cpu(sim_state, gpu, dev)
+
+    cfg = PlanningConfig(modality="mpc-cs", max_steps=PLAN_STEPS, in_memory=True,
+                         **PLAN_CFG)
+    # one camera a static step; a refine step takes a mid time and its two
+    # neighbours once 3 times are observed (step s observes s + 2)
+    cams_per_refine = [min(s + 2, 3) for s in range(PLAN_STEPS)]
+    expected = cfg.static_steps + cfg.refine_steps * sum(cams_per_refine)
+
+    def episode():
+        ep = {}
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        res = closed_loop_planning(sim_state, cfg, None, device=dev, episode=ep)
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        return res, ep, seconds, {k: v for k, v in launch_counts().items() if v}
+
+    res, ep, seconds, counts = episode()
+    history = ep["history"]
+    if counts != {"K2": expected, "K3": expected}:
+        raise RuntimeError(f"planning: mpc-cs launched {counts}, expected K2 and K3 "
+                           f"{expected} times each and nothing else")
+    if len(res["costs"]) != PLAN_STEPS or not all(map(math.isfinite, res["costs"])):
+        raise RuntimeError(f"planning: mpc-cs costs {res['costs']}")
+    if history.shape != (PLAN_STEPS + 1, cfg.num_samples, 3) \
+            or not np.isfinite(history).all():
+        raise RuntimeError(f"planning: refined history {history.shape}, finite "
+                           f"{bool(np.isfinite(history).all())}")
+    log(f"planning: mpc-cs {PLAN_STEPS} steps in {seconds:.1f} s, costs "
+        f"{json.dumps(res['costs'])}, launches {json.dumps(counts)} [{gpu}]")
+    res2, ep2, seconds2, counts2 = episode()
+    a, b = (state_tensors(e["refiner"].state) for e in (ep, ep2))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or res2 != res or counts2 != counts \
+            or not np.array_equal(ep2["history"], history):
+        raise RuntimeError(f"planning: a second mpc-cs episode differs: costs "
+                           f"{res['costs']} and {res2['costs']}, tensors {differ[:8]}")
+    del ep2
+
+    # K2 and K3 on one refiner step's pack: the final state's newest camera
+    refiner, synth = ep["refiner"], ep["synth"]
+    trainer, state, scene = refiner.trainer, refiner.state, refiner.scene
+    size = cfg.image_size
+    cam = CameraArrays(*(f[0, scene.n_times - 1] for f in scene.cam_bank))
+    with torch.no_grad():
+        proj = project_view(cam, size, size, trainer.tanfovx, trainer.tanfovy,
+                            state.params, state.gstate, trainer.mesh,
+                            simulator_from_params(state.sim_params),
+                            trainer.mesh_predictions, 0)[0]
+    tile, win = tile_and_win(size, size)
+    pack = sorted_pack(proj, size // tile, size // tile, tile, win,
+                       order=trainer.cfg.opt.raster_pack_order)
+    label = f"planning refiner {size}px"
+    k2_err, stats, out_k, tb_k = compare_k2(pack, size, size, tile, label)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    gimg = cotangent_tiles(out_k, size, size, tile, gen)
+    k3_err, k3_rel = compare_k3(pack, gimg, tb_k, size, size, tile, label)
+    n_tiles, p = (size // tile) ** 2, tile * tile
+    shape = {"width": size, "height": size, "tile": tile, "tiles": n_tiles,
+             "gaussians_alive": int(state.gstate.alive.sum()),
+             "capacity": int(state.gstate.alive.numel()), "walk": stats}
+    k_at = {
+        "K2": {**shape, "max_abs_err": k2_err,
+               "ms": time_ms(lambda: raster_forward_train(pack, size, size, tile, BG), 50),
+               "plain_ms": time_ms(lambda: raster_forward_train_plain(
+                   pack, size, size, tile, BG), 5, 1),
+               **bound(stats, "K2", n_tiles, p)},
+        "K3": {**shape, "max_abs_err": k3_err, "max_rel_err": max(k3_rel.values()),
+               "ms": time_ms(lambda: run_backward(pack, gimg, tb_k, size, size, tile,
+                                                  BG), 50),
+               "plain_ms": time_ms(lambda: run_backward_plain(
+                   pack, gimg, tb_k, size, size, tile, BG), 5, 1),
+               **bound(stats, "K3", n_tiles, p)}}
+    for key, rec in k_at.items():
+        rec["launches"] = counts[key]
+    log(f"planning: K2/K3 at {size}px: {json.dumps(k_at)} [{gpu}]")
+
+    # ms per refine step (the final data, PLAN_TIMED_REFINE more steps) and
+    # per observation render (every view of one state)
+    torch.cuda.synchronize()
+    refine_ms, refine_host_ms, _ = timed_calls(
+        lambda n: refiner.update_mesh_predictions(n), [1] * PLAN_TIMED_REFINE)
+    render_ms, render_host_ms, _ = timed_calls(
+        lambda t: synth.render_state(history[-1], t),
+        list(range(synth.n_times, synth.n_times + 3)))
+    del ep, refiner, synth
+
+    others = {}
+    for modality in PLAN_OTHER_MODALITIES:
+        reset_launch_counts()
+        t = time.time()
+        r = closed_loop_planning(sim_state if modality.startswith("mpc") else None,
+                                 PlanningConfig(modality=modality, max_steps=PLAN_STEPS,
+                                                **PLAN_CFG), None, device=dev)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in launch_counts().items() if v}
+        if launched or not all(map(math.isfinite, r["costs"])) \
+                or len(r["costs"]) != PLAN_STEPS:
+            raise RuntimeError(f"planning: {modality} costs {r['costs']}, kernels "
+                               f"launched {launched}")
+        others[modality] = {**r, "seconds": time.time() - t}
+    log(f"planning: refine step {refine_ms:.3f} ms (device) {refine_host_ms:.3f} ms "
+        f"(host), observation render {render_ms:.3f} ms per state of "
+        f"{cfg.n_views} views; other modalities "
+        f"{json.dumps({k: v['costs'] for k, v in others.items()})} [{gpu}]")
+    record = {
+        "config": {**PLAN_CFG, "max_steps": PLAN_STEPS, "in_memory": True,
+                   "gnn": {k: GNN_MODEL[k] for k in ("n_message_passing", "latent")}},
+        "reduced": {"max_steps": [PLAN_STEPS_FULL, PLAN_STEPS]},
+        "model_rollout": rollout,
+        "mpc_cs": {**res, "seconds": seconds, "launches": counts,
+                   "launches_expected": {"K2": expected, "K3": expected},
+                   "cameras_per_refine_step": cams_per_refine,
+                   "history_shape": list(history.shape),
+                   "second_episode_bit_identical": True,
+                   "ms_per_refine_step": refine_ms,
+                   "host_ms_per_refine_step": refine_host_ms,
+                   "refine_steps_timed": PLAN_TIMED_REFINE,
+                   "ms_per_observation_render": render_ms,
+                   "ms_per_observation_view": render_ms / cfg.n_views,
+                   "host_ms_per_observation_render": render_host_ms},
+        "kernels_at_refiner_shape": k_at,
+        "other_modalities": others, "gpu": gpu}
+    return record, k_at
 
 
 def build_scenes(dev):
@@ -2493,7 +2743,13 @@ def main() -> int:
     print(json.dumps({"parity": parity}))
 
     # 12. the GNN dynamics -----------------------------------------------------
-    print(json.dumps({"gnn": gnn_phase(gpu)}))
+    gnn, gnn_state = gnn_phase(gpu)
+    print(json.dumps({"gnn": gnn}))
+
+    # 13. the closed manipulation loop -----------------------------------------
+    planning, planning_k = planning_phase(gpu, gnn_state)
+    del gnn_state
+    print(json.dumps({"planning": planning}))
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
@@ -2523,10 +2779,12 @@ def main() -> int:
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
                      {"train": k3_launches, "fit": fit_launches["K3"],
-                      "bench": bench_launches["K3"], "parity": parity_launches["K3"]},
-                     k3_err, k3_ms, k3_plain_ms,
+                      "bench": bench_launches["K3"], "parity": parity_launches["K3"],
+                      "planning": planning_k["K3"]["launches"]},
+                     max(k3_err, planning_k["K3"]["max_abs_err"]), k3_ms, k3_plain_ms,
                      k3_bound)
-    k3_entry["max_rel_err"] = k3_rel
+    k3_entry["max_rel_err"] = max(k3_rel, planning_k["K3"]["max_rel_err"])
+    k3_entry["at_planning_shape"] = planning_k["K3"]
     k3_entry["cull_audit"] = cull["65k train cam 0"]
     k4_entry = entry("K4 tiled_bwd_reverse reverse gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
@@ -2576,12 +2834,17 @@ def main() -> int:
                              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
                              {"train": k2_launches, "fit": fit_launches["K2"],
                               "bench": bench_launches["K2"],
-                              "parity": parity_launches["K2"]},
-                             k2_err, k2_ms, k2_plain_ms, k2_bound),
+                              "parity": parity_launches["K2"],
+                              "planning": planning_k["K2"]["launches"]},
+                             max(k2_err, planning_k["K2"]["max_abs_err"]), k2_ms,
+                             k2_plain_ms, k2_bound),
                        "K2", cull["65k train cam 0"])
+    k2_entry["at_planning_shape"] = planning_k["K2"]
     # K1, K2, K3 over the serving frames, the Trainer steps, the fit, the
-    # eval splits (K1) and the bench; the span kernels over one span turn of
-    # the A/B's frames and steps
+    # eval splits (K1), the bench, the parity run and (K2, K3) the planning
+    # episode; the span kernels over one span turn of the A/B's frames and
+    # steps. K2 and K3 also carry their readings at the planning refiner's
+    # 96 px shape (at_planning_shape: error, times, bound, launches)
     print(json.dumps({"kernels": [
         k1_entry,
         clustered(entry("K1-span tiled_fwd_span compositor, one window per program",

@@ -229,3 +229,48 @@ def rollout(
     if not vels:
         return torch.stack(traj), positions0.new_zeros((0,) + positions0.shape)
     return torch.stack(traj), torch.stack(vels)
+
+
+def rollout_batched(
+    state: dict,
+    positions0: torch.Tensor,        # [V, 3]
+    init_velocity: torch.Tensor,     # [hist, V, 3]
+    node_type: torch.Tensor,         # [V]
+    edge_index: torch.Tensor,        # [2, E]
+    actions: torch.Tensor,           # [A, S, 3] each candidate's actions
+    grasped: int,
+    n_steps: int,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """A rollouts from one start, one per action sequence: the counterpart
+    of the JAX package's ``jax.vmap`` of ``rollout`` over candidates. The A
+    copies of the graph run as one graph of A·V nodes (copy a's edges offset
+    by a·V, its grasped node ``grasped + a·V`` moved by its own action), so
+    each GNN step is one pass over A·V nodes. Returns positions
+    [A, S+1, V, 3]."""
+    a, v = actions.shape[0], positions0.shape[0]
+    dev = positions0.device
+    offsets = torch.arange(a, device=dev) * v
+    edges = (edge_index[:, None, :] + offsets[None, :, None]).reshape(2, -1)
+    types = node_type.repeat(a)
+    handles = int(grasped) + offsets                                 # [A]
+    hist = init_velocity.shape[0]
+    vel_hist = torch.cat([init_velocity[i] for i in range(hist)], -1).repeat(a, 1)
+    pos = positions0.repeat(a, 1)                                    # [A·V, 3]
+    traj = [pos]
+    with torch.no_grad():
+        for s in range(min(n_steps, actions.shape[1])):
+            act = actions[:, s]                                      # [A, 3]
+            # each copy's grasped node advances by its action, and its newest
+            # history slot carries the action-induced velocity
+            pos_in = pos.index_put((handles,), pos[handles] + act)
+            vel_in = vel_hist.clone()
+            vel_in[handles, -3:] = act
+            edge_feats = edge_features_from_positions(pos_in, edges)
+            next_vel = predict_velocity(state, vel_in, types, edges, edge_feats,
+                                        normalize=normalize)
+            next_vel = next_vel.index_put((handles,), act)
+            pos = pos + next_vel
+            vel_hist = torch.cat([vel_hist[:, 3:], next_vel], -1)
+            traj.append(pos)
+    return torch.stack(traj).reshape(-1, a, v, 3).transpose(0, 1)
