@@ -105,12 +105,31 @@ Phases, each of which raises on failure:
      against their plain versions on the final refiner state's pack at
      96x96 (16 px tiles); ms per refine step and per observation render;
      and 3-step episodes of ``fixed``, ``random``, ``mpc-oracle`` and
-     ``mpc-ol`` (finite costs, no kernel).
+     ``mpc-ol`` (finite costs, no kernel);
+ 14. legacy: ``models.point_gaussians.fit_static_scene`` (the free-xyz
+     model through the dense tier) at the root ``fit_legacy.py``'s defaults
+     (sh 3, 500 iterations, k_cap 256, 50 training cameras, white
+     background) on a scene of NeRF-synthetic size built in memory (800x800
+     cameras on a sphere of radius 4.03 with the lego scene's field of
+     view, ``load_dnerf_scene``'s init cloud of 2,000 random points, ground
+     truth rendered through ``render_points`` from the bench mesh's 16,384
+     vertices on a wave): the loss falls, the held-out PSNR over 10 cameras
+     beats the initial model's, no kernel of the port is launched; the
+     first 20 iterations twice, bit for bit; 3 iterations at 128x128 on the
+     card against the CPU;
+ 15. sweep: ``parallel.sweep.train_scenes_parallel`` over two scenes of the
+     fit's shape from two texture seeds (one signature), both on the one
+     card as one group, 120 iterations with a static stage, density events,
+     two barycentric cleanups and an evaluation at the end: K2 and K3
+     launched once per camera of every step of both scenes, K1 only by the
+     evaluation; then scene 1 alone through ``train_scene``: every state
+     tensor bit-identical to the sweep's.
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
 {"dense": ...} line, the parity line, a {"parity": ...} line, a {"gnn": ...}
-line, a {"planning": ...} line, a {"kernels": [...]} line and, last,
+line, a {"planning": ...} line, a {"legacy": ...} line, a {"sweep": ...}
+line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
@@ -259,6 +278,49 @@ PLAN_TIMED_REFINE = 20
 # tests/test_torch_manipulation.py and tests/test_torch_gnn.py; they read 0
 # at latent 32, 2 layers)
 TOL_PLAN_ROLLOUT = 1e-5
+# the legacy phase: the root fit_legacy.py's defaults (sh 3, 500
+# iterations, k_cap 256, up to 50 training cameras, white background) on a
+# scene of NeRF-synthetic size: 800x800 cameras on a sphere of radius 4.03
+# with camera_angle_x 0.6911 (the lego scene's), load_dnerf_scene's init
+# cloud of 2,000 random points, ground truth rendered through render_points
+# from a free-xyz reference (the bench mesh's 16,384 vertices on a wave,
+# coloured by position); 10 held-out cameras. Then the first LEGACY_REPEAT
+# iterations twice, and at LEGACY_SMALL px the card against the CPU: the
+# front end (SH, EWA) within TOL_LEGACY_FRONT of each field's largest (the
+# conics within TOL_LEGACY_CONIC: their entries scale like 1 / det, and
+# tests/test_torch_ops.py holds them so against JAX) and the same radii; the dense tier on the same projected inputs with its L1 +
+# SSIM gradients within TOL_DENSE (the dense phase's limit);
+# LEGACY_SMALL_ITERATIONS iterations of the fit on each, the losses within
+# TOL_LEGACY_LOSS relative and the fitted models' renders at least
+# TOL_LEGACY_RENDER_DB apart in PSNR. Each device sorts by its own depths,
+# and a depth within rounding of a bucket edge composites two splats in the
+# other order (the first card call read 6.1e-4 at most in a pixel), so the
+# renders are not held pixel by pixel; nor are the parameters, which Adam
+# moves by +-lr where a gradient is rounding (ROADMAP queue 3)
+LEGACY_SIZE, LEGACY_ITERATIONS, LEGACY_K_CAP, LEGACY_SH = 800, 500, 256, 3
+LEGACY_TRAIN_CAMS, LEGACY_TEST_CAMS = 50, 10
+LEGACY_RADIUS, LEGACY_FOV, LEGACY_POINTS = 4.03, 0.6911, 2000
+# the reference's 800x800 frames drop nothing from 2,048 on (the first
+# chip run doubled from 512)
+LEGACY_REFERENCE_RES, LEGACY_GT_K_CAP = 128, 2048
+LEGACY_REPEAT = 20
+LEGACY_SMALL, LEGACY_SMALL_ITERATIONS = 128, 3
+TOL_LEGACY_FRONT, TOL_LEGACY_CONIC = 1e-5, 1e-4
+TOL_LEGACY_LOSS = 1e-5
+TOL_LEGACY_RENDER_DB = 50.0
+# the sweep phase: two scenes of the fit phase's shape (the 65k mesh on the
+# inextensible wave, FIT_VIEWS views x FIT_TIMES times at 800x800, textures
+# from two seeds; one signature) swept together, both on the one card,
+# SWEEP_ITERATIONS iterations with a static stage, a densify and prune
+# round, an opacity reset, two barycentric cleanups and an evaluation at
+# the end; then scene 1 alone through train_scene: the same bits
+SWEEP_ITERATIONS = 120
+SWEEP_SCHEDULE = dict(iterations=SWEEP_ITERATIONS, static_reconst=True,
+                      static_reconst_iteration=30, densify_from_iter=40,
+                      densification_interval=40, pruning_from_iter=40,
+                      pruning_interval=40, densify_until_iter=SWEEP_ITERATIONS,
+                      bary_cleanup=60)
+SWEEP_SCENE_SEEDS = (SEED, SEED + 1)
 # K1 and K2 against their plain versions: both walk the same chunks in the
 # same order and stop at the same chunk, so they differ only by rounding
 # (sequential products in the kernels, cumprod in the plain versions); sound
@@ -2369,6 +2431,401 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
     return record, k_at
 
 
+def legacy_cameras(n: int, size: int, seed: int):
+    """``n`` cameras of ``size`` px looking at the origin from the upper
+    half of the sphere of radius LEGACY_RADIUS (azimuth uniform, elevation
+    in [0.15, 1.2] rad), with LEGACY_FOV: the NeRF-synthetic layout."""
+    import numpy as np
+
+    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera
+
+    rng = np.random.default_rng(seed)
+    return [orbit_camera(float(az), 1, LEGACY_FOV, size, size, 0.0,
+                         radius=LEGACY_RADIUS, elevation=float(el))
+            for az, el in zip(rng.random(n), rng.uniform(0.15, 1.2, n))]
+
+
+def legacy_reference(dev):
+    """The free-xyz reference the legacy phase's ground truth is rendered
+    from: the bench mesh's vertices (grid_cloth_mesh(128, 128, size=1.4))
+    on the wave at t = 0.5, coloured by position, opaque (0.95)."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
+    from cloth_splatting_tpu_torch.data.synthetic import cloth_wave
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.image import inverse_sigmoid
+
+    rest = grid_cloth_mesh(LEGACY_REFERENCE_RES, LEGACY_REFERENCE_RES, size=1.4,
+                           device="cpu").pos.numpy()
+    pts = cloth_wave(rest, 0.5).astype(np.float32)
+    colors = (pts - pts.min(0)) / (pts.max(0) - pts.min(0))
+    params, state = PG.init_from_point_cloud(np.random.default_rng(SEED), pts,
+                                             colors, 0, device=dev)
+    params = params._replace(opacity=torch.full_like(
+        params.opacity, float(inverse_sigmoid(torch.tensor(0.95)))))
+    return params, state
+
+
+def legacy_render_set(params, state, cams, size: int, sh_degree: int, k_cap: int):
+    """Renders of ``cams`` [n, 3, H, W] in [0, 1] (white background) and
+    the most instances any of them dropped."""
+    import torch
+
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
+
+    tan = math.tan(LEGACY_FOV / 2)
+    images, dropped = [], 0
+    with torch.no_grad():
+        for cam in cams:
+            proj = PG.project_points_view(params, state, cam, size, size, tan, tan,
+                                          sh_degree)
+            rgb, _, _, aux = rasterize_tiled(proj, size, size, (1.0, 1.0, 1.0),
+                                             k_cap=k_cap, k_chunk=32)
+            images.append(torch.clamp(rgb, 0.0, 1.0))
+            dropped = max(dropped, int(aux.n_dropped))
+    return torch.stack(images), dropped
+
+
+def legacy_ground_truth(ref, cams, size: int):
+    """The reference's renders as the loader hands images to the fit:
+    8-bit, truncated (``decode_image``), over [0, 1]; ``k_cap`` doubles
+    from LEGACY_GT_K_CAP until no frame drops. Returns (the images, that
+    k_cap)."""
+    import torch
+
+    k_cap = LEGACY_GT_K_CAP
+    while True:
+        images, dropped = legacy_render_set(*ref, cams, size, 0, k_cap)
+        if dropped == 0:
+            break
+        k_cap *= 2
+    return [(img * 255.0).to(torch.uint8).to(torch.float32) / 255.0
+            for img in images], k_cap
+
+
+def legacy_phase(gpu: str, dev=None) -> dict:
+    """Phase 14: ``fit_static_scene`` (the free-xyz model through the dense
+    tier, as the root fit_legacy.py runs it) at that script's defaults on a
+    scene of NeRF-synthetic size built in memory (``legacy_cameras``,
+    ``legacy_reference``, ``load_dnerf_scene``'s init cloud), with the
+    launch counters set to 0 just before: the loss falls, the held-out
+    PSNR over LEGACY_TEST_CAMS cameras beats the initial model's, no kernel
+    of the port runs; the first LEGACY_REPEAT iterations twice give the same
+    bits; LEGACY_SMALL_ITERATIONS iterations at LEGACY_SMALL px on the card
+    against the CPU (``legacy_vs_cpu``). ``dev`` defaults to the card.
+    Returns the {"legacy": ...} record."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.legacy import dnerf_init_cloud
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.image import psnr
+    from cloth_splatting_tpu_torch.render import camera_arrays
+    from cloth_splatting_tpu_torch.train.losses import image_losses
+
+    dev = dev or torch.device("cuda")
+    size, tan = LEGACY_SIZE, math.tan(LEGACY_FOV / 2)
+    t0 = time.time()
+    ref = legacy_reference(dev)
+    cams = [camera_arrays(c, dev) for c in
+            legacy_cameras(LEGACY_TRAIN_CAMS + LEGACY_TEST_CAMS, size, SEED)]
+    gts, gt_k_cap = legacy_ground_truth(ref, cams, size)
+    train_cams, test_cams = cams[:LEGACY_TRAIN_CAMS], cams[LEGACY_TRAIN_CAMS:]
+    train_gts, test_gts = gts[:LEGACY_TRAIN_CAMS], torch.stack(gts[LEGACY_TRAIN_CAMS:])
+    cloud = dnerf_init_cloud(LEGACY_POINTS, SEED)
+    scene_s = time.time() - t0
+    kw = dict(sh_degree=LEGACY_SH, seed=SEED, k_cap=LEGACY_K_CAP,
+              white_background=True, device=dev)
+
+    # the initial model: its held-out PSNR and the loss of the camera that
+    # the fit's last iteration renders
+    p0, s0 = PG.init_from_point_cloud(np.random.default_rng(SEED), cloud.points,
+                                      cloud.colors, LEGACY_SH, device=dev)
+    last = (LEGACY_ITERATIONS - 1) % LEGACY_TRAIN_CAMS
+    with torch.no_grad():
+        rgb0 = PG.render_points(p0, s0, train_cams[last], size, size, tan, tan,
+                                (1.0, 1.0, 1.0), LEGACY_SH, k_cap=LEGACY_K_CAP)[0]
+        loss0 = float(image_losses(rgb0[None], train_gts[last][None], 0.2)[0])
+    img0, drop0 = legacy_render_set(p0, s0, test_cams, size, LEGACY_SH, LEGACY_K_CAP)
+    psnr0 = float(psnr(img0, test_gts).mean())
+
+    reset_launch_counts()
+    device_ms, host_ms, ((params, state, loss),) = timed_calls(
+        lambda _: PG.fit_static_scene(train_cams, train_gts, cloud, size, size, tan,
+                                      tan, iterations=LEGACY_ITERATIONS, **kw), [0])
+    counts = launch_counts()
+    img1, drop_test = legacy_render_set(params, state, test_cams, size, LEGACY_SH,
+                                        LEGACY_K_CAP)
+    psnr1 = float(psnr(img1, test_gts).mean())
+    _, drop_train = legacy_render_set(params, state, train_cams, size, LEGACY_SH,
+                                      LEGACY_K_CAP)
+    if any(counts.values()):
+        raise RuntimeError(f"legacy: the dense-tier fit launched {counts}")
+    for name, t in params._asdict().items():
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"legacy: non-finite {name}")
+    if not (math.isfinite(loss) and loss < loss0):
+        raise RuntimeError(f"legacy: loss {loss0:.5f} at the start, {loss:.5f} at "
+                           f"iteration {LEGACY_ITERATIONS} (camera {last})")
+    if not psnr1 > psnr0:
+        raise RuntimeError(f"legacy: held-out PSNR {psnr0:.3f} before the fit, "
+                           f"{psnr1:.3f} after")
+
+    # the first LEGACY_REPEAT iterations twice: the same bits
+    a, b = (PG.fit_static_scene(train_cams, train_gts, cloud, size, size, tan, tan,
+                                iterations=LEGACY_REPEAT, **kw) for _ in range(2))
+    differ = [k for k in PG.PointGaussianParams._fields
+              if not torch.equal(getattr(a[0], k), getattr(b[0], k))]
+    if differ or a[2] != b[2]:
+        raise RuntimeError(f"legacy: {LEGACY_REPEAT} iterations twice differ in "
+                           f"{differ}, loss {a[2]} / {b[2]}")
+
+    vs_cpu = legacy_vs_cpu(ref, cloud, dev)
+    record = {
+        "iterations": LEGACY_ITERATIONS, "width": size, "height": size,
+        "train_cameras": LEGACY_TRAIN_CAMS, "test_cameras": LEGACY_TEST_CAMS,
+        "sh_degree": LEGACY_SH, "k_cap": LEGACY_K_CAP,
+        "init_points": LEGACY_POINTS, "reference_points": int(ref[1].alive.sum()),
+        "ground_truth_k_cap": gt_k_cap, "scene_build_s": scene_s,
+        "fit_s": host_ms / 1e3,
+        "device_ms_per_iteration": device_ms / LEGACY_ITERATIONS,
+        "host_ms_per_iteration": host_ms / LEGACY_ITERATIONS,
+        "iterations_per_second": 1e3 * LEGACY_ITERATIONS / host_ms,
+        "loss_start": loss0, "loss_end": loss, "test_psnr_before_fit": psnr0,
+        "test_psnr": psnr1,
+        "dropped_most_a_frame": {"test_start": drop0, "test_end": drop_test,
+                                 "train_end": drop_train},
+        "launches": counts, "repeat_bit_identical": True, "vs_cpu": vs_cpu,
+        "gpu": gpu}
+    log(f"legacy: {LEGACY_ITERATIONS} iterations at {size}x{size} in "
+        f"{record['fit_s']:.1f} s, {record['device_ms_per_iteration']:.3f} ms/iteration "
+        f"(device), {record['host_ms_per_iteration']:.3f} (host); loss {loss0:.5f} -> "
+        f"{loss:.5f}; held-out PSNR {psnr0:.3f} -> {psnr1:.3f} dB over "
+        f"{LEGACY_TEST_CAMS} cameras; dropped (most a frame) "
+        f"{json.dumps(record['dropped_most_a_frame'])} at k_cap {LEGACY_K_CAP}; "
+        f"no kernel launched; {LEGACY_REPEAT} iterations twice bit-identical; "
+        f"card vs CPU {json.dumps(vs_cpu)} [{gpu}]")
+    return record
+
+
+def legacy_vs_cpu(ref, cloud, dev) -> dict:
+    """At LEGACY_SMALL px on 3 of the sphere's cameras, ``dev`` against the
+    CPU: the initial model's front end (``project_points_view``) within
+    TOL_LEGACY_FRONT of each field's largest (TOL_LEGACY_CONIC the
+    conics), radii equal, and how many
+    Gaussians fall in another depth bucket; the dense tier on the card's
+    projected inputs, rgb, depth and the L1 + SSIM gradients within
+    TOL_DENSE of each one's largest; LEGACY_SMALL_ITERATIONS iterations of
+    ``fit_static_scene`` on each device, the losses within TOL_LEGACY_LOSS
+    relative and the fitted models' renders at least TOL_LEGACY_RENDER_DB
+    apart in PSNR."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.image import psnr
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled import DEPTH_BUCKETS, rasterize_tiled
+    from cloth_splatting_tpu_torch.ops.sort import quantize_depth
+    from cloth_splatting_tpu_torch.render import camera_arrays
+    from cloth_splatting_tpu_torch.train.losses import image_losses
+
+    size, tan = LEGACY_SMALL, math.tan(LEGACY_FOV / 2)
+    cpu = torch.device("cpu")
+    cams = legacy_cameras(3, size, SEED + 1)
+    gts, _ = legacy_ground_truth(ref, [camera_arrays(c, dev) for c in cams], size)
+    projs, fits = {}, {}
+    for where in (dev, cpu):
+        wc = [camera_arrays(c, where) for c in cams]
+        wg = [g.to(where) for g in gts]
+        p0, s0 = PG.init_from_point_cloud(np.random.default_rng(SEED), cloud.points,
+                                          cloud.colors, LEGACY_SH, device=where)
+        with torch.no_grad():
+            projs[where.type] = PG.project_points_view(p0, s0, wc[0], size, size,
+                                                       tan, tan, LEGACY_SH)
+        params, state, loss = PG.fit_static_scene(
+            wc, wg, cloud, size, size, tan, tan, sh_degree=LEGACY_SH,
+            iterations=LEGACY_SMALL_ITERATIONS, seed=SEED, k_cap=LEGACY_K_CAP,
+            white_background=True, device=where)
+        fitted, _ = legacy_render_set(params, state, wc, size, LEGACY_SH, LEGACY_K_CAP)
+        fits[where.type] = (loss, fitted.cpu())
+
+    def rel(a, b):
+        a, b = a.detach().cpu().float(), b.detach().cpu().float()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    card_p, cpu_p = projs[dev.type], projs["cpu"]
+    valid = cpu_p.valid
+    front = {f: rel(getattr(card_p, f)[valid], getattr(cpu_p, f)[valid])
+             for f in ("xy", "depth", "conic", "color", "opacity")}
+    buckets = [quantize_depth(p.depth, p.valid, DEPTH_BUCKETS).cpu()
+               for p in (card_p, cpu_p)]
+
+    # the dense tier on one set of inputs: the card's projection
+    fields = ("xy", "conic", "color", "opacity", "depth")
+    raster = {}
+    for where in (dev, cpu):
+        p = card_p._replace(**{k: getattr(card_p, k).to(where) for k in card_p._fields})
+        leaves = {f: getattr(p, f).clone().requires_grad_() for f in fields}
+        rgb, depth, _, _ = rasterize_tiled(p._replace(**leaves), size, size,
+                                           (1.0, 1.0, 1.0), k_cap=LEGACY_K_CAP)
+        loss = image_losses(rgb[None], gts[0].to(where)[None], 0.2)[0]
+        raster[where.type] = (rgb, depth, torch.autograd.grad(loss, list(leaves.values())))
+    card_r, cpu_r = raster[dev.type], raster["cpu"]
+    res = {"front": front,
+           "radii_equal": bool(torch.equal(card_p.radius.cpu(), cpu_p.radius)),
+           "depth_buckets_differ": int((buckets[0] != buckets[1]).sum()),
+           "rgb": rel(card_r[0], cpu_r[0]), "depth": rel(card_r[1], cpu_r[1]),
+           "grads": {f: rel(a, b) for f, a, b in zip(fields, card_r[2], cpu_r[2])},
+           "loss": abs(fits[dev.type][0] - fits["cpu"][0]) / abs(fits["cpu"][0]),
+           "fitted_render_max_abs": float((fits[dev.type][1] - fits["cpu"][1])
+                                          .abs().max()),
+           "fitted_render_psnr_db": float(psnr(fits[dev.type][1], fits["cpu"][1])
+                                          .min())}
+    bad = [f for f, v in front.items()
+           if not v <= (TOL_LEGACY_CONIC if f == "conic" else TOL_LEGACY_FRONT)]
+    bad += [k for k in ("rgb", "depth") if not res[k] <= TOL_DENSE]
+    bad += [f for f, v in res["grads"].items() if not v <= TOL_DENSE]
+    if not res["radii_equal"]:
+        bad.append("radii")
+    if not res["loss"] <= TOL_LEGACY_LOSS:
+        bad.append("loss")
+    if not res["fitted_render_psnr_db"] >= TOL_LEGACY_RENDER_DB:
+        bad.append("fitted_render")
+    if bad:
+        raise RuntimeError(f"legacy: the card disagrees with the CPU in {bad}: {res}")
+    return res
+
+
+def sweep_scene(mesh, scene_seed: int):
+    """A ``ClothScene`` of the fit phase's shape held in memory: the mesh on
+    the inextensible wave over FIT_TIMES times, FIT_VIEWS orbit views
+    rendered at 800x800 by the serving path (target texture from
+    ``scene_seed``) into records that carry their uint8 images, and the
+    held-out view half way between views 0 and 1, as ``fit_scene``."""
+    import dataclasses
+
+    import numpy as np
+
+    from cloth_splatting_tpu_torch.data.scene import (
+        CameraGrid,
+        ClothScene,
+        FrameRecord,
+        nerfpp_radius,
+    )
+    from cloth_splatting_tpu_torch.data.synthetic import (
+        cloth_wave_isometric,
+        orbit_camera,
+        render_scene_banks,
+    )
+
+    rest = mesh.pos.cpu().numpy()
+    times = np.linspace(0.0, 1.0, FIT_TIMES)
+    traj = np.stack([cloth_wave_isometric(rest, t) for t in times]).astype(np.float32)
+
+    def grid(views, n_views):
+        _, gt = render_scene_banks(mesh, traj, views, n_views, WIDTH, fov=FOV,
+                                   seed=scene_seed, device=mesh.pos.device)
+        gt = gt.cpu().numpy()
+        return CameraGrid([
+            FrameRecord(dataclasses.replace(
+                orbit_camera(v, n_views, FOV, WIDTH, HEIGHT, float(times[t])),
+                view_id=i, time_id=t), None, f"r_{v}_{t}", image=gt[i, t])
+            for i, v in enumerate(views) for t in range(FIT_TIMES)])
+
+    radius = nerfpp_radius([orbit_camera(v, FIT_VIEWS, FOV, WIDTH, HEIGHT, 0.0)
+                            for v in range(FIT_VIEWS)])
+    return ClothScene(train=grid(list(range(FIT_VIEWS)), FIT_VIEWS),
+                      test=grid([1], 2 * FIT_VIEWS), video_cameras=[],
+                      initial_mesh=mesh, mesh_predictions=traj, radius=radius,
+                      maxtime=1.0, white_background=True)
+
+
+def sweep_phase(mesh, gpu: str) -> tuple[dict, dict]:
+    """Phase 15: ``train_scenes_parallel`` on the card over two scenes of
+    one signature (``sweep_scene`` from SWEEP_SCENE_SEEDS), both placed on
+    the one card so that they form one group, on SWEEP_SCHEDULE, with the
+    launch counters set to 0 just before: K2 and K3 launched once per
+    camera of every step of both scenes, K1 only by the final evaluation
+    (its held-out frames); then scene 1 alone through ``train_scene``:
+    every tensor of its state equal to the sweep's, bit for bit. Returns
+    (the {"sweep": ...} record, the sweep's launches)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from cloth_splatting_tpu_torch.parallel.sweep import (
+        group_scenes,
+        train_scenes_parallel,
+    )
+    from cloth_splatting_tpu_torch.train.config import Config
+    from cloth_splatting_tpu_torch.train.loop import train_scene
+
+    t0 = time.time()
+    scenes = [sweep_scene(mesh, s) for s in SWEEP_SCENE_SEEDS]
+    scene_s = time.time() - t0
+    cfg = Config()
+    for key, value in SWEEP_SCHEDULE.items():
+        setattr(cfg.opt, key, value)
+    devices = [mesh.pos.device] * 2
+    groups = group_scenes(scenes, len(devices))
+    if groups != [[0, 1]]:
+        raise RuntimeError(f"sweep: groups {groups}, expected one of both scenes")
+    with tempfile.TemporaryDirectory() as out:
+        reset_launch_counts()
+        sweep_device_ms, sweep_host_ms, (swept,) = timed_calls(
+            lambda _: train_scenes_parallel(
+                copy.deepcopy(cfg), scenes, [f"{out}/s0", f"{out}/s1"],
+                devices=devices, test_iterations=[SWEEP_ITERATIONS], seed=SEED), [0])
+        counts = launch_counts()
+        lone_device_ms, lone_host_ms, (lone,) = timed_calls(
+            lambda _: train_scene(copy.deepcopy(cfg), scenes[1], f"{out}/lone",
+                                  test_iterations=[SWEEP_ITERATIONS], seed=SEED,
+                                  device=mesh.pos.device), [0])
+    static = SWEEP_SCHEDULE["static_reconst_iteration"] - 1
+    per_scene = static + 3 * (SWEEP_ITERATIONS - static)
+    expected = {"K1": 2 * FIT_TIMES, "K2": 2 * per_scene, "K3": 2 * per_scene}
+    got = {k: v for k, v in counts.items() if v}
+    if got != expected:
+        raise RuntimeError(f"sweep: launches {got}, expected {expected}")
+    a, b = state_tensors(swept[1]), state_tensors(lone)
+    differ = [k for k in a if not (a[k].shape == b[k].shape and torch.equal(a[k], b[k]))]
+    if differ:
+        raise RuntimeError(f"sweep: scene 1 differs from its lone train_scene in {differ}")
+    for i, st in enumerate(swept):
+        for name, t in state_tensors(st).items():
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise RuntimeError(f"sweep: scene {i} non-finite {name}")
+        if int(st.step) != SWEEP_ITERATIONS:
+            raise RuntimeError(f"sweep: scene {i} step {int(st.step)}")
+    if torch.equal(swept[0].params.features_dc, swept[1].params.features_dc):
+        raise RuntimeError("sweep: the two scenes ended equal")
+    record = {
+        "scenes": len(scenes), "devices": [str(d) for d in devices],
+        "groups": groups,
+        "iterations": SWEEP_ITERATIONS, "schedule": SWEEP_SCHEDULE,
+        "views": FIT_VIEWS, "times": FIT_TIMES, "width": WIDTH, "height": HEIGHT,
+        "scene_build_s": scene_s, "sweep_s": sweep_host_ms / 1e3,
+        "sweep_device_ms_per_iteration": sweep_device_ms / SWEEP_ITERATIONS,
+        "iterations_per_second_x_scenes": 1e3 * SWEEP_ITERATIONS * len(scenes)
+        / sweep_host_ms,
+        "lone_s": lone_host_ms / 1e3,
+        "lone_iterations_per_second": 1e3 * SWEEP_ITERATIONS / lone_host_ms,
+        "alive_end": [int(st.gstate.alive.sum()) for st in swept],
+        "launches": got, "state_tensors": len(a), "lone_bit_identical": True,
+        "gpu": gpu}
+    log(f"sweep: {len(scenes)} scenes x {SWEEP_ITERATIONS} iterations in one group on "
+        f"one card, {record['sweep_s']:.1f} s, "
+        f"{record['iterations_per_second_x_scenes']:.3f} it/s x scenes; scene 1 "
+        f"alone {record['lone_s']:.1f} s ({record['lone_iterations_per_second']:.3f} "
+        f"it/s), all {len(a)} state tensors bit-identical to the sweep's; launches "
+        f"{json.dumps(got)} [{gpu}]")
+    return record, got
+
+
 def build_scenes(dev):
     """The main paths' scenes at full width: the 65k serving scene of the
     port's ``bench.serving_scene`` (mesh, Gaussians) with a seeded residual
@@ -2751,6 +3208,13 @@ def main() -> int:
     del gnn_state
     print(json.dumps({"planning": planning}))
 
+    # 14. the legacy free-xyz fit (the dense tier) -----------------------------
+    print(json.dumps({"legacy": legacy_phase(gpu)}))
+
+    # 15. the scene-parallel sweep ---------------------------------------------
+    sweep, sweep_launches = sweep_phase(mesh, gpu)
+    print(json.dumps({"sweep": sweep}))
+
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
 
@@ -2780,7 +3244,8 @@ def main() -> int:
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:353",
                      {"train": k3_launches, "fit": fit_launches["K3"],
                       "bench": bench_launches["K3"], "parity": parity_launches["K3"],
-                      "planning": planning_k["K3"]["launches"]},
+                      "planning": planning_k["K3"]["launches"],
+                      "sweep": sweep_launches["K3"]},
                      max(k3_err, planning_k["K3"]["max_abs_err"]), k3_ms, k3_plain_ms,
                      k3_bound)
     k3_entry["max_rel_err"] = max(k3_rel, planning_k["K3"]["max_rel_err"])
@@ -2826,7 +3291,8 @@ def main() -> int:
                              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
                              {"serving": k1_launches, "fit": fit_launches["K1"],
                               "eval": eval_launches, "bench": bench_launches["K1"],
-                              "parity": parity_launches["K1"]},
+                              "parity": parity_launches["K1"],
+                              "sweep": sweep_launches["K1"]},
                              k1_err, k1_ms, k1_plain_ms, k1_bound),
                        "K1", cull["65k view 0"])
     k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
@@ -2835,14 +3301,15 @@ def main() -> int:
                              {"train": k2_launches, "fit": fit_launches["K2"],
                               "bench": bench_launches["K2"],
                               "parity": parity_launches["K2"],
-                              "planning": planning_k["K2"]["launches"]},
+                              "planning": planning_k["K2"]["launches"],
+                              "sweep": sweep_launches["K2"]},
                              max(k2_err, planning_k["K2"]["max_abs_err"]), k2_ms,
                              k2_plain_ms, k2_bound),
                        "K2", cull["65k train cam 0"])
     k2_entry["at_planning_shape"] = planning_k["K2"]
     # K1, K2, K3 over the serving frames, the Trainer steps, the fit, the
-    # eval splits (K1), the bench, the parity run and (K2, K3) the planning
-    # episode; the span kernels over one span turn of the A/B's frames and
+    # eval splits (K1), the bench, the parity run, (K2, K3) the planning
+    # episode and the sweep (K1: its final evaluation); the span kernels over one span turn of the A/B's frames and
     # steps. K2 and K3 also carry their readings at the planning refiner's
     # 96 px shape (at_planning_shape: error, times, bound, launches)
     print(json.dumps({"kernels": [

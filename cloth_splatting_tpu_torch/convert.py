@@ -61,6 +61,20 @@ def gaussian_state(arrays: Arrays, device: str | torch.device = "cuda"
     return _build(GaussianState, arrays, resolve_device(device))
 
 
+def point_gaussian_params(arrays: Arrays, device: str | torch.device = "cuda"):
+    """A JAX ``PointGaussianParams`` (free-xyz model) as the port's."""
+    from cloth_splatting_tpu_torch.models.point_gaussians import PointGaussianParams
+
+    return _build(PointGaussianParams, arrays, resolve_device(device))
+
+
+def point_gaussian_state(arrays: Arrays, device: str | torch.device = "cuda"):
+    """A JAX ``PointGaussianState`` as the port's."""
+    from cloth_splatting_tpu_torch.models.point_gaussians import PointGaussianState
+
+    return _build(PointGaussianState, arrays, resolve_device(device))
+
+
 def mesh(arrays: Arrays, device: str | torch.device = "cuda") -> Mesh:
     return _build(Mesh, arrays, resolve_device(device))
 

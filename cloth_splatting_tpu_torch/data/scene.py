@@ -41,6 +41,8 @@ class FrameRecord:
     image_path: Optional[str]
     image_name: str
     mask_path: Optional[str] = None
+    # a frame held in memory instead of a file: uint8 [3, H, W], composited
+    image: Optional[np.ndarray] = None
 
 
 def _ids_from_name(name: str, transform, time, unique_transforms, unique_times):

@@ -74,6 +74,12 @@ def compute_vertex_normals(pos: torch.Tensor, faces: torch.Tensor) -> torch.Tens
     return vn / torch.clamp_min(norm, 1e-12)
 
 
+def compute_edge_features(pos: torch.Tensor, edge_index: torch.Tensor):
+    """(displacement [E, 3], length [E, 1]) of the edges, dst - src."""
+    disp = pos[edge_index[1]] - pos[edge_index[0]]
+    return disp, torch.linalg.norm(disp, dim=-1, keepdim=True)
+
+
 def barycentric_coordinates(points: torch.Tensor, triangles: torch.Tensor,
                             eps: float = 1e-12) -> torch.Tensor:
     """Barycentric coordinates [N, 3] of points [N, 3] with respect to

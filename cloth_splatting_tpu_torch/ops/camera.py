@@ -3,7 +3,8 @@
 Host-side numpy, as in the JAX package: ``world_to_view`` stores R
 transposed, ``projection_matrix`` maps z into [0, zfar/(zfar-znear)], and a
 ``Camera`` keeps ROW-VECTOR transforms (``p_hom = [x, y, z, 1] @ full_proj``).
-``render.camera_arrays`` moves a camera onto the device."""
+``render.camera_arrays`` moves a camera onto the device; ``project_points``
+projects world points through one on the device."""
 
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ import math
 from typing import Optional
 
 import numpy as np
+import torch
+
+from cloth_splatting_tpu_torch.ops.smallmat import affine4_shared
 
 
 def world_to_view(R: np.ndarray, t: np.ndarray,
@@ -97,3 +101,15 @@ class Camera:
     @property
     def tanfovy(self) -> float:
         return math.tan(self.fovy * 0.5)
+
+
+def project_points(points: torch.Tensor, full_proj: torch.Tensor, width: int,
+                   height: int, eps: float = 1e-7) -> torch.Tensor:
+    """Pixel coordinates [N, 2] (x, y) of world points [N, 3] through a
+    camera's row-vector ``full_proj`` [4, 4]: ``px = ((ndc + 1) W - 1) / 2``,
+    the tracking projections' pixel convention."""
+    hom = affine4_shared(points, full_proj)
+    ndc = hom[..., :2] / (hom[..., 3:4] + eps)
+    px = (ndc[..., 0] + 1.0) * width * 0.5 - 0.5
+    py = (ndc[..., 1] + 1.0) * height * 0.5 - 0.5
+    return torch.stack([px, py], dim=-1)

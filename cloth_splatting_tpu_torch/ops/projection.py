@@ -58,6 +58,12 @@ def build_covariance(scales: torch.Tensor, quats: torch.Tensor,
     return sym33_from_rs(r, s2)
 
 
+def covariance_strip(cov_packed: torch.Tensor) -> torch.Tensor:
+    """The identity: covariances already travel packed (xx, xy, xz, yy, yz,
+    zz), the 3DGS PLY layout."""
+    return cov_packed
+
+
 def project_gaussians(
     means3d: torch.Tensor,
     cov3d: torch.Tensor,

@@ -83,3 +83,41 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:
     """Inverse (= conjugate) of a unit WXYZ quaternion."""
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis [..., 3] and angle [...] -> WXYZ quaternion [..., 4]."""
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None], axis * torch.sin(half)[..., None]],
+                     dim=-1)
+
+
+def rotation_between_normals(na: torch.Tensor, nb: torch.Tensor,
+                             eps: float = 1e-9) -> torch.Tensor:
+    """The smallest rotation taking each unit normal ``na`` [..., 3] to
+    ``nb``, as a WXYZ quaternion; parallel normals (no axis) give the
+    identity."""
+    cross = torch.linalg.cross(na, nb)
+    dot = (na * nb).sum(dim=-1)
+    angle = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    norm = torch.linalg.norm(cross, dim=-1, keepdim=True)
+    q = axis_angle_to_quat(cross / torch.clamp_min(norm, eps), angle)
+    ident = torch.zeros_like(q)
+    ident[..., 0] = 1.0
+    return torch.where(norm > eps, q, ident)
+
+
+def kabsch_rotation(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """The least-squares rotation R [..., 3, 3] with
+    ``dst ~ (src - mean(src)) @ R^T + mean(dst)`` for point sets
+    [..., P, 3], from the SVD of their 3x3 cross-covariance. The reflection
+    guard flips the last singular direction by det(V U^T), so R is a proper
+    rotation."""
+    src_c = src - src.mean(dim=-2, keepdim=True)
+    dst_c = dst - dst.mean(dim=-2, keepdim=True)
+    h = torch.einsum("...pi,...pj->...ij", src_c, dst_c)
+    u, _, vt = torch.linalg.svd(h, full_matrices=False)
+    v, ut = vt.transpose(-1, -2), u.transpose(-1, -2)
+    det = torch.linalg.det(v @ ut)
+    flip = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return torch.einsum("...ji,...j,...jk->...ik", vt, flip, ut)

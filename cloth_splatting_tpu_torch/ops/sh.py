@@ -96,3 +96,8 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def rgb_to_sh(rgb):
     """RGB albedo -> DC SH coefficient (tensor or numpy array)."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB albedo (tensor or numpy array)."""
+    return sh * C0 + 0.5

@@ -16,6 +16,16 @@ from __future__ import annotations
 import torch
 
 
+def bmm33(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[N,3,3] @ [N,3,3]."""
+    rows = []
+    for i in range(3):
+        cols = [a[:, i, 0] * b[:, 0, j] + a[:, i, 1] * b[:, 1, j]
+                + a[:, i, 2] * b[:, 2, j] for j in range(3)]
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
 def bmm33_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[N,3,3] @ [N,3,3]^T."""
     rows = []

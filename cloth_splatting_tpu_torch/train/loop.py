@@ -16,8 +16,9 @@ reads the dropped count at its progress ticks and doubles the cap after two
 overflowing ticks in a row, up to ``K_CAP_MAX``; a held-out evaluation
 through that tier doubles it until the split drops nothing. The loop also
 polls the live viewer (``utils/viewer.py``) and logs to a ``wandb``
-adapter when given one. Not ported yet: the multi-device mesh (ROADMAP
-queue 1 item 9).
+adapter when given one. ``parallel/sweep.py`` drives several scenes with
+the same ``sample_cameras`` and ``host_events``. Not ported yet: the
+multi-device mesh (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def build_banks(grid: CameraGrid, white_background: bool,
                 device: str | torch.device = "cuda"):
     """Decode every frame once into device banks: (cam_bank with fields
     [V, T, ...], gt_bank uint8 [V, T, 3, H, W], mask_bank float
-    [V, T, 1, H, W] or None)."""
+    [V, T, 1, H, W] or None). A record that holds its ``image`` in memory is
+    taken as it is."""
     dev = resolve_device(device)
     v, t = grid.n_views, grid.n_times
     cam0 = grid.get(0, 0).camera
@@ -73,7 +75,9 @@ def build_banks(grid: CameraGrid, white_background: bool,
         for ti in range(t):
             rec = grid.get(vi, ti)
             row.append(camera_arrays(rec.camera, dev))
-            if rec.image_path:
+            if rec.image is not None:
+                gts[vi, ti] = rec.image
+            elif rec.image_path:
                 gts[vi, ti] = decode_image(rec.image_path, white_background)
             if any_mask and rec.mask_path and os.path.exists(rec.mask_path):
                 masks[vi, ti] = decode_mask(rec.mask_path)
@@ -96,7 +100,8 @@ class EvalFrame(NamedTuple):
 
 def eval_frames(grid: CameraGrid, device: torch.device,
                 max_cameras: int = 20) -> list[EvalFrame]:
-    return [EvalFrame(camera_arrays(r.camera, device), r.image_path,
+    return [EvalFrame(camera_arrays(r.camera, device),
+                      r.image_path if r.image is None else torch.from_numpy(r.image),
                       r.image_name or str(i))
             for i, r in enumerate(grid.records[:max_cameras])]
 
@@ -260,6 +265,32 @@ def sample_time_ids(rng: np.random.Generator, n_times: int,
     return [mid - 1, mid, mid + 1]
 
 
+def sample_cameras(rng: np.random.Generator, iteration: int, static: bool,
+                   n_views: int, n_times: int, three_steps_batch: bool,
+                   time_sample: str = "interior") -> tuple[int, list[int]]:
+    """This iteration's (view index, time indices): in the static stage view
+    ``iteration % n_views`` at time 0 (no draw), else a view and a time
+    batch drawn from ``rng``."""
+    if static:
+        return iteration % n_views, [0]
+    vi = int(rng.integers(n_views))
+    return vi, sample_time_ids(rng, n_times, three_steps_batch, time_sample)
+
+
+def host_events(trainer: Trainer, state: SplatTrainState, iteration: int,
+                generator: torch.Generator) -> SplatTrainState:
+    """The host-scheduled events after an iteration's step: density control
+    (its split jitter from ``generator``) and the barycentric cleanup, each
+    when it is due."""
+    state, overflow = trainer.density_control(state, iteration, generator)
+    if overflow:
+        print(f"[iter {iteration}] densify overflow: {overflow} "
+              f"(capacity {state.params.face_bary.shape[0]})")
+    if iteration % trainer.cfg.opt.bary_cleanup == 0:
+        state = trainer.cleanup_barycentric(state)
+    return state
+
+
 def _ema_repair(avg_g: G.GaussianParams, old_g: G.GaussianParams,
                 new_g: G.GaussianParams) -> G.GaussianParams:
     """Row-wise repair of the parameter average after a host event: rows
@@ -361,13 +392,8 @@ def fit_banks(
                 knn_state = trainer.compute_knn_state(state)
                 knn_capacity = cap
 
-        if static:
-            vi = iteration % n_views
-            t_ids = [0]
-        else:
-            vi = int(sample_rng.integers(n_views))
-            t_ids = sample_time_ids(sample_rng, n_times, three_steps_batch,
-                                    o.time_sample)
+        vi, t_ids = sample_cameras(sample_rng, iteration, static, n_views,
+                                   n_times, three_steps_batch, o.time_sample)
 
         state, metrics, carry = trainer.step_banked(
             state, cam_bank, gt_bank, mask_bank, vi, t_ids,
@@ -385,16 +411,11 @@ def fit_banks(
                     {k: a * ema_decay + (1.0 - ema_decay) * cur[1][k]
                      for k, a in ema_avg[1].items()})
 
-        cleanup_due = iteration % o.bary_cleanup == 0
-        host_event = Trainer.density_control_due(cfg, iteration) or cleanup_due
+        host_event = (Trainer.density_control_due(cfg, iteration)
+                      or iteration % o.bary_cleanup == 0)
         params_before = state.params if (ema_decay > 0.0 and host_event) else None
 
-        state, overflow = trainer.density_control(state, iteration, generator)
-        if overflow:
-            print(f"[iter {iteration}] densify overflow: {overflow} "
-                  f"(capacity {state.params.face_bary.shape[0]})")
-        if cleanup_due:
-            state = trainer.cleanup_barycentric(state)
+        state = host_events(trainer, state, iteration, generator)
 
         if params_before is not None:
             if state.params.face_bary.shape[0] != params_before.face_bary.shape[0]:

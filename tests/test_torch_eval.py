@@ -446,6 +446,39 @@ def test_tracking_matches_jax(tmp_path):
         np.testing.assert_allclose(a["aligned"], b["aligned"], atol=1e-6, rtol=0)
 
 
+def test_mte_decompose_matches_the_root_script(tmp_path, capsys):
+    import importlib.util
+
+    from cloth_splatting_tpu_torch.mte_decompose import main as mte_main
+
+    spec = importlib.util.spec_from_file_location(
+        "root_mte_decompose", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "mte_decompose.py"))
+    root = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root)
+    rng = np.random.default_rng(2)
+    t_steps, n, m = 6, 50, 30
+    pred = rng.normal(0, 0.2, (t_steps, n, 3)).astype(np.float32)
+    rot = rng.normal(0, 1, (t_steps, n, 4)).astype(np.float32)
+    gt = (pred[:, rng.integers(0, n, m)]
+          + rng.normal(0, 0.01, (t_steps, m, 3))).astype(np.float32)
+    np.savez(tmp_path / "trajs.npz", traj=pred, rotations=rot)
+    np.savez(tmp_path / "trajs_no_rot.npz", traj=pred)
+    np.savez(tmp_path / "gt.npz", traj=gt[:5])
+    for trajs in ("trajs.npz", "trajs_no_rot.npz"):
+        argv = ["--trajs", str(tmp_path / trajs), "--gt", str(tmp_path / "gt.npz")]
+        root.main(argv)
+        j = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        mte_main(argv)
+        t = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert t.keys() == j.keys() and (t["n_points"], t["n_times"]) == (m, 5)
+        for k, v in j.items():
+            if isinstance(v, float):
+                assert abs(t[k] - v) <= 1e-3, (trajs, k, t[k], v)
+            else:
+                assert t[k] == v, k
+
+
 # ------------------------------------------------------------------- LPIPS
 
 def test_lpips_fixture_weights_bit_identical():

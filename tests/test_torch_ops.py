@@ -207,3 +207,72 @@ def test_target_gaussians():
         close(getattr(tp, name), value)
     for name, value in arrays(js).items():
         np.testing.assert_array_equal(getattr(ts, name).numpy(), value)
+
+
+# --------------------------------------------------- the breadth helpers
+
+def test_sh_to_rgb_inverts_rgb_to_sh():
+    rgb = np.random.default_rng(11).random((64, 3)).astype(np.float32)
+    close(tsh.sh_to_rgb(t(rgb)), jsh.sh_to_rgb(jnp.asarray(rgb)))
+    close(tsh.sh_to_rgb(tsh.rgb_to_sh(t(rgb))), rgb, atol=1e-6)
+    np.testing.assert_array_equal(tsh.sh_to_rgb(rgb.astype(np.float64)),
+                                  jsh.sh_to_rgb(rgb.astype(np.float64)))
+
+
+def test_bmm33_and_covariance_strip():
+    from cloth_splatting_tpu.ops import smallmat as jsmall
+    from cloth_splatting_tpu_torch.ops import smallmat as tsmall
+
+    rng = np.random.default_rng(12)
+    a, b = (rng.normal(size=(33, 3, 3)).astype(np.float32) for _ in range(2))
+    close(tsmall.bmm33(t(a), t(b)), jsmall.bmm33(jnp.asarray(a), jnp.asarray(b)))
+    close(tsmall.bmm33(t(a), t(b)), a @ b)
+    cov = rng.normal(size=(9, 6)).astype(np.float32)
+    close(tproj.covariance_strip(t(cov)), jproj.covariance_strip(jnp.asarray(cov)),
+          atol=0.0)
+
+
+def test_axis_angle_and_rotation_between_normals():
+    rng = np.random.default_rng(13)
+    axis = rng.normal(size=(40, 3)).astype(np.float32)
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    angle = rng.uniform(-np.pi, np.pi, 40).astype(np.float32)
+    close(tquat.axis_angle_to_quat(t(axis), t(angle)),
+          jquat.axis_angle_to_quat(jnp.asarray(axis), jnp.asarray(angle)))
+    na = rng.normal(size=(40, 3)).astype(np.float32)
+    nb = rng.normal(size=(40, 3)).astype(np.float32)
+    na /= np.linalg.norm(na, axis=-1, keepdims=True)
+    nb /= np.linalg.norm(nb, axis=-1, keepdims=True)
+    na[:4] = nb[:4] = np.eye(3, dtype=np.float32)[[0, 1, 2, 2]]  # no axis: identity
+    q = tquat.rotation_between_normals(t(na), t(nb))
+    close(q, jquat.rotation_between_normals(jnp.asarray(na), jnp.asarray(nb)))
+    np.testing.assert_array_equal(q[:4].numpy(), np.tile([1.0, 0, 0, 0], (4, 1)))
+    r = tquat.quat_to_rotmat(q).numpy()
+    close(torch.from_numpy(np.einsum("nij,nj->ni", r, na)), nb, atol=1e-5)
+
+
+def test_kabsch_rotation_keeps_its_reflection_guard():
+    rng = np.random.default_rng(14)
+    src = rng.normal(size=(12, 3, 3)).astype(np.float32)
+    rot = tquat.quat_to_rotmat(t(rng.normal(size=(12, 4)).astype(np.float32))).numpy()
+    dst = np.einsum("nij,npj->npi", rot, src) + rng.normal(size=(12, 1, 3)).astype(np.float32)
+    dst[6:] = dst[6:] * np.asarray([-1.0, 1.0, 1.0], np.float32)   # mirrored sets
+    r_t = tquat.kabsch_rotation(t(src), t(dst))
+    close(r_t, jquat.kabsch_rotation(jnp.asarray(src), jnp.asarray(dst)), atol=1e-5)
+    close(r_t[:6], rot[:6], atol=1e-5)
+    np.testing.assert_allclose(np.linalg.det(r_t.numpy()), 1.0, atol=1e-5)
+
+
+def test_project_points_and_edge_features():
+    from cloth_splatting_tpu.ops.camera import project_points as jproject
+    from cloth_splatting_tpu_torch.ops.camera import project_points as tproject
+
+    cam = JCamera.create(R=np.eye(3), t=np.asarray([0.1, -0.2, 3.0]), fovx=0.8,
+                         fovy=0.7, width=64, height=48)
+    pts = np.random.default_rng(15).normal(0, 0.5, (50, 3)).astype(np.float32)
+    close(tproject(t(pts), t(cam.full_proj), 64, 48),
+          jproject(jnp.asarray(pts), jnp.asarray(cam.full_proj), 64, 48), atol=1e-4)
+    jm, tm = _mesh_pair(5)
+    for a, b in zip(tG.compute_edge_features(tm.pos, tm.edge_index),
+                    jG.compute_edge_features(jm.pos, jm.edge_index)):
+        close(a, b)
