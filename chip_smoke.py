@@ -123,13 +123,27 @@ Phases, each of which raises on failure:
      two barycentric cleanups and an evaluation at the end: K2 and K3
      launched once per camera of every step of both scenes, K1 only by the
      evaluation; then scene 1 alone through ``train_scene``: every state
-     tensor bit-identical to the sweep's.
+     tensor bit-identical to the sweep's;
+ 16. mesh: the multi-device layer (``parallel/{launch,mesh,trainer}.py``)
+     through ``parallel.launch`` on the one card: a world of one NCCL rank
+     takes 5 sharded steps of the 65k train cell (mesh 1x1) bit-identical
+     to 5 ``Trainer.step_banked`` steps from the same state (K2 and K3 3
+     times a step; ms a step of both), then ``train_scene(device_mesh=1x1)``
+     on the sweep's scene 1, every state tensor bit-identical to its lone
+     run, then the GNN cut (3 curriculum epochs of one step at the gnn
+     phase's width) data-parallel, against the single process (loss 1e-6
+     relative a step, parameters 1e-5); two gloo ranks sharing the card take
+     3 timed steps on meshes 2x1 and 1x2, then 3 more, each held to the
+     Trainer's step from the same state (metrics 1e-4, face_bary 5e-5,
+     grad_accum 1e-3 / 1e-7; the timed run's drift from the Trainer's run
+     reported; a shared-card check, not a multi-card speed) and the GNN cut
+     (16 samples a rank; loss 1e-5).
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
 {"dense": ...} line, the parity line, a {"parity": ...} line, a {"gnn": ...}
 line, a {"planning": ...} line, a {"legacy": ...} line, a {"sweep": ...}
-line, a {"kernels": [...]} line and, last,
+line, a {"mesh": ...} line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
@@ -321,6 +335,30 @@ SWEEP_SCHEDULE = dict(iterations=SWEEP_ITERATIONS, static_reconst=True,
                       pruning_interval=40, densify_until_iter=SWEEP_ITERATIONS,
                       bary_cleanup=60)
 SWEEP_SCENE_SEEDS = (SEED, SEED + 1)
+# the mesh phase: sharded steps of the train cell on a world of one NCCL rank
+# (held bit for bit to the Trainer's) and on two gloo ranks sharing the card
+# (2x1 and 1x2, each step held to the Trainer's step from the same state:
+# the metrics, face_bary and grad_accum at the CPU tests' limits for the
+# port's step against the JAX package's, tests/test_torch_mesh.py TOL_JAX;
+# the moments and the parameters at clear gradients (``float_state_errors``)
+# at 1e-5: a card run of both meshes read at most 5.0e-7 and 7.3e-7, a 64 px
+# cut of this phase on the CPU 2.8e-6, and a wrong sum or scale over the
+# ranks moves them by a factor.
+# Free-running steps are reported only: at 1x2 the simulator's parameters
+# and moments are the only float state a held step changes (its gradient is
+# summed over the ranks in another order), and that alone parts the free
+# runs by ~4e-6 in face_bary in 3 steps); the GNN cut data-parallel: 3
+# epochs of one step (unroll 1, 2, 3 by the curriculum)
+MESH_STEPS = 5
+MESH_GLOO_STEPS = 3
+MESH_GLOO_SHAPES = ((2, 1), (1, 2))
+TOL_MESH = dict(metrics=1e-4, bary=5e-5, accum=(1e-3, 1e-7), moments=1e-5, params=1e-5)
+# a gradient element is clearly nonzero where its first moment is at least
+# this share of its optimizer's largest (tests/test_torch_mesh.py CLEAR)
+CLEAR_GRAD = 1e-3
+MESH_GNN_EPOCHS = 3
+TOL_MESH_GNN_LOSS = 1e-6          # world of one against the single process
+TOL_MESH_GNN_PARAMS = 1e-5
 # K1 and K2 against their plain versions: both walk the same chunks in the
 # same order and stop at the same chunk, so they differ only by rounding
 # (sequential products in the kernels, cumprod in the plain versions); sound
@@ -2743,7 +2781,7 @@ def sweep_scene(mesh, scene_seed: int):
                       maxtime=1.0, white_background=True)
 
 
-def sweep_phase(mesh, gpu: str) -> tuple[dict, dict]:
+def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
     """Phase 15: ``train_scenes_parallel`` on the card over two scenes of
     one signature (``sweep_scene`` from SWEEP_SCENE_SEEDS), both placed on
     the one card so that they form one group, on SWEEP_SCHEDULE, with the
@@ -2751,7 +2789,8 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict]:
     camera of every step of both scenes, K1 only by the final evaluation
     (its held-out frames); then scene 1 alone through ``train_scene``:
     every tensor of its state equal to the sweep's, bit for bit. Returns
-    (the {"sweep": ...} record, the sweep's launches)."""
+    (the {"sweep": ...} record, the sweep's launches, scene 1, its lone
+    run's final state)."""
     import copy
     import tempfile
 
@@ -2823,7 +2862,403 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict]:
         f"alone {record['lone_s']:.1f} s ({record['lone_iterations_per_second']:.3f} "
         f"it/s), all {len(a)} state tensors bit-identical to the sweep's; launches "
         f"{json.dumps(got)} [{gpu}]")
-    return record, got
+    return record, got, scenes[1], lone
+
+
+def held_step_errors(got, got_m, ref, ref_m) -> dict:
+    """A sharded step's full state and metrics against the Trainer's step
+    from the same state: the metrics' relative differences, face_bary's
+    largest, grad_accum's elements beyond TOL_MESH, the integer and boolean
+    tensors that differ, and the rest of the float state
+    (``float_state_errors``)."""
+    import torch
+
+    g, r = state_tensors(got), state_tensors(ref)
+    accum = (g["gstate.grad_accum"] - r["gstate.grad_accum"]).abs()
+    return {"metrics_rel": {k: abs(float(getattr(got_m, k)) - float(getattr(ref_m, k)))
+                            / abs(float(getattr(ref_m, k))) for k in ("loss", "psnr", "l1")},
+            "face_bary_abs": float((g["params.face_bary"] - r["params.face_bary"]).abs().max()),
+            "grad_accum_abs": float(accum.max()),
+            "grad_accum_over_limit": int((accum > TOL_MESH["accum"][1] + TOL_MESH["accum"][0]
+                                          * r["gstate.grad_accum"].abs()).sum()),
+            "ints_differ": [k for k, v in r.items()
+                            if not v.is_floating_point() and not torch.equal(g[k], v)],
+            **float_state_errors(g, r)}
+
+
+def float_state_errors(g: dict, r: dict) -> dict:
+    """tests/test_torch_mesh.py's ``state_errors`` over ``state_tensors``
+    names ``g`` against ``r``: each optimizer's moments (the largest
+    difference over the optimizer's largest moment of that kind, so a leaf
+    whose gradient is at rounding level does not set the scale), the
+    Gaussian and simulator parameters (over the leaf's largest, at the
+    elements whose first moment is at least CLEAR_GRAD of the optimizer's
+    largest: Adam turns a rounding-level gradient into a step of the
+    learning rate's size), the other float bookkeeping (max_radii2d, denom;
+    over each leaf's largest) and, reported only, each simulator leaf's
+    largest difference over every element."""
+    def big(keys):
+        return max(max(float(r[k].abs().max()) for k in keys), 1e-30)
+
+    out = {}
+    for opt, params in (("g_opt", "params"), ("sim_opt", "sim_params")):
+        for m in ("mu", "nu"):
+            keys = [k for k in r if k.startswith(f"{opt}.{m}.")]
+            out[f"{opt}.{m}"] = max(float((g[k] - r[k]).abs().max()) for k in keys) / big(keys)
+        mu_big = big([k for k in r if k.startswith(f"{opt}.mu.")])
+        worst = 0.0
+        for k in [k for k in r if k.startswith(f"{params}.")]:
+            clear = r[f"{opt}.mu.{k[len(params) + 1:]}"].abs() >= CLEAR_GRAD * mu_big
+            if bool(clear.any()):
+                worst = max(worst, float((g[k] - r[k]).abs()[clear].max()) / big([k]))
+        out[params] = worst
+    keys = [k for k in r if k.startswith("gstate.") and r[k].is_floating_point()
+            and k != "gstate.grad_accum"]
+    out["gstate"] = max(float((g[k] - r[k]).abs().max()) / big([k]) for k in keys)
+    out["sim_params_abs"] = {k[len("sim_params."):]: float((g[k] - r[k]).abs().max())
+                             for k in r if k.startswith("sim_params.")}
+    return out
+
+
+def mesh_train_cell(device, shapes, steps: int, held: bool = False) -> dict:
+    """One rank's share of the mesh phase's train steps: ``bench.train_setup``'s
+    65k cell at full width in (view x time) banks; on rank 0 first ``steps``
+    unsharded ``Trainer.step_banked`` steps, then, on every rank, a warm-up
+    step and ``steps`` sharded steps (``ShardedTrainer.step_banked``) on a
+    mesh of each of ``shapes``, all from the same state, the launch counters
+    set to 0 just before and read just after. With ``held``, each mesh's
+    ``steps`` again, each held to the Trainer's step from the same (gathered)
+    state (``held_step_errors``). Returns rank 0's record (per mesh and for
+    the Trainer: state tensors on the CPU, losses, ms a step device and
+    host, launches, the held steps' errors), None on the other ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from cloth_splatting_tpu_torch.bench import train_setup
+    from cloth_splatting_tpu_torch.parallel.mesh import make_mesh
+    from cloth_splatting_tpu_torch.parallel.trainer import ShardedTrainer
+    from cloth_splatting_tpu_torch.render import CameraArrays
+    from cloth_splatting_tpu_torch.train.step import StepCarry
+
+    trainer, state0, cams, _ = train_setup(WIDTH, HEIGHT, MESH_RES, TRAIN_CAPACITY, device)
+    cam_bank = CameraArrays(*(f[None] for f in cams))
+    gt_bank = torch.full((1, len(TRAIN_TIMES), 3, HEIGHT, WIDTH), 128,
+                         dtype=torch.uint8, device=device)
+    t_ids = list(range(len(TRAIN_TIMES)))
+    lead = dist.get_rank() == 0
+
+    def run(runner, state):
+        def one(st, carry):
+            return runner.step_banked(st, cam_bank, gt_bank, None, 0, t_ids,
+                                      sh_degree=1, static=False, carry=carry)
+
+        one(state, StepCarry.zeros(device))          # warm-up, discarded
+        torch.cuda.synchronize(device)
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        carry, metrics = StepCarry.zeros(device), []
+        t_host = time.perf_counter()
+        start.record()
+        for _ in range(steps):
+            state, m, carry = one(state, carry)
+            metrics.append(m)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / steps
+        counts = {k: v for k, v in launch_counts().items() if v}
+        return state, {
+            "ms_per_step": start.elapsed_time(end) / steps, "host_ms_per_step": host_ms,
+            "launches": counts,
+            "metrics": [{k: float(v) for k, v in x._asdict().items()} for x in metrics],
+            "carry": {k: float(v) for k, v in carry._asdict().items()}}
+
+    out = {}
+    if lead:
+        state, rec = run(trainer, state0)
+        rec["state"] = {k: v.cpu() for k, v in state_tensors(state).items()}
+        out["trainer"] = rec
+    for shape in shapes:
+        runner = ShardedTrainer(trainer, make_mesh(data=shape[0]))
+        state, rec = run(runner, runner.place_state(state0))
+        full = runner.host_state(state)
+        rec["state"] = {k: v.cpu() for k, v in state_tensors(full).items()}
+        if held:
+            rec["held"], state = [], runner.place_state(state0)
+            for _ in range(steps):
+                before = runner.host_state(state)
+                state, m, _ = runner.step_banked(state, cam_bank, gt_bank, None, 0, t_ids,
+                                                 sh_degree=1, static=False)
+                after = runner.host_state(state)
+                if lead:
+                    ref, ref_m = trainer.step_banked(before, cam_bank, gt_bank, None, 0,
+                                                     t_ids, sh_degree=1, static=False)
+                    rec["held"].append(held_step_errors(after, m, ref, ref_m))
+        out[f"{shape[0]}x{shape[1]}"] = rec
+    return out if lead else None
+
+
+def mesh_gnn(device, train_raw: list, data_parallel: bool) -> dict:
+    """The GNN cut (MESH_GNN_EPOCHS epochs of one step at the gnn phase's
+    width) from the gnn phase's data: per-step losses and the trained
+    tensors on the CPU; data-parallel over the initialized world when asked."""
+    import numpy as np
+    import torch
+
+    from cloth_splatting_tpu_torch.data.trajectories import (
+        ClothSampleDataset,
+        process_trajectory,
+    )
+    from cloth_splatting_tpu_torch.models.cloth_simulator import init_cloth_simulator
+    from cloth_splatting_tpu_torch.train.meshnet_train import MeshnetTrainer, train_meshnet
+
+    ds = ClothSampleDataset(None, GNN_MODEL["input_sequence_length"], 1,
+                            num_samples=GNN_NODES, trajectories=[
+                                process_trajectory(r, num_samples=GNN_NODES)
+                                for r in train_raw])
+    trainer = MeshnetTrainer(device=device, **GNN_TRAINER)
+    state = init_cloth_simulator(np.random.default_rng(0), device=device, **GNN_MODEL)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    state, losses = train_meshnet(trainer, state, ds, None, n_epochs=MESH_GNN_EPOCHS,
+                                  batch_size=GNN_BATCH, curriculum=True,
+                                  steps_per_epoch=1, seed=0, data_parallel=data_parallel)
+    torch.cuda.synchronize(device)
+    return {"losses": losses, "s": time.perf_counter() - t0,
+            "tensors": {k: v.cpu() for k, v in gnn_tensors(state).items()}}
+
+
+def mesh_nccl_rank(device, scene, train_raw) -> dict:
+    """The mesh phase's world of one NCCL rank: the train cell at 1x1, then
+    ``train_scene(device_mesh=1x1)`` on the sweep phase's scene, then the
+    train command's rank path on it (``mesh_cli``), each with the launch
+    counters from 0, then the GNN cut data-parallel."""
+    import copy
+    import tempfile
+
+    from cloth_splatting_tpu_torch.train.config import Config
+    from cloth_splatting_tpu_torch.train.loop import train_scene_rank
+
+    out = {"train": mesh_train_cell(device, [(1, 1)], MESH_STEPS)}
+    cfg = Config()
+    for key, value in SWEEP_SCHEDULE.items():
+        setattr(cfg.opt, key, value)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_scene_rank(device, (1, 1), copy.deepcopy(cfg), scene, tmp,
+                                 {"test_iterations": [SWEEP_ITERATIONS], "seed": SEED})
+        out["scene"] = {"state": state_tensors(state), "s": time.perf_counter() - t0,
+                        "launches": {k: v for k, v in launch_counts().items() if v}}
+    out["cli"] = mesh_cli(device, scene, state)
+    out["gnn"] = mesh_gnn(device, train_raw, True)
+    return out
+
+
+def mesh_cli(device, scene, template) -> dict:
+    """``python -m cloth_splatting_tpu_torch.train --mesh 1x1`` as a rank of
+    the running NCCL world runs it (``parallel.launch.main_rank``), on the
+    sweep phase's scene (handed to the command's scene loader: it is held
+    in memory) with the sweep's schedule and seed, the live viewer
+    listening on a free port, so that the viewer's agreement over the world
+    (``parallel.mesh.agree``, an NCCL all-reduce) runs before the loop and
+    at every iteration; no evaluation and no PLY, one checkpoint at the
+    end. Returns the checkpoint's state (restored into ``template``'s
+    layout), the agreements counted, the launches and the seconds."""
+    import tempfile
+    from unittest import mock
+
+    from cloth_splatting_tpu_torch.data import scene as scene_module
+    from cloth_splatting_tpu_torch.parallel import mesh as PM
+    from cloth_splatting_tpu_torch.parallel.launch import main_rank
+    from cloth_splatting_tpu_torch.train.loop import load_train_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-s", "sweep-scene-1", "-m", tmp, "--mesh", "1x1", "--seed", str(SEED),
+                "--port", "0", "--quiet", "--test_iterations", "0",
+                "--save_iterations", "0", "--checkpoint_iterations", str(SWEEP_ITERATIONS)]
+        for key, value in SWEEP_SCHEDULE.items():
+            argv += [f"--{key}", str(value)]
+        PM.COUNTS.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(scene_module, "load_cloth_scene", lambda *a, **k: scene):
+            main_rank(device, "cloth_splatting_tpu_torch.train.__main__", argv)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        state = load_train_checkpoint(f"{tmp}/chkpnt{SWEEP_ITERATIONS}.npz", template)
+    return {"state": state_tensors(state), "agreed": PM.COUNTS["all_reduce_max/world"],
+            "launches": launches, "s": seconds}
+
+
+def mesh_gloo_rank(device, train_raw) -> dict | None:
+    """The mesh phase's two gloo ranks sharing the card: the train cell on
+    MESH_GLOO_SHAPES, then the GNN cut data-parallel (16 samples a rank)."""
+    import torch.distributed as dist
+
+    out = {"train": mesh_train_cell(device, MESH_GLOO_SHAPES, MESH_GLOO_STEPS, held=True),
+           "gnn": mesh_gnn(device, train_raw, True)}
+    return out if dist.get_rank() == 0 else None
+
+
+def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
+    """Phase 16, the multi-device layer (``parallel/{launch,mesh,trainer}.py``),
+    which one card can run two ways: a world of one NCCL rank
+    (``parallel.launch``, the production backend) and two gloo ranks sharing
+    the card (NCCL refuses two ranks on one GPU). Real multi-card speed is
+    not measured. (1) NCCL, 1x1: MESH_STEPS sharded steps of the 65k train
+    cell bit-identical to as many ``Trainer.step_banked`` steps from the same
+    state, K2 and K3 launched 3 times a step; (2) NCCL, 1x1:
+    ``train_scene(device_mesh=...)`` on the sweep phase's scene 1 with its
+    schedule: every state tensor bit-identical to the sweep phase's lone
+    run (``lone``), K2/K3 once per camera of every step, K1 only by the
+    evaluation; then ``train --mesh 1x1`` (``mesh_cli``) on the same scene:
+    its checkpoint bit-identical to the lone run, the viewer agreed over
+    NCCL once before the loop and once an iteration, K2/K3 as before;
+    (3) gloo, 2x1 and 1x2: MESH_GLOO_STEPS timed steps each (K2/K3
+    once per camera a rank renders: 2x1, the batch padded to 4, 2 a rank;
+    1x2, all 3) and as many more, each within TOL_MESH of the Trainer's
+    step from the same state, every float tensor of the state held
+    (``float_state_errors``); (4) the GNN cut
+    data-parallel, on the NCCL rank against the single process (loss within
+    TOL_MESH_GNN_LOSS at every step, parameters TOL_MESH_GNN_PARAMS) and on
+    the two gloo ranks (loss TOL_GNN_STEP). Returns (the {"mesh": ...}
+    record, K1/K2/K3 launches of the mesh paths)."""
+    import dataclasses
+
+    import torch
+
+    from cloth_splatting_tpu_torch.manipulation.collect import collect_trajectories
+    from cloth_splatting_tpu_torch.models.gaussians import Mesh
+    from cloth_splatting_tpu_torch.parallel.launch import launch
+
+    dev = dev or torch.device("cuda")
+    train_raw = collect_trajectories(GNN_TRAIN_TRAJS, seed=0, device=dev, **GNN_DATA)
+    cpu_scene = dataclasses.replace(
+        scene, initial_mesh=Mesh(*(t.cpu() for t in scene.initial_mesh)))
+    t0 = time.time()
+    nccl = launch(mesh_nccl_rank, 1, dev, args=(cpu_scene, train_raw))[0]
+    nccl_s = time.time() - t0
+    t0 = time.time()
+    gloo = launch(mesh_gloo_rank, 2, dev, args=(train_raw,), backend="gloo",
+                  devices=[dev] * 2)[0]
+    gloo_s = time.time() - t0
+    single = mesh_gnn(dev, train_raw, False)
+
+    failures = []
+    n_cams = len(TRAIN_TIMES)
+    # (1) the train cell on the world of one
+    tr = nccl["train"]
+    a, b = tr["1x1"]["state"], tr["trainer"]["state"]
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    same_metrics = tr["1x1"]["metrics"] == tr["trainer"]["metrics"]
+    if differ or not same_metrics:
+        failures.append(f"1x1 NCCL steps differ from the Trainer's: tensors {differ[:8]}, "
+                        f"metrics equal {same_metrics}")
+    for name in ("1x1", "trainer"):
+        want = {"K2": n_cams * MESH_STEPS, "K3": n_cams * MESH_STEPS}
+        if tr[name]["launches"] != want:
+            failures.append(f"{name} launches {tr[name]['launches']}, expected {want}")
+    # (2) train_scene on the world of one against the sweep's lone run
+    sc = nccl["scene"]
+    lone_t = {k: v.cpu() for k, v in state_tensors(lone).items()}
+    scene_differ = [k for k in lone_t if not torch.equal(sc["state"][k], lone_t[k])]
+    if scene_differ:
+        failures.append(f"train_scene on 1x1 differs from the lone run: {scene_differ[:8]}")
+    static = SWEEP_SCHEDULE["static_reconst_iteration"] - 1
+    per_scene = static + 3 * (SWEEP_ITERATIONS - static)
+    want = {"K1": FIT_TIMES, "K2": per_scene, "K3": per_scene}
+    if sc["launches"] != want:
+        failures.append(f"train_scene on 1x1 launches {sc['launches']}, expected {want}")
+    # (2b) the train command's rank path on the world of one
+    cli = nccl["cli"]
+    cli_differ = [k for k in lone_t if not torch.equal(cli["state"][k], lone_t[k])]
+    if cli_differ:
+        failures.append(f"train --mesh 1x1 differs from the lone run: {cli_differ[:8]}")
+    if cli["agreed"] != SWEEP_ITERATIONS + 1:
+        failures.append(f"train --mesh 1x1 agreed {cli['agreed']} times over NCCL, "
+                        f"expected {SWEEP_ITERATIONS + 1}")
+    want = {"K2": per_scene, "K3": per_scene}
+    if cli["launches"] != want:
+        failures.append(f"train --mesh 1x1 launches {cli['launches']}, expected {want}")
+    # (3) two gloo ranks sharing the card
+    errors = {}
+    for shape in MESH_GLOO_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        got, ref = gloo["train"][name], gloo["train"]["trainer"]
+        # the timed run's drift from the Trainer's run (not gated: over free
+        # steps the rounding of the ranks' sums moves every vertex)
+        drift = float((got["state"]["params.face_bary"]
+                       - ref["state"]["params.face_bary"]).abs().max())
+        errors[name] = {"held": got["held"], "free_running_face_bary_abs": drift}
+        per_rank = -(-n_cams // shape[0]) * MESH_GLOO_STEPS
+        if got["launches"] != {"K2": per_rank, "K3": per_rank}:
+            failures.append(f"gloo {name} rank 0 launches {got['launches']}, expected "
+                            f"{per_rank} each")
+        for k, e in enumerate(got["held"]):
+            if (max(e["metrics_rel"].values()) > TOL_MESH["metrics"]
+                    or e["face_bary_abs"] > TOL_MESH["bary"] or e["grad_accum_over_limit"]
+                    or e["ints_differ"]
+                    or max(e[k] for k in ("g_opt.mu", "g_opt.nu", "sim_opt.mu",
+                                          "sim_opt.nu")) > TOL_MESH["moments"]
+                    or max(e["params"], e["sim_params"], e["gstate"]) > TOL_MESH["params"]):
+                failures.append(f"gloo {name} step {k} against the Trainer's step from "
+                                f"the same state: {json.dumps(e)}")
+    # (4) the GNN cut
+    gnn = {}
+    for name, run, tol in (("nccl_1", nccl["gnn"], TOL_MESH_GNN_LOSS),
+                           ("gloo_2", gloo["gnn"], TOL_GNN_STEP)):
+        rel = [abs(x - y) / abs(y) for x, y in zip(run["losses"], single["losses"])]
+        params = max(float((run["tensors"][k] - single["tensors"][k]).abs().max())
+                     for k in single["tensors"])
+        bits = (run["losses"] == single["losses"]
+                and all(torch.equal(run["tensors"][k], single["tensors"][k])
+                        for k in single["tensors"]))
+        gnn[name] = {"loss_rel": rel, "params_abs": params, "bit_identical": bits,
+                     "losses": run["losses"], "s": run["s"]}
+        if not max(rel) <= tol or (name == "nccl_1" and not params <= TOL_MESH_GNN_PARAMS):
+            failures.append(f"gnn {name} against the single process: {json.dumps(gnn[name])}")
+    if failures:
+        raise RuntimeError("mesh: " + "; ".join(failures))
+
+    def times(rec):
+        return {"ms_per_step": rec["ms_per_step"], "host_ms_per_step": rec["host_ms_per_step"]}
+
+    launches = {k: sum(r["launches"].get(k, 0) for r in
+                       (tr["1x1"], sc, cli, gloo["train"]["2x1"], gloo["train"]["1x2"]))
+                for k in ("K1", "K2", "K3")}
+    record = {
+        "nccl_1x1": {"steps": MESH_STEPS, "trainer": times(tr["trainer"]),
+                     "sharded": times(tr["1x1"]), "bit_identical": True,
+                     "launches": tr["1x1"]["launches"]},
+        "train_scene_1x1": {"iterations": SWEEP_ITERATIONS, "s": sc["s"],
+                            "bit_identical_to_lone": True, "launches": sc["launches"]},
+        "train_cli_1x1": {"iterations": SWEEP_ITERATIONS, "s": cli["s"],
+                          "bit_identical_to_lone": True, "nccl_agreements": cli["agreed"],
+                          "launches": cli["launches"]},
+        "gloo_shared_card": {"steps": MESH_GLOO_STEPS, "trainer": times(gloo["train"]["trainer"]),
+                             **{n: {**times(gloo["train"][n]), "errors": errors[n],
+                                    "rank0_launches": gloo["train"][n]["launches"]}
+                                for n in errors},
+                             "note": "two ranks on one card over gloo: a check, not a "
+                                     "multi-card speed"},
+        "gnn": {**gnn, "single_losses": single["losses"], "epochs": MESH_GNN_EPOCHS,
+                "batch": GNN_BATCH},
+        "launch_s": {"nccl_1": nccl_s, "gloo_2": gloo_s}, "launches": launches, "gpu": gpu}
+    log(f"mesh: NCCL 1x1 {MESH_STEPS} steps {tr['1x1']['ms_per_step']:.4f} ms/step "
+        f"(host {tr['1x1']['host_ms_per_step']:.4f}) against the Trainer's "
+        f"{tr['trainer']['ms_per_step']:.4f} ({tr['trainer']['host_ms_per_step']:.4f}), "
+        f"bit-identical; train_scene 1x1 {sc['s']:.1f} s and train --mesh 1x1 "
+        f"{cli['s']:.1f} s ({cli['agreed']} viewer agreements over NCCL) bit-identical "
+        f"to the lone run; "
+        f"gloo shared card {json.dumps({n: times(gloo['train'][n]) for n in errors})}, "
+        f"each step against the Trainer's from the same state: largest face_bary "
+        f"{max(e['face_bary_abs'] for n in errors for e in errors[n]['held']):.3g}, "
+        f"metrics {max(max(e['metrics_rel'].values()) for n in errors for e in errors[n]['held']):.3g}; "
+        f"gnn {json.dumps({n: (max(g['loss_rel']), g['params_abs'], g['bit_identical']) for n, g in gnn.items()})} "
+        f"[{gpu}]")
+    return record, launches
+
 
 
 def build_scenes(dev):
@@ -3212,8 +3647,13 @@ def main() -> int:
     print(json.dumps({"legacy": legacy_phase(gpu)}))
 
     # 15. the scene-parallel sweep ---------------------------------------------
-    sweep, sweep_launches = sweep_phase(mesh, gpu)
+    sweep, sweep_launches, sweep_scene1, sweep_lone = sweep_phase(mesh, gpu)
     print(json.dumps({"sweep": sweep}))
+
+    # 16. the multi-device layer: a world of one NCCL rank, two gloo ranks ----
+    mesh_rec, mesh_launches = mesh_phase(gpu, sweep_scene1, sweep_lone)
+    del sweep_scene1, sweep_lone
+    print(json.dumps({"mesh": mesh_rec}))
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
@@ -3245,7 +3685,7 @@ def main() -> int:
                      {"train": k3_launches, "fit": fit_launches["K3"],
                       "bench": bench_launches["K3"], "parity": parity_launches["K3"],
                       "planning": planning_k["K3"]["launches"],
-                      "sweep": sweep_launches["K3"]},
+                      "sweep": sweep_launches["K3"], "mesh": mesh_launches["K3"]},
                      max(k3_err, planning_k["K3"]["max_abs_err"]), k3_ms, k3_plain_ms,
                      k3_bound)
     k3_entry["max_rel_err"] = max(k3_rel, planning_k["K3"]["max_rel_err"])
@@ -3292,7 +3732,8 @@ def main() -> int:
                              {"serving": k1_launches, "fit": fit_launches["K1"],
                               "eval": eval_launches, "bench": bench_launches["K1"],
                               "parity": parity_launches["K1"],
-                              "sweep": sweep_launches["K1"]},
+                              "sweep": sweep_launches["K1"],
+                              "mesh": mesh_launches["K1"]},
                              k1_err, k1_ms, k1_plain_ms, k1_bound),
                        "K1", cull["65k view 0"])
     k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
@@ -3302,7 +3743,8 @@ def main() -> int:
                               "bench": bench_launches["K2"],
                               "parity": parity_launches["K2"],
                               "planning": planning_k["K2"]["launches"],
-                              "sweep": sweep_launches["K2"]},
+                              "sweep": sweep_launches["K2"],
+                              "mesh": mesh_launches["K2"]},
                              max(k2_err, planning_k["K2"]["max_abs_err"]), k2_ms,
                              k2_plain_ms, k2_bound),
                        "K2", cull["65k train cam 0"])

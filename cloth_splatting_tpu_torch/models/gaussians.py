@@ -393,16 +393,16 @@ def reset_opacity(params: GaussianParams) -> tuple[GaussianParams, torch.Tensor]
                        device=params.opacity.device))
 
 
-def _map_tensors(fn, tree: Any) -> Any:
+def map_tensors(fn, tree: Any) -> Any:
     """``fn`` over every tensor leaf of nested NamedTuples / dicts / tuples."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
     if hasattr(tree, "_fields"):
-        return type(tree)(*(_map_tensors(fn, v) for v in tree))
+        return type(tree)(*(map_tensors(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(fn, v) for v in tree)
+        return type(tree)(map_tensors(fn, v) for v in tree)
     return tree
 
 
@@ -417,7 +417,7 @@ def grow_arrays(tree: Any, old_cap: int, new_cap: int) -> Any:
                                                    + tuple(leaf.shape[1:]))])
         return leaf
 
-    return _map_tensors(pad, tree)
+    return map_tensors(pad, tree)
 
 
 def grow_state_arrays(params: GaussianParams, gstate: GaussianState, g_opt: Any,
@@ -447,4 +447,4 @@ def zero_opt_rows(opt_state: Any, touched: torch.Tensor, capacity: int) -> Any:
                                leaf)
         return leaf
 
-    return _map_tensors(fix, opt_state)
+    return map_tensors(fix, opt_state)

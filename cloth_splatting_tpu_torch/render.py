@@ -160,8 +160,17 @@ def render(
     backend: str = SERVING_BACKEND,
     pack_order: str = "fused",
     device: str | torch.device = "cuda",
+    gather_group=None,
 ) -> RenderOutput:
     """Render one camera; ``sh_degree`` is the active SH degree.
+
+    ``gather_group`` (a ``parallel.mesh.Axis``, the JAX package's
+    ``gather_axis``) renders with the Gaussian capacity split over that
+    axis of a device mesh: the front end runs on this rank's rows, the
+    projected bundle is gathered over the axis (``gather_bundle``; its
+    backward reduce-scatters the gradients back to their rows) and the
+    compositor sees every Gaussian. The per-Gaussian outputs (radii,
+    visibility, means3d, rotations, projections) stay this rank's rows.
 
     ``backend`` is ``"tiled_fwd"`` (serving, no autograd),
     ``"tiled_train"`` (differentiable) or ``"tiled"`` (the dense tier,
@@ -185,17 +194,22 @@ def render(
             mesh_predictions, sh_degree, screen_offset=screen_offset,
             render_static=render_static, scaling_modifier=scaling_modifier,
             override_color=override_color, override_vertices=override_vertices)
+        full = proj
+        if gather_group is not None:
+            from cloth_splatting_tpu_torch.parallel.mesh import gather_bundle
+
+            full = gather_bundle(proj, gather_group)
         if serving:
             rgb, depth, alpha, aux = rasterize_tiled_fwd(
-                proj, width, height, bg, pack_order=pack_order)
+                full, width, height, bg, pack_order=pack_order)
             n_dropped = aux.n_dropped
         elif backend == DENSE_BACKEND:
             rgb, depth, alpha, aux = rasterize_tiled(
-                proj, width, height, bg, k_cap=k_cap, k_chunk=min(k_chunk, k_cap))
+                full, width, height, bg, k_cap=k_cap, k_chunk=min(k_chunk, k_cap))
             n_dropped = aux.n_dropped
         else:
             rgb, depth, alpha = rasterize_tiled_train(
-                proj, width, height, bg, pack_order=pack_order)
+                full, width, height, bg, pack_order=pack_order)
             n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
     return RenderOutput(rgb=rgb, depth=depth, alpha=alpha, radii=proj.radius,

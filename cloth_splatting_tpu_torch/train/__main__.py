@@ -13,10 +13,12 @@ checkpoint iterations, ``--expname``, view and time skips,
 ``--ip``/``--port``/``--protocol {json,sibr}``, ``--detect_anomaly``
 (``utils.profiling.enable_debug_checks``), ``--use_wandb``, ``--quiet``
 (silences stdout), ``--single_cam_video``; ``--debug_from`` and
-``--no_shadow`` are accepted and read by neither package. ``--mesh`` (a
-multi-device mesh) raises unless empty: the port has no multi-device
-training yet (ROADMAP queue 1 item 9). ``--device`` defaults to ``cuda``
-and raises without a card.
+``--no_shadow`` are accepted and read by neither package. ``--mesh DxM``
+trains over a (data, model) mesh of D x M ranks, one a device
+(``parallel.launch``: NCCL, rank r on ``cuda:r``; with ``--device cpu``,
+D x M gloo ranks on the CPU); ``--mesh auto`` builds one only when more
+than one card is visible. ``--device`` defaults to ``cuda`` and raises
+without a card.
 """
 
 from __future__ import annotations
@@ -93,8 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--save_test_images", action="store_true", default=True)
     parser.add_argument("--mesh", type=str, default="",
-                        help="multi-device training over a (data, model) mesh "
-                             "in the JAX package; only '' (one device) here")
+                        help="multi-device training over a (data, model) "
+                             "device mesh: 'auto' (every visible card, the "
+                             "data axis chosen), 'DxM' (e.g. '2x4'), or '' "
+                             "(one device, the default). Camera rows split "
+                             "over 'data', the Gaussian capacity over 'model'; "
+                             "one rank a device (gloo ranks with --device cpu)")
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
@@ -127,14 +133,37 @@ def training_config(args):
     return cfg
 
 
+def mesh_from_args(parser, spec: str, device) -> tuple[int, int] | None:
+    """(D, M) of ``--mesh`` on ``device``, or None for one device: 'auto'
+    is every visible card when there are several (none on the CPU); 'DxM'
+    needs D x M visible cards (any number of CPU ranks)."""
+    import torch
+
+    from cloth_splatting_tpu_torch.parallel.mesh import mesh_shape
+
+    on_card = device.type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    if not spec:
+        return None
+    if spec == "auto":
+        return mesh_shape(n_cards) if n_cards > 1 else None
+    try:
+        d, m = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        parser.error(f"--mesh must be 'auto' or 'DxM', got {spec!r}")
+    if d < 1 or m < 1:
+        parser.error(f"--mesh must be 'auto' or 'DxM', got {spec!r}")
+    if on_card and d * m > n_cards:
+        parser.error(f"--mesh {spec} needs {d * m} devices, have {n_cards}")
+    return d, m
+
+
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh!r}: the port has no multi-device training yet "
-            "(ROADMAP queue 1 item 9, multi-device); leave --mesh empty")
     cfg = training_config(args)
+
+    import torch.distributed as dist
 
     from cloth_splatting_tpu_torch.data.scene import load_cloth_scene
     from cloth_splatting_tpu_torch.device import resolve_device
@@ -149,6 +178,20 @@ def main(argv=None) -> None:
     if not cfg.model.source_path:
         parser.error("--source_path/-s is required")
     device = resolve_device(args.device)
+    shape = mesh_from_args(parser, args.mesh, device)
+    device_mesh, lead = None, True
+    if shape is not None:
+        if not dist.is_initialized():
+            from cloth_splatting_tpu_torch.parallel.launch import launch, main_rank
+
+            launch(main_rank, shape[0] * shape[1], device,
+                   args=("cloth_splatting_tpu_torch.train.__main__",
+                         list(sys.argv[1:] if argv is None else argv)))
+            return
+        from cloth_splatting_tpu_torch.parallel.mesh import make_mesh
+
+        device_mesh = make_mesh(shape[0] * shape[1], data=shape[0])
+        lead = dist.get_rank() == 0
     stdout = sys.stdout
     timestamp_stdout(args.quiet)
     try:
@@ -159,9 +202,10 @@ def main(argv=None) -> None:
             enable_debug_checks()
         if not cfg.model.model_path:
             cfg.model.model_path = os.path.join("./output/", args.expname)
-        os.makedirs(cfg.model.model_path, exist_ok=True)
-        with open(os.path.join(cfg.model.model_path, "cfg_args"), "w") as f:
-            f.write(repr(argparse.Namespace(**vars(args))))
+        if lead:
+            os.makedirs(cfg.model.model_path, exist_ok=True)
+            with open(os.path.join(cfg.model.model_path, "cfg_args"), "w") as f:
+                f.write(repr(argparse.Namespace(**vars(args))))
 
         print(f"Optimizing {cfg.model.model_path}")
         scene = load_cloth_scene(
@@ -170,14 +214,19 @@ def main(argv=None) -> None:
             view_skip=args.view_skip if args.view_skip > 1 else None,
             single_cam_video=args.single_cam_video, device=device)
         viewer_enabled = False
-        try:
-            viewer.init(args.ip, args.port, wire_protocol=args.protocol)
-            viewer_enabled = True
-        except OSError as exc:
-            print(f"viewer disabled ({exc})")
+        if lead:
+            try:
+                viewer.init(args.ip, args.port, wire_protocol=args.protocol)
+                viewer_enabled = True
+            except OSError as exc:
+                print(f"viewer disabled ({exc})")
+        if device_mesh is not None:
+            from cloth_splatting_tpu_torch.parallel.mesh import agree, mesh_axes
+
+            viewer_enabled = agree(viewer_enabled, mesh_axes(device_mesh).world)
         wandb = (WandbAdapter(project=args.expname, name=args.expname,
                               config=vars(args), enabled=True)
-                 if args.use_wandb else None)
+                 if args.use_wandb and lead else None)
         train_scene(
             cfg, scene, cfg.model.model_path,
             test_iterations=args.test_iterations,
@@ -186,7 +235,7 @@ def main(argv=None) -> None:
             start_checkpoint=args.start_checkpoint, seed=args.seed,
             three_steps_batch=args.three_steps_batch,
             save_test_images=args.save_test_images, wandb=wandb,
-            viewer_enabled=viewer_enabled, device=device)
+            viewer_enabled=viewer_enabled, device=device, device_mesh=device_mesh)
         if wandb is not None:
             wandb.finish()
         print("\nTraining complete.")

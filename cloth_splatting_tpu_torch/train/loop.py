@@ -17,8 +17,16 @@ overflowing ticks in a row, up to ``K_CAP_MAX``; a held-out evaluation
 through that tier doubles it until the split drops nothing. The loop also
 polls the live viewer (``utils/viewer.py``) and logs to a ``wandb``
 adapter when given one. ``parallel/sweep.py`` drives several scenes with
-the same ``sample_cameras`` and ``host_events``. Not ported yet: the
-multi-device mesh (ROADMAP queue 1 item 9).
+the same ``sample_cameras`` and ``host_events``.
+
+With a ``device_mesh`` (``parallel.mesh.make_mesh``) every rank of the
+mesh runs the loop: the step is ``parallel.trainer.ShardedTrainer``'s (the
+capacity over ``model``, the cameras over ``data``) and every host
+decision is the same on every rank (the same draws, the fetched metrics
+reduced over the mesh). Rank 0 alone writes: ``metrics.jsonl``, the
+checkpoints, the PLY, the test renders, ``wandb``, the viewer's answers
+and the progress lines. Evaluations and saves gather the full state on
+every rank first, so a checkpoint has the single-device layout.
 """
 
 from __future__ import annotations
@@ -205,20 +213,40 @@ def load_train_checkpoint(path: str, template: SplatTrainState) -> SplatTrainSta
 
 
 @torch.no_grad()
-def _poll_viewer(trainer: Trainer, state: SplatTrainState, sh_degree: int) -> None:
+def _poll_viewer(trainer: Trainer, state: SplatTrainState, sh_degree: int,
+                 runner=None) -> None:
     """The viewer's poll of one iteration: accept a waiting client, answer
     one render request if a camera arrived, and drop the connection on any
     error while answering (nothing renders in its place). The request
     renders through the dense tier at the trainer's ``k_cap``, with the
-    request's ``scaling_modifier``, as the JAX package's poll does."""
+    request's ``scaling_modifier``, as the JAX package's poll does. Under a
+    ``ShardedTrainer`` ``runner``, rank 0 holds the connection, every rank
+    learns whether a request came and gathers the full state for it."""
     from cloth_splatting_tpu_torch.utils import viewer
 
-    if viewer.conn is None:
-        viewer.try_connect()
-    if viewer.conn is None:
+    request = None
+    if runner is None or runner.is_lead:
+        if viewer.conn is None:
+            viewer.try_connect()
+        if viewer.conn is not None:
+            try:
+                request = viewer.receive()
+            except Exception as exc:     # a bad request must not stop the fit
+                print(f"viewer: dropped the connection ({exc!r})")
+                viewer.disconnect()
+    if runner is not None:
+        from cloth_splatting_tpu_torch.parallel.mesh import agree
+
+        if not agree(request is not None and request[0] is not None,
+                     runner.axes.world):
+            if request is not None and not request[2]:
+                viewer.disconnect()
+            return
+        state = runner.host_state(state)
+    if request is None:
         return
     try:
-        cam, _do_training, keep_alive, scaling = viewer.receive()
+        cam, _do_training, keep_alive, scaling = request
         if cam is not None:
             wv = np.asarray(cam["world_view"], np.float32)
             fp = np.asarray(cam["full_proj"], np.float32)
@@ -325,6 +353,7 @@ def fit_banks(
     wandb=None,
     viewer_enabled: bool = False,
     on_save: Optional[Callable[[int, SplatTrainState], None]] = None,
+    device_mesh=None,
 ) -> SplatTrainState:
     """The optimization loop from the banks on: iterations ``first_iter`` ..
     ``cfg.opt.iterations`` on ``cam_bank`` / ``gt_bank`` / ``mask_bank``
@@ -339,11 +368,32 @@ def fit_banks(
     the progress and evaluation scalars. At each of ``save_iterations`` the
     evaluation-facing state (the parameter average when ``param_ema`` is
     on) goes to ``save_scene_checkpoint`` when there is an ``out_dir`` and
-    to ``on_save(iteration, state)`` when given."""
+    to ``on_save(iteration, state)`` when given.
+
+    ``device_mesh`` runs the loop on every rank of that mesh through a
+    ``ShardedTrainer`` (``state`` is the full state on every rank, and every
+    rank passes the same arguments); rank 0 alone writes and reports, and
+    every rank returns the full final state."""
     cfg = trainer.cfg
     o = cfg.opt
     dev = trainer.device
     white_background = cfg.model.white_background
+    runner, lead = trainer, True
+    if device_mesh is not None:
+        from cloth_splatting_tpu_torch.parallel.trainer import ShardedTrainer
+
+        runner = ShardedTrainer(trainer, device_mesh)
+        lead = runner.is_lead
+        state = runner.place_state(state)
+        print(f"device mesh: data={runner.d_rows} x model={runner.m_cols}")
+    sharded = runner is not trainer
+
+    def full(st: SplatTrainState) -> SplatTrainState:
+        """The full state (a collective under a mesh)."""
+        return runner.host_state(st) if sharded else st
+
+    if not lead:
+        out_dir, wandb = None, None
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     sample_rng = np.random.default_rng([seed, 1])
@@ -379,7 +429,7 @@ def fit_banks(
         static = o.static_reconst and iteration < o.static_reconst_iteration
 
         if viewer_enabled:
-            _poll_viewer(trainer, state, sh_degree)
+            _poll_viewer(trainer, state, sh_degree, runner if sharded else None)
 
         if iteration % 1000 == 0 and sh_degree < cfg.model.sh_degree:
             sh_degree += 1
@@ -389,13 +439,13 @@ def fit_banks(
             cap = state.params.face_bary.shape[0]
             if (knn_state is None or cap != knn_capacity
                     or iteration % o.knn_update_iter == 0):
-                knn_state = trainer.compute_knn_state(state)
+                knn_state = runner.compute_knn_state(state)
                 knn_capacity = cap
 
         vi, t_ids = sample_cameras(sample_rng, iteration, static, n_views,
                                    n_times, three_steps_batch, o.time_sample)
 
-        state, metrics, carry = trainer.step_banked(
+        state, metrics, carry = runner.step_banked(
             state, cam_bank, gt_bank, mask_bank, vi, t_ids,
             sh_degree=sh_degree, static=static,
             knn_state=knn_state if knn_active else None, carry=carry)
@@ -415,7 +465,7 @@ def fit_banks(
                       or iteration % o.bary_cleanup == 0)
         params_before = state.params if (ema_decay > 0.0 and host_event) else None
 
-        state = host_events(trainer, state, iteration, generator)
+        state = host_events(runner, state, iteration, generator)
 
         if params_before is not None:
             if state.params.face_bary.shape[0] != params_before.face_bary.shape[0]:
@@ -447,54 +497,61 @@ def fit_banks(
                       f"{int(fetched[5])} tile instances since the last tick "
                       f"(k_cap={o.raster_k_cap})")
                 if overflow_ticks >= 2 and o.raster_k_cap < K_CAP_MAX:
-                    new_cap = trainer.grow_k_cap()
+                    new_cap = runner.grow_k_cap()
                     overflow_ticks = 0
                     print(f"[iter {iteration}] growing raster_k_cap -> {new_cap}")
             else:
                 overflow_ticks = 0
-        if iteration % progress_every == 0:
+        if iteration % progress_every == 0 and lead:
             rate = (iteration - first_iter + 1) / (time_mod.time() - t_start)
             print(f"[{'static' if static else 'dyn'} {iteration}/{o.iterations}] "
                   f"loss={ema_loss:.5f} psnr={ema_psnr:.2f} gaussians={n_alive} "
                   f"({rate:.1f} it/s)")
             logger.log(iteration, loss=loss, psnr=psnr, ema_loss=ema_loss,
                        ema_psnr=ema_psnr, n_gaussians=n_alive,
-                       capacity=int(state.params.face_bary.shape[0]),
+                       capacity=int(state.params.face_bary.shape[0])
+                       * (runner.m_cols if sharded else 1),
                        iters_per_sec=rate)
             if wandb is not None:
                 wandb.log({"loss": loss, "psnr": psnr, "n_gaussians": n_alive},
                           step=iteration)
 
         if iteration in test_iterations and test_frames is not None:
-            ev = evaluate_split(
-                trainer, with_ema(state), test_frames, white_background,
-                sh_degree,
-                save_dir=(os.path.join(out_dir, "test_renders",
-                                       f"iter_{iteration}")
-                          if save_test_images and out_dir else None))
-            print(f"[ITER {iteration}] test psnr={ev['psnr']:.2f} l1={ev['l1']:.4f}")
-            logger.log(iteration, test_psnr=ev["psnr"], test_l1=ev["l1"])
-            if wandb is not None:
-                wandb.log({"test_psnr": ev["psnr"], "test_l1": ev["l1"]},
-                          step=iteration)
+            eval_state = full(with_ema(state))
+            if lead:
+                ev = evaluate_split(
+                    trainer, eval_state, test_frames, white_background,
+                    sh_degree,
+                    save_dir=(os.path.join(out_dir, "test_renders",
+                                           f"iter_{iteration}")
+                              if save_test_images and out_dir else None))
+                print(f"[ITER {iteration}] test psnr={ev['psnr']:.2f} "
+                      f"l1={ev['l1']:.4f}")
+                logger.log(iteration, test_psnr=ev["psnr"], test_l1=ev["l1"])
+                if wandb is not None:
+                    wandb.log({"test_psnr": ev["psnr"], "test_l1": ev["l1"]},
+                              step=iteration)
 
         if iteration in save_iterations:
             # the saved PLY and mesh are what evaluation scores: averaged
             # parameters; the resume checkpoints below keep the raw iterate
+            saved = full(with_ema(state))
             if out_dir:
-                save_scene_checkpoint(out_dir, iteration, trainer, with_ema(state))
+                save_scene_checkpoint(out_dir, iteration, trainer, saved)
             if on_save is not None:
-                on_save(iteration, with_ema(state))
+                on_save(iteration, saved)
 
-        if out_dir and iteration in checkpoint_iterations:
-            path = save_train_checkpoint(out_dir, iteration, state)
-            print(f"[ITER {iteration}] saved checkpoint {path}")
+        if iteration in checkpoint_iterations and (out_dir or sharded):
+            saved = full(state)
+            if out_dir:
+                path = save_train_checkpoint(out_dir, iteration, saved)
+                print(f"[ITER {iteration}] saved checkpoint {path}")
 
         if on_iteration is not None:
             on_iteration(iteration, {"loss": loss, "psnr": psnr})
 
     logger.close()
-    return state
+    return full(state)
 
 
 def train_scene(
@@ -513,16 +570,20 @@ def train_scene(
     wandb=None,
     viewer_enabled: bool = False,
     device: str | torch.device = "cuda",
+    device_mesh=None,
 ) -> SplatTrainState:
     """Run the full static + dynamic optimization of one scene on ``device``
-    (the scene's mesh must lie there). ``three_steps_batch=False`` takes ONE
+    (the scene's mesh is moved there). ``three_steps_batch=False`` takes ONE
     random (view, time) camera per dynamic iteration instead of the
-    3-consecutive-time batch; ``wandb`` and ``viewer_enabled`` go to
-    ``fit_banks``."""
+    3-consecutive-time batch; ``wandb``, ``viewer_enabled`` and
+    ``device_mesh`` (every rank of the mesh calls ``train_scene``; see
+    ``train_scene_rank``) go to ``fit_banks``."""
     dev = resolve_device(device)
-    os.makedirs(out_dir, exist_ok=True)
+    lead = device_mesh is None or torch.distributed.get_rank() == 0
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
-    mesh = scene.initial_mesh
+    mesh = G.Mesh(*(t.to(dev) for t in scene.initial_mesh))
     preds = torch.as_tensor(scene.mesh_predictions, dtype=torch.float32, device=dev)
     cam0 = scene.train.get(0, 0).camera
     trainer = Trainer(cfg, mesh, preds, cam0.width, cam0.height, cam0.tanfovx,
@@ -542,4 +603,20 @@ def train_scene(
         checkpoint_iterations=checkpoint_iterations, first_iter=first_iter,
         seed=seed, progress_every=progress_every, on_iteration=on_iteration,
         three_steps_batch=three_steps_batch, save_test_images=save_test_images,
-        wandb=wandb, viewer_enabled=viewer_enabled)
+        wandb=wandb, viewer_enabled=viewer_enabled, device_mesh=device_mesh)
+
+
+def train_scene_rank(device: torch.device, mesh_shape: tuple[int, int],
+                     cfg: Config, scene: ClothScene, out_dir: str, kwargs: dict):
+    """One rank of ``train_scene`` over a (data, model) mesh of
+    ``mesh_shape``, the function ``parallel.launch.launch`` runs on each
+    rank: ``scene`` (on the CPU) moves to this rank's ``device``. Returns
+    the final full state on the CPU from rank 0, None from the others."""
+    from cloth_splatting_tpu_torch.parallel.mesh import make_mesh
+
+    d, m = mesh_shape
+    state = train_scene(cfg, scene, out_dir, device=device,
+                        device_mesh=make_mesh(d * m, data=d), **kwargs)
+    if torch.distributed.get_rank():
+        return None
+    return G.map_tensors(lambda t: t.cpu(), state)

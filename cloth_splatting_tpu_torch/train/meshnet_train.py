@@ -16,6 +16,15 @@ trainer's ``torch.Generator``.
 Normalizer statistics are accumulated once a batch, on the flattened
 first-step features and targets, before the unroll, which then runs with
 ``training=False``, as in the JAX package.
+
+Data parallelism (``train_step(..., group=)``, ``train_meshnet(...,
+data_parallel=True)``; the JAX package's ``make_sharded_meshnet_step``) runs
+inside a ``torch.distributed`` group of W ranks: every rank draws the same
+batch and the same noise, accumulates the normalizers on the whole batch
+(so every rank's statistics are the single process's), and trains on its
+rows ``[r B/W, (r+1) B/W)``; the loss is each rank's mean scaled by its
+share of the batch's nodes, and one all-reduce sums the loss and the
+gradients, so the identical Adam on every rank keeps identical states.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cloth_splatting_tpu_torch.device import resolve_device
 from cloth_splatting_tpu_torch.models.cloth_simulator import (
@@ -122,31 +132,51 @@ class MeshnetTrainer:
 
     def train_step(self, state: dict, opt_state: AdamState,
                    batch: dict[str, np.ndarray], epoch: float, future: int,
-                   noise: torch.Tensor | None = None):
+                   noise: torch.Tensor | None = None,
+                   group: dist.ProcessGroup | None = None):
         """One step on a padded numpy batch (``data.trajectories``'
         ``ClothSampleDataset.batch``); ``noise`` [B, V, 3·hist] replaces the
-        trainer's draw. Returns (state, opt_state, loss as a tensor)."""
+        trainer's draw. With ``group``, one data-parallel step: every rank
+        of the group passes the same batch and trains on its rows. Returns
+        (state, opt_state, loss as a tensor)."""
         graph = flatten_batch(batch, self.device)
         if noise is None:
             noise = self.draw_noise(batch["velocity"].shape)
         noise = noise.to(self.device).reshape(graph["velocity"].shape)
-        return self._train_step(state, opt_state, graph, noise,
-                                float(np.float32(self.lr(epoch))), future)
+        lr = float(np.float32(self.lr(epoch)))
+        state = self._accumulate(state, graph, noise)
+        b, v = batch["velocity"].shape[:2]
+        rows, local = slice(0, b), graph
+        if group is not None:
+            w, r = dist.get_world_size(group), dist.get_rank(group)
+            rows = slice(r * b // w, (r + 1) * b // w)
+            local = flatten_batch({k: a[rows] for k, a in batch.items()}, self.device)
+        return self._train_step(state, opt_state, local,
+                                noise[rows.start * v:rows.stop * v], lr, future,
+                                group=group, share=(rows.stop - rows.start) / b)
 
-    def _train_step(self, state, opt_state, graph, noise, lr, future):
+    def _accumulate(self, state, graph, noise):
+        """The normalizers with this batch's first-step statistics added."""
+        if not self.normalize:
+            return state
+        vel = graph["velocity"] + noise
+        feats0 = torch.cat([vel, node_type_onehot(graph["node_type"])], -1)
+        _, node_norm = normalizer_apply(state["node_norm"], feats0, accumulate=True)
+        _, out_norm = normalizer_apply(state["out_norm"],
+                                       graph["target_vel"][:, 0] - vel[:, -3:],
+                                       accumulate=True)
+        return {**state, "node_norm": node_norm, "out_norm": out_norm}
+
+    def _train_step(self, state, opt_state, graph, noise, lr, future, group, share):
+        """The step on ``graph``, this rank's ``share`` of the batch (the
+        whole batch, 1.0, without a ``group``), from normalizers that have
+        the whole batch's statistics: the mean squared error scaled by the
+        share, summed with the other ranks' over ``group``."""
         edge_index = graph["edge_index"]
         vel = graph["velocity"] + noise               # first-step noise only
         pos = graph["positions"]
         target_vel = graph["target_vel"]              # [B·V, future, 3]
         actions = graph["particle_actions"]           # [B·V, future, 3]
-
-        if self.normalize:
-            feats0 = torch.cat([vel, node_type_onehot(graph["node_type"])], -1)
-            _, node_norm = normalizer_apply(state["node_norm"], feats0, accumulate=True)
-            _, out_norm = normalizer_apply(state["out_norm"],
-                                           target_vel[:, 0] - vel[:, -3:],
-                                           accumulate=True)
-            state = {**state, "node_norm": node_norm, "out_norm": out_norm}
 
         flat = flat_params(state["gnn"])
         leaves = {k: p.detach().requires_grad_() for k, p in flat.items()}
@@ -159,13 +189,19 @@ class MeshnetTrainer:
                     st, vel, graph["node_type"], edge_index, edge_feats,
                     target_velocity=target_vel[:, f], normalize=self.normalize,
                     training=False)
-                loss = loss + torch.mean((pred - target) ** 2)
+                loss = loss + torch.mean((pred - target) ** 2) * share
                 if f < future - 1:
                     acc = (normalizer_inverse(st["out_norm"], pred)
                            if self.normalize else pred)
                     vel, edge_feats, pos = update_prediction(
                         vel, acc, pos, edge_index, actions[:, f], actions[:, f + 1])
             grads = torch.autograd.grad(loss, list(leaves.values()))
+        if group is not None:
+            from cloth_splatting_tpu_torch.parallel.mesh import Axis, reduce_packed
+
+            axis = Axis("world", group, dist.get_world_size(group),
+                        dist.get_rank(group))
+            loss, *grads = reduce_packed([loss.detach()] + list(grads), axis)
         new, opt_state = adam_step(flat, dict(zip(leaves, grads)), opt_state, lr)
         return ({**state, "gnn": unflat_params(state["gnn"], new)}, opt_state,
                 loss.detach())
@@ -244,11 +280,28 @@ def train_meshnet(
     """The epoch loop with the 1/3-2/3 unroll curriculum. Batches are drawn
     by ``numpy.random.default_rng(seed)`` (the JAX package's draws), the
     noise by the trainer's generator seeded with ``seed``. Returns (state,
-    per-epoch mean loss)."""
+    per-epoch mean loss).
+
+    ``data_parallel=True`` runs on every rank of the initialized
+    ``torch.distributed`` world (``parallel.launch.launch`` starts one a
+    device): the batch is split over the ranks (``train_step(group=)``),
+    ``batch_size`` must divide by the world size, and rank 0 alone logs and
+    saves."""
+    group, lead = None, True
     if data_parallel:
-        raise NotImplementedError(
-            "data-parallel GNN training is multi-device work the port does "
-            "not have yet (ROADMAP queue 1 item 9)")
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "data_parallel=True runs inside an initialized torch.distributed "
+                "group, one rank a device: start the ranks with "
+                "cloth_splatting_tpu_torch.parallel.launch.launch")
+        group, n_dev = dist.group.WORLD, dist.get_world_size()
+        if batch_size % n_dev:
+            raise ValueError(
+                f"--data_parallel needs batch_size ({batch_size}) divisible "
+                f"by the device count ({n_dev})")
+        lead = dist.get_rank() == 0
+        if lead:
+            print(f"meshnet data-parallel over {n_dev} devices")
     rng = np.random.default_rng(seed)
     trainer.generator.manual_seed(seed)
     opt_state = trainer.init_opt(state)
@@ -264,11 +317,11 @@ def train_meshnet(
         for _ in range(n_steps):
             batch = train_ds.batch(rng, batch_size)
             state, opt_state, loss = trainer.train_step(state, opt_state, batch,
-                                                        epoch, future)
+                                                        epoch, future, group=group)
             epoch_loss += loss.double()
         losses.append(float(epoch_loss) / n_steps)
 
-        if epoch % log_every == 0:
+        if epoch % log_every == 0 and lead:
             msg = f"[meshnet epoch {epoch}/{n_epochs}] future={future} loss={losses[-1]:.6f}"
             if val_ds is not None and len(val_ds.trajs) > 0:
                 item = val_ds.rollout_item(0)
@@ -290,9 +343,9 @@ def train_meshnet(
                         msg += f" viz={frame_dir}"
             print(msg)
 
-        if model_dir and epoch % save_every == 0:
+        if model_dir and lead and epoch % save_every == 0:
             trainer.save(model_dir, epoch, state, opt_state)
 
-    if model_dir:
+    if model_dir and lead:
         trainer.save(model_dir, n_epochs, state, opt_state)
     return state, losses

@@ -264,23 +264,11 @@ class Trainer:
                 backend=self.backend, pack_order=o.raster_pack_order,
                 device=self.device))
         images = torch.stack([out.rgb for out in outs])              # [B, 3, H, W]
-        loss, ldict = image_losses(images, gt_images, o.lambda_dssim, masks)
-        vertices = torch.stack([out.vertices for out in outs])       # [B, V, 3]
-        anchor_base = None
-        if o.lambda_anchor > 0.0 and not static:
-            n_times = self.mesh_predictions.shape[0]
-            anchor_base = torch.stack([
-                self.mesh_predictions.index_select(0, time_index(t, n_times))[0]
-                for t in cams.time])
-        loss = loss + regularization(
-            vertices, self.mesh, o.lambda_deform_mag, o.lambda_rigid,
-            o.lambda_momentum, static, lambda_anchor=o.lambda_anchor,
-            anchor_base=anchor_base)
-        if knn_state is not None and not static:
-            loss = loss + knn_regularization(
-                torch.stack([out.means3d for out in outs]),
-                torch.stack([out.rotations for out in outs]), knn_state,
-                o.lambda_isometric, o.lambda_spring, o.lambda_rigidity)
+        loss, ldict = self.batch_loss(
+            images, gt_images, masks, torch.stack([out.vertices for out in outs]),
+            cams.time, static, knn_state,
+            lambda: (torch.stack([out.means3d for out in outs]),
+                     torch.stack([out.rotations for out in outs])))
         with torch.no_grad():
             return Forward(
                 loss=loss, params=params, sim=sim, screen_offset=screen_offset,
@@ -288,6 +276,33 @@ class Trainer:
                 radii=torch.stack([out.radii for out in outs]).amax(dim=0),
                 visibility=torch.stack([out.visibility for out in outs]).any(dim=0),
                 n_dropped=torch.stack([out.n_dropped for out in outs]).sum())
+
+    def batch_loss(self, images: torch.Tensor, gt_images: torch.Tensor,
+                   masks: torch.Tensor | None, vertices: torch.Tensor,
+                   times: torch.Tensor, static: bool, knn_state: KnnState | None,
+                   means_rotations):
+        """(loss, losses dict) of a camera batch: the photometric loss of
+        ``images`` [B, 3, H, W], the mesh regularizers of ``vertices``
+        [B, V, 3] (the anchor against the predictions at ``times``) and,
+        with ``knn_state``, the kNN terms of ``means_rotations()``: the
+        means [B, C, 3] and rotations [B, C, 4]."""
+        o = self.cfg.opt
+        loss, ldict = image_losses(images, gt_images, o.lambda_dssim, masks)
+        anchor_base = None
+        if o.lambda_anchor > 0.0 and not static:
+            n_times = self.mesh_predictions.shape[0]
+            anchor_base = torch.stack([
+                self.mesh_predictions.index_select(0, time_index(t, n_times))[0]
+                for t in times])
+        loss = loss + regularization(
+            vertices, self.mesh, o.lambda_deform_mag, o.lambda_rigid,
+            o.lambda_momentum, static, lambda_anchor=o.lambda_anchor,
+            anchor_base=anchor_base)
+        if knn_state is not None and not static:
+            loss = loss + knn_regularization(
+                *means_rotations(), knn_state, o.lambda_isometric,
+                o.lambda_spring, o.lambda_rigidity)
+        return loss, ldict
 
     @staticmethod
     def backward(fwd: Forward):

@@ -9,8 +9,10 @@ learning-rate decay, periodic checkpoints (``model-N.npz``,
 ``train_state-N.npz``, the JAX package's layout: either package reads the
 other's). The flags of the root script, plus ``--device`` (default
 ``cuda``; raises without a card unless ``--device cpu``).
-``--data_parallel 1`` raises: the port has no multi-device training yet
-(ROADMAP queue 1 item 9). Reading the h5 trajectories needs ``h5py``.
+``--data_parallel 1`` trains on one rank a visible card
+(``parallel.launch``, NCCL), the batch split over them; with
+``--device cpu``, a world of one rank (gloo). Reading the h5 trajectories
+needs ``h5py``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps_per_epoch", type=int, default=None)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="1 raises: no multi-device training yet")
+                   help="1: split each batch over one rank a visible card "
+                        "(one rank on the CPU)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -63,6 +67,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     import numpy as np
+    import torch
 
     from cloth_splatting_tpu_torch.data.trajectories import ClothSampleDataset
     from cloth_splatting_tpu_torch.device import resolve_device
@@ -73,6 +78,13 @@ def main(argv=None):
     )
 
     dev = resolve_device(args.device)
+    if args.mode == "train" and args.data_parallel \
+            and not torch.distributed.is_initialized():
+        from cloth_splatting_tpu_torch.parallel.launch import launch, main_rank
+
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return launch(main_rank, n, dev, args=("cloth_splatting_tpu_torch.train_meshnet_sim", argv))[0]
     state = init_cloth_simulator(
         np.random.default_rng(args.seed),
         input_sequence_length=args.input_sequence_length,
@@ -92,10 +104,6 @@ def main(argv=None):
                     use_delaunay=bool(args.delaunay), knn=args.knn)
 
     if args.mode == "train":
-        if args.data_parallel:
-            raise NotImplementedError(
-                "--data_parallel 1: the port has no multi-device training yet "
-                "(ROADMAP queue 1 item 9)")
         ds = ClothSampleDataset(args.data_path, args.input_sequence_length,
                                 args.future_sequence_length, args.dt,
                                 args.num_samples, **graph_kw)
@@ -114,7 +122,8 @@ def main(argv=None):
             base_future=args.future_sequence_length,
             save_every=args.nsave_steps, model_dir=model_dir, seed=args.seed,
             steps_per_epoch=args.steps_per_epoch,
-            viz_dir=args.viz_dir, viz_every=args.viz_every)
+            viz_dir=args.viz_dir, viz_every=args.viz_every,
+            data_parallel=bool(args.data_parallel))
         print(f"final loss: {losses[-1]:.6f}; checkpoints at {model_dir}")
         return losses
 

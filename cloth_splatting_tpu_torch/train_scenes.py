@@ -13,7 +13,8 @@ scene ``DIR`` trains into ``OUT/<basename of DIR>``, which gets its own
 ``train`` output. The coarse stage maps onto the static stage as in
 ``train``. Same-signature scenes train together, one per card
 (``parallel/sweep.py``); ``--device cuda`` uses every visible card,
-``cuda:N`` or ``cpu`` one device (one scene a group).
+``cuda:N`` or ``cpu`` one device (one scene a group). ``--mesh`` (the
+train flag) raises: a scene's device mesh is ``train --mesh``'s.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            f"--mesh {args.mesh!r}: the port has no multi-device mesh yet "
-            "(ROADMAP queue 1 item 9); leave --mesh empty")
+            f"--mesh {args.mesh!r}: neither package runs an intra-scene device "
+            "mesh from train_scenes (the JAX package's train_scenes accepts the "
+            "flag and reads nothing of it); train one scene over a mesh with "
+            "python -m cloth_splatting_tpu_torch.train --mesh DxM")
 
     import torch
 

@@ -559,7 +559,8 @@ def test_train_meshnet_matches_jax_over_curriculum(sim_dataset, tmp_path):
     tv = ttr.validate_rollout(tstate, td.rollout_item(2), 6)
     assert float(np.abs(tv["predicted_positions"] - jv["predicted_positions"]).max()) <= 1e-4
     np.testing.assert_allclose(tv["per_step_mse"], jv["per_step_mse"], rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    # data parallelism runs inside a process group (tests/test_torch_gnn_dp.py)
+    with pytest.raises(RuntimeError, match="initialized torch.distributed group"):
         ttrain.train_meshnet(ttr, tstate, td, data_parallel=True)
 
 
@@ -730,8 +731,12 @@ def test_train_meshnet_sim_entry_point(sim_dataset, tmp_path):
                                  "--output_path", str(tmp_path / "out")])
     assert len(results) == len(glob.glob(os.path.join(env, "traj_*")))
     assert os.path.exists(tmp_path / "out" / "rollout.pkl")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        cli.main(common + ["--data_parallel", "1"])
+    # --data_parallel 1 on the CPU: a world of one gloo rank
+    dp = cli.main(common[:3] + [str(tmp_path / "dp")] + common[4:]
+                  + ["--ntraining_steps", "1", "--batch_size", "3",
+                     "--steps_per_epoch", "1", "--data_parallel", "1"])
+    assert len(dp) == 1 and np.isfinite(dp).all()
+    assert glob.glob(str(tmp_path / "dp" / "*" / "model-1.npz"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["--data_path", sim_dataset])

@@ -185,9 +185,17 @@ def test_train_parser_accepts_every_flag_of_the_root_train():
     assert args.single_cam_video and args.no_shadow and args.raster_k_chunk == 8
 
 
-def test_mesh_flag_raises_and_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train_main(["-s", "x", "--mesh", "2x4", "--device", "cpu"])
+def test_mesh_flag_raises_and_names_its_queue_item(capsys):
+    """A malformed ``--mesh`` and one beyond the visible cards are parser
+    errors with the JAX package's messages (no card is visible here)."""
+    from cloth_splatting_tpu_torch.train.__main__ import mesh_from_args
+
+    with pytest.raises(SystemExit):
+        train_main(["-s", "x", "--mesh", "foo", "--device", "cpu"])
+    assert "--mesh must be 'auto' or 'DxM', got 'foo'" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        mesh_from_args(build_parser(), "2x4", torch.device("cuda"))
+    assert "--mesh 2x4 needs 8 devices, have 0" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")
