@@ -28,9 +28,10 @@ Phases, each of which raises on failure:
      ``tpp`` 5 (the window decides only where a chunk is read from); and the
      three at ``tpp`` 11 over 121 tiles, clusters of one CTA, with
      ``span_cap`` 96 (clamped to what one CTA holds);
-  3. time the six kernels, their plain versions and the stages of one frame;
+  3. time the six kernels and their plain versions;
   4. serve frames of the scene at different views and times through the
-     port's ``render`` with the launch counters set to 0 just before, and
+     port's ``render`` with the launch counters set to 0 just before and
+     the port's spans on (their host time gives a frame's stages), and
      check that K1 was launched once per frame and that the frames are
      finite with nonzero coverage; then the same frames with the span
      options on (K1-span), beside the default's time;
@@ -39,7 +40,8 @@ Phases, each of which raises on failure:
      the span options: K2-span, K4), against the O(N*P) oracle;
   6. train: a warm-up step and 5 timed steps of the port's ``Trainer`` on
      bench.py's 65k training configuration (3 cameras, 800x800) with the
-     launch counters set to 0 just before, checking that K2 and K3 ran 3
+     launch counters set to 0 just before and the port's spans on (their
+     host time gives the step's stages), checking that K2 and K3 ran 3
      times per step, that the loss is finite and that the Gaussians and the
      simulator moved; then 5 steps with the span options on (K2-span, K4),
      beside the default's time; then what determinism costs: 5 steps with
@@ -161,6 +163,7 @@ import time
 # the field of view, background and training camera times of the benchmark
 # entry, whose serving scene and training configuration this script drives
 from cloth_splatting_tpu_torch.bench import BG, FOV, TRAIN_TIMES
+from cloth_splatting_tpu_torch.utils import profiling
 
 SEED = 0
 WIDTH = HEIGHT = 800
@@ -168,6 +171,10 @@ MESH_RES = 128           # grid_cloth_mesh(128, 128): 65,024 Gaussians
 TRAIN_CAPACITY = 65536
 N_FRAMES = 8
 TRAIN_STEPS = 5
+# the port's spans whose host time gives a train step's and a frame's stages
+STEP_SPANS = ("forward", "render.project_view", "raster.sort_pack", "raster.composite",
+              "loss", "backward", "update")
+FRAME_SPANS = ("render", "render.project_view", "raster.sort_pack", "raster.composite")
 # the span options: 625 tiles of 32 px are 5^4, so tiles_per_program must be
 # 5 there (4 or 8 would silently turn the span off); 2,500 tiles of 16 px
 # take 4. The three span kernels run a program as a cluster of
@@ -454,6 +461,13 @@ def ptxas_usage(build_log: str) -> dict:
         if m:
             entry["smem_bytes"] = int(m.group(1))
     return usage
+
+
+def span_ms(records, names, units: int) -> dict:
+    """Host ms a unit inside each of the spans ``names`` (inclusive, summed
+    over every span of the name in ``records``, from ``take_spans``)."""
+    return {n: sum(r.end_ns - r.start_ns for r in records if r.name == n) / 1e6 / units
+            for n in names}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1528,6 +1542,8 @@ def train_phase(gpu):
     run_backward.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    profiling.take_spans()
+    profiling.enable_spans(True)
     t_host = time.perf_counter()
     start.record()
     losses = []
@@ -1537,6 +1553,9 @@ def train_phase(gpu):
     end.record()
     end.synchronize()
     host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_STEPS
+    profiling.enable_spans(False)
+    # the step's stages: host time inside the port's spans over those steps
+    stages = span_ms(profiling.take_spans(), STEP_SPANS, TRAIN_STEPS)
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     k2, k3 = raster_forward_train.launches, run_backward.launches
     k1 = raster_forward_tiles.launches
@@ -1557,20 +1576,6 @@ def train_phase(gpu):
     if int(state.step) != TRAIN_STEPS + 1:
         raise RuntimeError(f"train: step counter {int(state.step)}")
 
-    # the step's three stages, timed separately over two more steps
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    stages = {"forward_renders_and_losses": 0.0, "backward": 0.0, "adam_and_stats": 0.0}
-    for _ in range(2):
-        ev[0].record()
-        fwd = trainer.forward(state, cams, gts, None, 1, False)
-        ev[1].record()
-        grads = trainer.backward(fwd)
-        ev[2].record()
-        state, _ = trainer.update(state, fwd, grads)
-        ev[3].record()
-        ev[3].synchronize()
-        for i, k in enumerate(stages):
-            stages[k] += ev[i].elapsed_time(ev[i + 1]) / 2
     # the span A/B: the same steps with the rasterizer's span options on
     def run_steps():
         return timed_calls(lambda _: step(state), range(TRAIN_STEPS))[0]
@@ -3332,7 +3337,6 @@ def main() -> int:
         raster_forward_tiles,
         raster_forward_tiles_plain,
         sorted_pack,
-        tiles_to_images,
     )
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         raster_forward_train,
@@ -3520,19 +3524,6 @@ def main() -> int:
         f"{k4_ms:.4f} ms (K3 {k3_ms:.4f}), plain {k4_plain_ms:.3f}, bound "
         f"{json.dumps(k4_bound)} [{gpu}]")
 
-    proj0 = project(cams[0])
-    stage_ms = {
-        "project_view": time_ms(lambda: project(cams[0]), 10),
-        "sorted_pack": time_ms(
-            lambda: sorted_pack(proj0, tw, th, tile, win, order="fused"), 10),
-        "k1": k1_ms,
-        "tiles_to_images": time_ms(
-            lambda: tiles_to_images(
-                raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG),
-                WIDTH, HEIGHT, tile), 10) - k1_ms,
-    }
-    log(f"stages of one frame (ms): {json.dumps(stage_ms)}")
-
     # 4. the serving path: frames through render ------------------------------
     def frame(cam):
         return render(cam, WIDTH, HEIGHT, tan, tan, params, state, mesh,
@@ -3543,12 +3534,18 @@ def main() -> int:
     raster_forward_tiles.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    profiling.take_spans()
+    profiling.enable_spans(True)
     t_host = time.perf_counter()
     start.record()
     outs = [frame(c) for c in cams]
     end.record()
     end.synchronize()
     host_ms = (time.perf_counter() - t_host) * 1e3 / N_FRAMES
+    profiling.enable_spans(False)
+    # a frame's stages: host time inside the port's spans over those frames
+    stage_ms = span_ms(profiling.take_spans(), FRAME_SPANS, N_FRAMES)
+    log(f"stages of a frame (host ms inside spans): {json.dumps(stage_ms)}")
     k1_launches = raster_forward_tiles.launches
     frame_ms = start.elapsed_time(end) / N_FRAMES
     if k1_launches != N_FRAMES:

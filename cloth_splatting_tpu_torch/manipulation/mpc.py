@@ -16,6 +16,7 @@ import torch
 
 from cloth_splatting_tpu_torch.manipulation.trajectory_gen import bezier_actions
 from cloth_splatting_tpu_torch.models.cloth_simulator import rollout_batched
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 
 def state_device(sim_state: dict) -> torch.device:
@@ -98,12 +99,14 @@ class MPC:
                 [V], edge_index [2, E], grasped (int).
         Returns [A, h+1, V, 3] predicted positions (host).
         """
-        h = min(horizon or self.H, self.candidates.shape[1])
-        trajs = self._batched_rollout(
-            self.sim_state, features["pos0"], features["velocity_history"],
-            features["node_type"], features["edge_index"],
-            self.candidates[:, :h], features["grasped"], h)
-        return trajs.cpu().numpy()
+        with span("mpc.model_rollout"):
+            h = min(horizon or self.H, self.candidates.shape[1])
+            trajs = self._batched_rollout(
+                self.sim_state, features["pos0"], features["velocity_history"],
+                features["node_type"], features["edge_index"],
+                self.candidates[:, :h], features["grasped"], h)
+            with span("mpc.to_host"):
+                return trajs.cpu().numpy()
 
     # ------------------------------------------------------------------- cost
 

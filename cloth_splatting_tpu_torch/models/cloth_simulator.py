@@ -28,6 +28,7 @@ from cloth_splatting_tpu_torch.models.meshnet import (
     normalizer_apply,
     normalizer_inverse,
 )
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 NODE_TYPES = 2  # cloth, grasped
 
@@ -250,27 +251,29 @@ def rollout_batched(
     [A, S+1, V, 3]."""
     a, v = actions.shape[0], positions0.shape[0]
     dev = positions0.device
-    offsets = torch.arange(a, device=dev) * v
-    edges = (edge_index[:, None, :] + offsets[None, :, None]).reshape(2, -1)
-    types = node_type.repeat(a)
-    handles = int(grasped) + offsets                                 # [A]
-    hist = init_velocity.shape[0]
-    vel_hist = torch.cat([init_velocity[i] for i in range(hist)], -1).repeat(a, 1)
-    pos = positions0.repeat(a, 1)                                    # [A·V, 3]
+    with span("rollout.graph"):
+        offsets = torch.arange(a, device=dev) * v
+        edges = (edge_index[:, None, :] + offsets[None, :, None]).reshape(2, -1)
+        types = node_type.repeat(a)
+        handles = int(grasped) + offsets                             # [A]
+        hist = init_velocity.shape[0]
+        vel_hist = torch.cat([init_velocity[i] for i in range(hist)], -1).repeat(a, 1)
+        pos = positions0.repeat(a, 1)                                # [A·V, 3]
     traj = [pos]
     with torch.no_grad():
         for s in range(min(n_steps, actions.shape[1])):
-            act = actions[:, s]                                      # [A, 3]
-            # each copy's grasped node advances by its action, and its newest
-            # history slot carries the action-induced velocity
-            pos_in = pos.index_put((handles,), pos[handles] + act)
-            vel_in = vel_hist.clone()
-            vel_in[handles, -3:] = act
-            edge_feats = edge_features_from_positions(pos_in, edges)
-            next_vel = predict_velocity(state, vel_in, types, edges, edge_feats,
-                                        normalize=normalize)
-            next_vel = next_vel.index_put((handles,), act)
-            pos = pos + next_vel
-            vel_hist = torch.cat([vel_hist[:, 3:], next_vel], -1)
-            traj.append(pos)
+            with span("rollout.step"):
+                act = actions[:, s]                                  # [A, 3]
+                # each copy's grasped node advances by its action, and its
+                # newest history slot carries the action-induced velocity
+                pos_in = pos.index_put((handles,), pos[handles] + act)
+                vel_in = vel_hist.clone()
+                vel_in[handles, -3:] = act
+                edge_feats = edge_features_from_positions(pos_in, edges)
+                next_vel = predict_velocity(state, vel_in, types, edges, edge_feats,
+                                            normalize=normalize)
+                next_vel = next_vel.index_put((handles,), act)
+                pos = pos + next_vel
+                vel_hist = torch.cat([vel_hist[:, 3:], next_vel], -1)
+                traj.append(pos)
     return torch.stack(traj).reshape(-1, a, v, 3).transpose(0, 1)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from cloth_splatting_tpu_torch.device import resolve_device
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 LATENT = 128
 
@@ -141,20 +142,23 @@ def apply_encode_process_decode(
     n_nodes = node_features.shape[0]
     src, dst = edge_index[0], edge_index[1]
 
-    x = apply_mlp(params["encoder"]["node"], node_features)
-    e = apply_mlp(params["encoder"]["edge"], edge_features)
+    with span("meshnet.encode"):
+        x = apply_mlp(params["encoder"]["node"], node_features)
+        e = apply_mlp(params["encoder"]["edge"], edge_features)
 
-    for block in params["processor"]:
-        # the message of edge j -> i: MLP([x_i, x_j, e]), i the target
-        msg_in = torch.cat([x.index_select(0, dst), x.index_select(0, src), e], -1)
-        msg = apply_mlp(block["edge"], msg_in)
-        msg_agg = msg if edge_mask is None else \
-            torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
-        agg = msg.new_zeros((n_nodes, msg.shape[1])).index_add(0, dst, msg_agg)
-        x = x + apply_mlp(block["node"], torch.cat([agg, x], -1))
-        e = e + msg
+    with span("meshnet.process"):
+        for block in params["processor"]:
+            # the message of edge j -> i: MLP([x_i, x_j, e]), i the target
+            msg_in = torch.cat([x.index_select(0, dst), x.index_select(0, src), e], -1)
+            msg = apply_mlp(block["edge"], msg_in)
+            msg_agg = msg if edge_mask is None else \
+                torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
+            agg = msg.new_zeros((n_nodes, msg.shape[1])).index_add(0, dst, msg_agg)
+            x = x + apply_mlp(block["node"], torch.cat([agg, x], -1))
+            e = e + msg
 
-    return apply_mlp(params["decoder"], x)
+    with span("meshnet.decode"):
+        return apply_mlp(params["decoder"], x)
 
 
 # --------------------------------------------------------------------------- #

@@ -50,6 +50,7 @@ from cloth_splatting_tpu_torch.ops.projection import (
     ALPHA_MIN,
     ProjectedGaussians,
 )
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 PACK16 = 16      # param rows: x y conic(3) rgb(3) opacity depth cut pad(5)
 CHUNK = 128      # instances per compositing chunk
@@ -168,81 +169,82 @@ def sorted_pack(proj: ProjectedGaussians, tw: int, th: int, tile_size: int,
     ``(tile << bits) | (depth bits >> (31 - bits))`` (quantized depth).
     Instances with equal keys keep their expansion order (Gaussian index),
     as under the JAX package's stable ``lax.sort``."""
-    n_tiles = tw * th
-    n = proj.xy.shape[0]
-    dev = proj.xy.device
-    xy, r, valid, depth = proj.xy, proj.radius, proj.valid, proj.depth
-    gidx_all = torch.arange(n, dtype=torch.int32, device=dev)
+    with span("raster.sort_pack"):
+        n_tiles = tw * th
+        n = proj.xy.shape[0]
+        dev = proj.xy.device
+        xy, r, valid, depth = proj.xy, proj.radius, proj.valid, proj.depth
+        gidx_all = torch.arange(n, dtype=torch.int32, device=dev)
 
-    if win <= WIN_SMALL:
-        tile_id, depth_b, gidx = _expand_slots(
-            xy, r, valid, depth, gidx_all, tw, th, tile_size, win)
-        proj_adj = proj
-    else:
-        if big_cap is None:
-            big_cap = round_big_cap(n)
-        small_rmax = (WIN_SMALL - 1) * tile_size / 2.0 - 0.51
-        is_big = (r > small_rmax) & valid
-        score = torch.where(is_big, r, torch.full_like(r, -1.0))
-        # jax.lax.top_k puts the lower index first among equal scores, and
-        # integer radii tie often; torch.topk promises no tie order, so take
-        # a stable descending sort instead.
-        big_idx = torch.sort(score, descending=True, stable=True).indices[:big_cap]
-        big_sel = score[big_idx] > 0.0
-        in_big = torch.zeros(n, dtype=torch.bool, device=dev)
-        in_big[big_idx] = big_sel
+        if win <= WIN_SMALL:
+            tile_id, depth_b, gidx = _expand_slots(
+                xy, r, valid, depth, gidx_all, tw, th, tile_size, win)
+            proj_adj = proj
+        else:
+            if big_cap is None:
+                big_cap = round_big_cap(n)
+            small_rmax = (WIN_SMALL - 1) * tile_size / 2.0 - 0.51
+            is_big = (r > small_rmax) & valid
+            score = torch.where(is_big, r, torch.full_like(r, -1.0))
+            # jax.lax.top_k puts the lower index first among equal scores, and
+            # integer radii tie often; torch.topk promises no tie order, so take
+            # a stable descending sort instead.
+            big_idx = torch.sort(score, descending=True, stable=True).indices[:big_cap]
+            big_sel = score[big_idx] > 0.0
+            in_big = torch.zeros(n, dtype=torch.bool, device=dev)
+            in_big[big_idx] = big_sel
 
-        shrink = is_big & ~in_big
-        r_small = torch.where(shrink, torch.full_like(r, small_rmax), r)
-        cut_adj = torch.where(
-            shrink,
-            proj.power_cut * (small_rmax / torch.clamp_min(r, 1e-6)) ** 2,
-            proj.power_cut)
-        proj_adj = proj._replace(power_cut=cut_adj)
-        tid_s, dep_s, gid_s = _expand_slots(
-            xy, r_small, valid & ~in_big, depth, gidx_all,
-            tw, th, tile_size, WIN_SMALL)
-        tid_b, dep_b, gid_b = _expand_slots(
-            xy[big_idx], r[big_idx], big_sel & valid[big_idx], depth[big_idx],
-            big_idx.to(torch.int32), tw, th, tile_size, win)
-        tile_id = torch.cat([tid_s, tid_b])
-        depth_b = torch.cat([dep_s, dep_b])
-        gidx = torch.cat([gid_s, gid_b])
+            shrink = is_big & ~in_big
+            r_small = torch.where(shrink, torch.full_like(r, small_rmax), r)
+            cut_adj = torch.where(
+                shrink,
+                proj.power_cut * (small_rmax / torch.clamp_min(r, 1e-6)) ** 2,
+                proj.power_cut)
+            proj_adj = proj._replace(power_cut=cut_adj)
+            tid_s, dep_s, gid_s = _expand_slots(
+                xy, r_small, valid & ~in_big, depth, gidx_all,
+                tw, th, tile_size, WIN_SMALL)
+            tid_b, dep_b, gid_b = _expand_slots(
+                xy[big_idx], r[big_idx], big_sel & valid[big_idx], depth[big_idx],
+                big_idx.to(torch.int32), tw, th, tile_size, win)
+            tile_id = torch.cat([tid_s, tid_b])
+            depth_b = torch.cat([dep_s, dep_b])
+            gidx = torch.cat([gid_s, gid_b])
 
-    b = tile_id.shape[0]
-    bounds = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
-    if order == "fused":
-        bits_d = fused_depth_bits(n_tiles)
-        dbits = torch.clamp_min(depth_b, 0.0).view(torch.int32)
-        # clamp_min may keep -0.0 (bit 0x80000000); mask the sign bit so -0.0
-        # keys like +0.0 instead of sorting before tile 0
-        key = (tile_id << bits_d) | ((dbits & 0x7FFFFFFF) >> (31 - bits_d))
-        sorted_key, perm = torch.sort(key, stable=True)
-        edges = torch.searchsorted(sorted_key, bounds << bits_d, right=False)
-    elif order == "exact":
-        key = (tile_id.to(torch.int64) << 32) | _float_order_key(depth_b)
-        sorted_key, perm = torch.sort(key, stable=True)
-        edges = torch.searchsorted(sorted_key, bounds.to(torch.int64) << 32,
-                                   right=False)
-    else:
-        raise ValueError(f"unknown pack order: {order!r}")
-    sorted_gidx = gidx[perm]
-    edges = edges.to(torch.int32)
-    starts = edges[:-1]
-    counts = edges[1:] - starts
+        b = tile_id.shape[0]
+        bounds = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
+        if order == "fused":
+            bits_d = fused_depth_bits(n_tiles)
+            dbits = torch.clamp_min(depth_b, 0.0).view(torch.int32)
+            # clamp_min may keep -0.0 (bit 0x80000000); mask the sign bit so -0.0
+            # keys like +0.0 instead of sorting before tile 0
+            key = (tile_id << bits_d) | ((dbits & 0x7FFFFFFF) >> (31 - bits_d))
+            sorted_key, perm = torch.sort(key, stable=True)
+            edges = torch.searchsorted(sorted_key, bounds << bits_d, right=False)
+        elif order == "exact":
+            key = (tile_id.to(torch.int64) << 32) | _float_order_key(depth_b)
+            sorted_key, perm = torch.sort(key, stable=True)
+            edges = torch.searchsorted(sorted_key, bounds.to(torch.int64) << 32,
+                                       right=False)
+        else:
+            raise ValueError(f"unknown pack order: {order!r}")
+        sorted_gidx = gidx[perm]
+        edges = edges.to(torch.int32)
+        starts = edges[:-1]
+        counts = edges[1:] - starts
 
-    rows_sorted = pack_rows(proj_adj)[sorted_gidx]                   # [B, 16]
-    # pad to a whole number of chunks plus one, as the JAX package does
-    b_pad = ((b + CHUNK - 1) // CHUNK) * CHUNK + CHUNK
-    rows_sorted = torch.cat(
-        [rows_sorted, rows_sorted.new_zeros((b_pad - b, PACK16))])
-    sorted_gidx = torch.cat(
-        [sorted_gidx, torch.full((b_pad - b,), n, dtype=torch.int32, device=dev)])
-    rows16 = rows_sorted.T.contiguous()                               # [16, B_pad]
+        rows_sorted = pack_rows(proj_adj)[sorted_gidx]                   # [B, 16]
+        # pad to a whole number of chunks plus one, as the JAX package does
+        b_pad = ((b + CHUNK - 1) // CHUNK) * CHUNK + CHUNK
+        rows_sorted = torch.cat(
+            [rows_sorted, rows_sorted.new_zeros((b_pad - b, PACK16))])
+        sorted_gidx = torch.cat(
+            [sorted_gidx, torch.full((b_pad - b,), n, dtype=torch.int32, device=dev)])
+        rows16 = rows_sorted.T.contiguous()                               # [16, B_pad]
 
-    aux = RasterAux(n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
-                    max_tile_count=counts.max())
-    return PackedTiles(rows16, starts, counts, sorted_gidx, aux)
+        aux = RasterAux(n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
+                        max_tile_count=counts.max())
+        return PackedTiles(rows16, starts, counts, sorted_gidx, aux)
 
 
 class PlainWalk(NamedTuple):
@@ -735,7 +737,8 @@ def rasterize_tiled_fwd(proj: ProjectedGaussians, width: int, height: int,
         raise ValueError("width/height must be multiples of tile_size")
     tw, th = width // tile_size, height // tile_size
     packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
-    out_t = raster_forward_tiles(packed, width, height, tile_size, bg,
-                                 tiles_per_program, span_cap)
-    rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
+    with span("raster.composite"):
+        out_t = raster_forward_tiles(packed, width, height, tile_size, bg,
+                                     tiles_per_program, span_cap)
+        rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
     return rgb, dep, acc, packed.aux

@@ -67,6 +67,7 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
     tile_and_win,
     tiles_to_images,
 )
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 GCH = 8  # grad-image channels: g_r g_g g_b g_dep g_acc acc u_tot pad
 
@@ -378,9 +379,10 @@ class _TiledTrainRaster(torch.autograd.Function):
                                   radius=radius, color=color, opacity=opacity,
                                   valid=valid, power_cut=power_cut)
         packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
-        out_t, tbounds = raster_forward_train(packed, width, height, tile_size,
-                                              bg, tiles_per_program, span_cap)
-        rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
+        with span("raster.composite"):
+            out_t, tbounds = raster_forward_train(packed, width, height, tile_size,
+                                                  bg, tiles_per_program, span_cap)
+            rgb, dep, acc = tiles_to_images(out_t, width, height, tile_size)
         ctx.save_for_backward(packed.rows16, packed.starts, packed.counts,
                               packed.gauss_idx, tbounds, rgb, dep, acc)
         ctx.geometry = (width, height, tile_size, bg, xy.shape[0],

@@ -44,6 +44,7 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fwd
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import rasterize_tiled_train
 from cloth_splatting_tpu_torch.ops.sh import eval_sh
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 SERVING_BACKEND = "tiled_fwd"
 TRAIN_BACKEND = "tiled_train"
@@ -103,38 +104,39 @@ def project_view(
 ):
     """The front half of ``render``: (ProjectedGaussians, vertices, means3d,
     rotations) for one camera."""
-    if override_vertices is not None:
-        vertices = override_vertices
-        means3d = gaussian_positions(params, state, mesh, vertices)
-        rotations = gaussian_rotations(params, state, mesh, vertices)
-    elif render_static or simulator is None:
-        vertices = mesh.pos
-        means3d = gaussian_positions(params, state, mesh)
-        rotations = quat_normalize(params.rotation)
-    else:
-        vertices = simulate_any(simulator, mesh_predictions, cam.time)
-        means3d = gaussian_positions(params, state, mesh, vertices)
-        rotations = gaussian_rotations(params, state, mesh, vertices)
+    with span("render.project_view"):
+        if override_vertices is not None:
+            vertices = override_vertices
+            means3d = gaussian_positions(params, state, mesh, vertices)
+            rotations = gaussian_rotations(params, state, mesh, vertices)
+        elif render_static or simulator is None:
+            vertices = mesh.pos
+            means3d = gaussian_positions(params, state, mesh)
+            rotations = quat_normalize(params.rotation)
+        else:
+            vertices = simulate_any(simulator, mesh_predictions, cam.time)
+            means3d = gaussian_positions(params, state, mesh, vertices)
+            rotations = gaussian_rotations(params, state, mesh, vertices)
 
-    cov3d = build_covariance(get_scaling(params), rotations, scaling_modifier)
+        cov3d = build_covariance(get_scaling(params), rotations, scaling_modifier)
 
-    if override_color is None:
-        dirs = means3d - cam.camera_center[None, :]
-        dirs = dirs / torch.clamp_min(
-            torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
-        colors = torch.clamp_min(
-            eval_sh(sh_degree, get_features(params), dirs) + 0.5, 0.0)
-    else:
-        colors = override_color
+        if override_color is None:
+            dirs = means3d - cam.camera_center[None, :]
+            dirs = dirs / torch.clamp_min(
+                torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
+            colors = torch.clamp_min(
+                eval_sh(sh_degree, get_features(params), dirs) + 0.5, 0.0)
+        else:
+            colors = override_color
 
-    proj = project_gaussians(means3d, cov3d, colors, get_opacity(params),
-                             cam.world_view, cam.full_proj, width, height,
-                             tanfovx, tanfovy, alive=state.alive)
-    if screen_offset is not None:
-        scale = torch.tensor([width / 2.0, height / 2.0], dtype=proj.xy.dtype,
-                             device=proj.xy.device)
-        proj = proj._replace(xy=proj.xy + screen_offset * scale)
-    return proj, vertices, means3d, rotations
+        proj = project_gaussians(means3d, cov3d, colors, get_opacity(params),
+                                 cam.world_view, cam.full_proj, width, height,
+                                 tanfovx, tanfovy, alive=state.alive)
+        if screen_offset is not None:
+            scale = torch.tensor([width / 2.0, height / 2.0], dtype=proj.xy.dtype,
+                                 device=proj.xy.device)
+            proj = proj._replace(xy=proj.xy + screen_offset * scale)
+        return proj, vertices, means3d, rotations
 
 
 def render(
@@ -180,39 +182,40 @@ def render(
     part of the compositor's epilogue). ``screen_offset`` [C, 2] shifts the
     projected means by ``offset * (W/2, H/2)`` pixels. All tensors must lie
     on ``device``."""
-    dev = resolve_device(device)
-    if backend not in (SERVING_BACKEND, TRAIN_BACKEND, DENSE_BACKEND):
-        raise ValueError(f"unknown backend {backend!r}")
-    check_on(dev, face_bary=params.face_bary, alive=state.alive, mesh_pos=mesh.pos,
-             world_view=cam.world_view)
-    bg = tuple(float(c) for c in bg_color)
-    serving = backend == SERVING_BACKEND
+    with span("render"):
+        dev = resolve_device(device)
+        if backend not in (SERVING_BACKEND, TRAIN_BACKEND, DENSE_BACKEND):
+            raise ValueError(f"unknown backend {backend!r}")
+        check_on(dev, face_bary=params.face_bary, alive=state.alive, mesh_pos=mesh.pos,
+                 world_view=cam.world_view)
+        bg = tuple(float(c) for c in bg_color)
+        serving = backend == SERVING_BACKEND
 
-    with torch.no_grad() if serving else contextlib.nullcontext():
-        proj, vertices, means3d, rotations = project_view(
-            cam, width, height, tanfovx, tanfovy, params, state, mesh, simulator,
-            mesh_predictions, sh_degree, screen_offset=screen_offset,
-            render_static=render_static, scaling_modifier=scaling_modifier,
-            override_color=override_color, override_vertices=override_vertices)
-        full = proj
-        if gather_group is not None:
-            from cloth_splatting_tpu_torch.parallel.mesh import gather_bundle
+        with torch.no_grad() if serving else contextlib.nullcontext():
+            proj, vertices, means3d, rotations = project_view(
+                cam, width, height, tanfovx, tanfovy, params, state, mesh, simulator,
+                mesh_predictions, sh_degree, screen_offset=screen_offset,
+                render_static=render_static, scaling_modifier=scaling_modifier,
+                override_color=override_color, override_vertices=override_vertices)
+            full = proj
+            if gather_group is not None:
+                from cloth_splatting_tpu_torch.parallel.mesh import gather_bundle
 
-            full = gather_bundle(proj, gather_group)
-        if serving:
-            rgb, depth, alpha, aux = rasterize_tiled_fwd(
-                full, width, height, bg, pack_order=pack_order)
-            n_dropped = aux.n_dropped
-        elif backend == DENSE_BACKEND:
-            rgb, depth, alpha, aux = rasterize_tiled(
-                full, width, height, bg, k_cap=k_cap, k_chunk=min(k_chunk, k_cap))
-            n_dropped = aux.n_dropped
-        else:
-            rgb, depth, alpha = rasterize_tiled_train(
-                full, width, height, bg, pack_order=pack_order)
-            n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+                full = gather_bundle(proj, gather_group)
+            if serving:
+                rgb, depth, alpha, aux = rasterize_tiled_fwd(
+                    full, width, height, bg, pack_order=pack_order)
+                n_dropped = aux.n_dropped
+            elif backend == DENSE_BACKEND:
+                rgb, depth, alpha, aux = rasterize_tiled(
+                    full, width, height, bg, k_cap=k_cap, k_chunk=min(k_chunk, k_cap))
+                n_dropped = aux.n_dropped
+            else:
+                rgb, depth, alpha = rasterize_tiled_train(
+                    full, width, height, bg, pack_order=pack_order)
+                n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
-    return RenderOutput(rgb=rgb, depth=depth, alpha=alpha, radii=proj.radius,
-                        visibility=proj.radius > 0, means3d=means3d,
-                        vertices=vertices, rotations=rotations,
-                        projections=proj.xy, n_dropped=n_dropped)
+        return RenderOutput(rgb=rgb, depth=depth, alpha=alpha, radii=proj.radius,
+                            visibility=proj.radius > 0, means3d=means3d,
+                            vertices=vertices, rotations=rotations,
+                            projections=proj.xy, n_dropped=n_dropped)

@@ -59,6 +59,7 @@ from cloth_splatting_tpu_torch.train.config import Config
 from cloth_splatting_tpu_torch.train.step import SplatTrainState, StepCarry, Trainer
 from cloth_splatting_tpu_torch.utils import checkpoints
 from cloth_splatting_tpu_torch.utils.logging import MetricsLogger
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 # the dense tier's k_cap grows no further (the JAX package's limit)
 K_CAP_MAX = 8192
@@ -310,12 +311,16 @@ def host_events(trainer: Trainer, state: SplatTrainState, iteration: int,
     """The host-scheduled events after an iteration's step: density control
     (its split jitter from ``generator``) and the barycentric cleanup, each
     when it is due."""
-    state, overflow = trainer.density_control(state, iteration, generator)
-    if overflow:
-        print(f"[iter {iteration}] densify overflow: {overflow} "
-              f"(capacity {state.params.face_bary.shape[0]})")
-    if iteration % trainer.cfg.opt.bary_cleanup == 0:
-        state = trainer.cleanup_barycentric(state)
+    with span("fit.host_events"):
+        if Trainer.density_control_due(trainer.cfg, iteration):
+            with span("density_control"):
+                state, overflow = trainer.density_control(state, iteration, generator)
+            if overflow:
+                print(f"[iter {iteration}] densify overflow: {overflow} "
+                      f"(capacity {state.params.face_bary.shape[0]})")
+        if iteration % trainer.cfg.opt.bary_cleanup == 0:
+            with span("cleanup_barycentric"):
+                state = trainer.cleanup_barycentric(state)
     return state
 
 
@@ -426,129 +431,134 @@ def fit_banks(
         return st._replace(params=ema_avg[0], sim_params=ema_avg[1])
 
     for iteration in range(first_iter, o.iterations + 1):
-        static = o.static_reconst and iteration < o.static_reconst_iteration
+        with span("fit.iteration", unit=iteration):
+            static = o.static_reconst and iteration < o.static_reconst_iteration
 
-        if viewer_enabled:
-            _poll_viewer(trainer, state, sh_degree, runner if sharded else None)
+            if viewer_enabled:
+                _poll_viewer(trainer, state, sh_degree, runner if sharded else None)
 
-        if iteration % 1000 == 0 and sh_degree < cfg.model.sh_degree:
-            sh_degree += 1
+            if iteration % 1000 == 0 and sh_degree < cfg.model.sh_degree:
+                sh_degree += 1
 
-        knn_active = use_knn and not static and iteration > o.reg_iter
-        if knn_active:
-            cap = state.params.face_bary.shape[0]
-            if (knn_state is None or cap != knn_capacity
-                    or iteration % o.knn_update_iter == 0):
-                knn_state = runner.compute_knn_state(state)
-                knn_capacity = cap
+            knn_active = use_knn and not static and iteration > o.reg_iter
+            if knn_active:
+                cap = state.params.face_bary.shape[0]
+                if (knn_state is None or cap != knn_capacity
+                        or iteration % o.knn_update_iter == 0):
+                    with span("fit.knn"):
+                        knn_state = runner.compute_knn_state(state)
+                    knn_capacity = cap
 
-        vi, t_ids = sample_cameras(sample_rng, iteration, static, n_views,
-                                   n_times, three_steps_batch, o.time_sample)
+            vi, t_ids = sample_cameras(sample_rng, iteration, static, n_views,
+                                       n_times, three_steps_batch, o.time_sample)
 
-        state, metrics, carry = runner.step_banked(
-            state, cam_bank, gt_bank, mask_bank, vi, t_ids,
-            sh_degree=sh_degree, static=static,
-            knn_state=knn_state if knn_active else None, carry=carry)
+            state, metrics, carry = runner.step_banked(
+                state, cam_bank, gt_bank, mask_bank, vi, t_ids,
+                sh_degree=sh_degree, static=static,
+                knn_state=knn_state if knn_active else None, carry=carry)
 
-        if ema_decay > 0.0:
-            cur = (state.params, state.sim_params)
-            if ema_avg is None:
-                ema_avg = cur
-            else:
-                ema_avg = (
-                    G.GaussianParams(*(a * ema_decay + (1.0 - ema_decay) * b
-                                       for a, b in zip(ema_avg[0], cur[0]))),
-                    {k: a * ema_decay + (1.0 - ema_decay) * cur[1][k]
-                     for k, a in ema_avg[1].items()})
+            if ema_decay > 0.0:
+                with span("fit.ema"):
+                    cur = (state.params, state.sim_params)
+                    if ema_avg is None:
+                        ema_avg = cur
+                    else:
+                        ema_avg = (
+                            G.GaussianParams(*(a * ema_decay + (1.0 - ema_decay) * b
+                                               for a, b in zip(ema_avg[0], cur[0]))),
+                            {k: a * ema_decay + (1.0 - ema_decay) * cur[1][k]
+                             for k, a in ema_avg[1].items()})
 
-        host_event = (Trainer.density_control_due(cfg, iteration)
-                      or iteration % o.bary_cleanup == 0)
-        params_before = state.params if (ema_decay > 0.0 and host_event) else None
+            host_event = (Trainer.density_control_due(cfg, iteration)
+                          or iteration % o.bary_cleanup == 0)
+            params_before = state.params if (ema_decay > 0.0 and host_event) else None
 
-        state = host_events(runner, state, iteration, generator)
+            state = host_events(runner, state, iteration, generator)
 
-        if params_before is not None:
-            if state.params.face_bary.shape[0] != params_before.face_bary.shape[0]:
-                # the capacity grew: shapes changed, restart the average
-                ema_avg = (state.params, state.sim_params)
-            else:
-                ema_avg = (_ema_repair(ema_avg[0], params_before, state.params),
-                           ema_avg[1])
+            if params_before is not None:
+                with span("fit.ema"):
+                    if state.params.face_bary.shape[0] != params_before.face_bary.shape[0]:
+                        # the capacity grew: shapes changed, restart the average
+                        ema_avg = (state.params, state.sim_params)
+                    else:
+                        ema_avg = (_ema_repair(ema_avg[0], params_before, state.params),
+                                   ema_avg[1])
 
-        need_fetch = (iteration % progress_every == 0
-                      or iteration in test_iterations
-                      or on_iteration is not None)
-        if need_fetch:
-            # ONE device-to-host copy for everything the host reads
-            fetched = torch.stack([
-                metrics.loss, metrics.psnr, metrics.n_alive.to(torch.float32),
-                carry.ema_loss, carry.ema_psnr,
-                carry.drop_accum.to(torch.float32)]).cpu().tolist()
-            loss, psnr, ema_loss, ema_psnr = (fetched[0], fetched[1],
-                                              fetched[3], fetched[4])
-            n_alive = int(fetched[2])
-            carry = carry._replace(drop_accum=torch.zeros_like(carry.drop_accum))
-            # the dense tier truncates each tile's list at k_cap, which must
-            # never pass silently (K2/K3 have no cap and report 0); two
-            # overflowing ticks in a row double it
-            if fetched[5] > 0:
-                overflow_ticks += 1
-                print(f"[iter {iteration}] WARNING: rasterizer dropped "
-                      f"{int(fetched[5])} tile instances since the last tick "
-                      f"(k_cap={o.raster_k_cap})")
-                if overflow_ticks >= 2 and o.raster_k_cap < K_CAP_MAX:
-                    new_cap = runner.grow_k_cap()
+            need_fetch = (iteration % progress_every == 0
+                          or iteration in test_iterations
+                          or on_iteration is not None)
+            if need_fetch:
+                # ONE device-to-host copy for everything the host reads
+                with span("fit.fetch"):
+                    fetched = torch.stack([
+                        metrics.loss, metrics.psnr, metrics.n_alive.to(torch.float32),
+                        carry.ema_loss, carry.ema_psnr,
+                        carry.drop_accum.to(torch.float32)]).cpu().tolist()
+                loss, psnr, ema_loss, ema_psnr = (fetched[0], fetched[1],
+                                                  fetched[3], fetched[4])
+                n_alive = int(fetched[2])
+                carry = carry._replace(drop_accum=torch.zeros_like(carry.drop_accum))
+                # the dense tier truncates each tile's list at k_cap, which must
+                # never pass silently (K2/K3 have no cap and report 0); two
+                # overflowing ticks in a row double it
+                if fetched[5] > 0:
+                    overflow_ticks += 1
+                    print(f"[iter {iteration}] WARNING: rasterizer dropped "
+                          f"{int(fetched[5])} tile instances since the last tick "
+                          f"(k_cap={o.raster_k_cap})")
+                    if overflow_ticks >= 2 and o.raster_k_cap < K_CAP_MAX:
+                        new_cap = runner.grow_k_cap()
+                        overflow_ticks = 0
+                        print(f"[iter {iteration}] growing raster_k_cap -> {new_cap}")
+                else:
                     overflow_ticks = 0
-                    print(f"[iter {iteration}] growing raster_k_cap -> {new_cap}")
-            else:
-                overflow_ticks = 0
-        if iteration % progress_every == 0 and lead:
-            rate = (iteration - first_iter + 1) / (time_mod.time() - t_start)
-            print(f"[{'static' if static else 'dyn'} {iteration}/{o.iterations}] "
-                  f"loss={ema_loss:.5f} psnr={ema_psnr:.2f} gaussians={n_alive} "
-                  f"({rate:.1f} it/s)")
-            logger.log(iteration, loss=loss, psnr=psnr, ema_loss=ema_loss,
-                       ema_psnr=ema_psnr, n_gaussians=n_alive,
-                       capacity=int(state.params.face_bary.shape[0])
-                       * (runner.m_cols if sharded else 1),
-                       iters_per_sec=rate)
-            if wandb is not None:
-                wandb.log({"loss": loss, "psnr": psnr, "n_gaussians": n_alive},
-                          step=iteration)
-
-        if iteration in test_iterations and test_frames is not None:
-            eval_state = full(with_ema(state))
-            if lead:
-                ev = evaluate_split(
-                    trainer, eval_state, test_frames, white_background,
-                    sh_degree,
-                    save_dir=(os.path.join(out_dir, "test_renders",
-                                           f"iter_{iteration}")
-                              if save_test_images and out_dir else None))
-                print(f"[ITER {iteration}] test psnr={ev['psnr']:.2f} "
-                      f"l1={ev['l1']:.4f}")
-                logger.log(iteration, test_psnr=ev["psnr"], test_l1=ev["l1"])
+            if iteration % progress_every == 0 and lead:
+                rate = (iteration - first_iter + 1) / (time_mod.time() - t_start)
+                print(f"[{'static' if static else 'dyn'} {iteration}/{o.iterations}] "
+                      f"loss={ema_loss:.5f} psnr={ema_psnr:.2f} gaussians={n_alive} "
+                      f"({rate:.1f} it/s)")
+                logger.log(iteration, loss=loss, psnr=psnr, ema_loss=ema_loss,
+                           ema_psnr=ema_psnr, n_gaussians=n_alive,
+                           capacity=int(state.params.face_bary.shape[0])
+                           * (runner.m_cols if sharded else 1),
+                           iters_per_sec=rate)
                 if wandb is not None:
-                    wandb.log({"test_psnr": ev["psnr"], "test_l1": ev["l1"]},
+                    wandb.log({"loss": loss, "psnr": psnr, "n_gaussians": n_alive},
                               step=iteration)
 
-        if iteration in save_iterations:
-            # the saved PLY and mesh are what evaluation scores: averaged
-            # parameters; the resume checkpoints below keep the raw iterate
-            saved = full(with_ema(state))
-            if out_dir:
-                save_scene_checkpoint(out_dir, iteration, trainer, saved)
-            if on_save is not None:
-                on_save(iteration, saved)
+            if iteration in test_iterations and test_frames is not None:
+                eval_state = full(with_ema(state))
+                if lead:
+                    ev = evaluate_split(
+                        trainer, eval_state, test_frames, white_background,
+                        sh_degree,
+                        save_dir=(os.path.join(out_dir, "test_renders",
+                                               f"iter_{iteration}")
+                                  if save_test_images and out_dir else None))
+                    print(f"[ITER {iteration}] test psnr={ev['psnr']:.2f} "
+                          f"l1={ev['l1']:.4f}")
+                    logger.log(iteration, test_psnr=ev["psnr"], test_l1=ev["l1"])
+                    if wandb is not None:
+                        wandb.log({"test_psnr": ev["psnr"], "test_l1": ev["l1"]},
+                                  step=iteration)
 
-        if iteration in checkpoint_iterations and (out_dir or sharded):
-            saved = full(state)
-            if out_dir:
-                path = save_train_checkpoint(out_dir, iteration, saved)
-                print(f"[ITER {iteration}] saved checkpoint {path}")
+            if iteration in save_iterations:
+                # the saved PLY and mesh are what evaluation scores: averaged
+                # parameters; the resume checkpoints below keep the raw iterate
+                saved = full(with_ema(state))
+                if out_dir:
+                    save_scene_checkpoint(out_dir, iteration, trainer, saved)
+                if on_save is not None:
+                    on_save(iteration, saved)
 
-        if on_iteration is not None:
-            on_iteration(iteration, {"loss": loss, "psnr": psnr})
+            if iteration in checkpoint_iterations and (out_dir or sharded):
+                saved = full(state)
+                if out_dir:
+                    path = save_train_checkpoint(out_dir, iteration, saved)
+                    print(f"[ITER {iteration}] saved checkpoint {path}")
+
+            if on_iteration is not None:
+                on_iteration(iteration, {"loss": loss, "psnr": psnr})
 
     logger.close()
     return full(state)

@@ -56,6 +56,7 @@ from cloth_splatting_tpu_torch.utils.checkpoints import (
     restore_like,
     save_pytree,
 )
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 
 def flatten_batch(batch: dict[str, np.ndarray], device: torch.device) -> dict:
@@ -139,21 +140,26 @@ class MeshnetTrainer:
         trainer's draw. With ``group``, one data-parallel step: every rank
         of the group passes the same batch and trains on its rows. Returns
         (state, opt_state, loss as a tensor)."""
-        graph = flatten_batch(batch, self.device)
-        if noise is None:
-            noise = self.draw_noise(batch["velocity"].shape)
-        noise = noise.to(self.device).reshape(graph["velocity"].shape)
-        lr = float(np.float32(self.lr(epoch)))
-        state = self._accumulate(state, graph, noise)
-        b, v = batch["velocity"].shape[:2]
-        rows, local = slice(0, b), graph
-        if group is not None:
-            w, r = dist.get_world_size(group), dist.get_rank(group)
-            rows = slice(r * b // w, (r + 1) * b // w)
-            local = flatten_batch({k: a[rows] for k, a in batch.items()}, self.device)
-        return self._train_step(state, opt_state, local,
-                                noise[rows.start * v:rows.stop * v], lr, future,
-                                group=group, share=(rows.stop - rows.start) / b)
+        with span("gnn.train_step"):
+            with span("gnn.batch_upload"):
+                graph = flatten_batch(batch, self.device)
+                if noise is None:
+                    noise = self.draw_noise(batch["velocity"].shape)
+                noise = noise.to(self.device).reshape(graph["velocity"].shape)
+            lr = float(np.float32(self.lr(epoch)))
+            with span("gnn.normalizers"):
+                state = self._accumulate(state, graph, noise)
+            b, v = batch["velocity"].shape[:2]
+            rows, local = slice(0, b), graph
+            if group is not None:
+                w, r = dist.get_world_size(group), dist.get_rank(group)
+                rows = slice(r * b // w, (r + 1) * b // w)
+                with span("gnn.batch_upload"):
+                    local = flatten_batch({k: a[rows] for k, a in batch.items()},
+                                          self.device)
+            return self._train_step(state, opt_state, local,
+                                    noise[rows.start * v:rows.stop * v], lr, future,
+                                    group=group, share=(rows.stop - rows.start) / b)
 
     def _accumulate(self, state, graph, noise):
         """The normalizers with this batch's first-step statistics added."""
@@ -182,27 +188,30 @@ class MeshnetTrainer:
         leaves = {k: p.detach().requires_grad_() for k, p in flat.items()}
         st = {**state, "gnn": unflat_params(state["gnn"], leaves)}
         with torch.enable_grad():
-            edge_feats = edge_features_from_positions(pos, edge_index)
-            loss = 0.0
-            for f in range(future):
-                pred, target, _ = predict_acceleration(
-                    st, vel, graph["node_type"], edge_index, edge_feats,
-                    target_velocity=target_vel[:, f], normalize=self.normalize,
-                    training=False)
-                loss = loss + torch.mean((pred - target) ** 2) * share
-                if f < future - 1:
-                    acc = (normalizer_inverse(st["out_norm"], pred)
-                           if self.normalize else pred)
-                    vel, edge_feats, pos = update_prediction(
-                        vel, acc, pos, edge_index, actions[:, f], actions[:, f + 1])
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with span("forward"):
+                edge_feats = edge_features_from_positions(pos, edge_index)
+                loss = 0.0
+                for f in range(future):
+                    pred, target, _ = predict_acceleration(
+                        st, vel, graph["node_type"], edge_index, edge_feats,
+                        target_velocity=target_vel[:, f], normalize=self.normalize,
+                        training=False)
+                    loss = loss + torch.mean((pred - target) ** 2) * share
+                    if f < future - 1:
+                        acc = (normalizer_inverse(st["out_norm"], pred)
+                               if self.normalize else pred)
+                        vel, edge_feats, pos = update_prediction(
+                            vel, acc, pos, edge_index, actions[:, f], actions[:, f + 1])
+            with span("backward"):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
         if group is not None:
             from cloth_splatting_tpu_torch.parallel.mesh import Axis, reduce_packed
 
             axis = Axis("world", group, dist.get_world_size(group),
                         dist.get_rank(group))
             loss, *grads = reduce_packed([loss.detach()] + list(grads), axis)
-        new, opt_state = adam_step(flat, dict(zip(leaves, grads)), opt_state, lr)
+        with span("update"):
+            new, opt_state = adam_step(flat, dict(zip(leaves, grads)), opt_state, lr)
         return ({**state, "gnn": unflat_params(state["gnn"], new)}, opt_state,
                 loss.detach())
 

@@ -60,6 +60,7 @@ from cloth_splatting_tpu_torch.train.losses import (
     regularization,
 )
 from cloth_splatting_tpu_torch.train.schedules import expon_lr
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 
 class AdamState(NamedTuple):
@@ -242,40 +243,43 @@ class Trainer:
                 knn_state: KnnState | None = None) -> Forward:
         """Render the camera batch (``cams`` fields stacked [B, ...]) and
         form the loss, with autograd recording."""
-        o = self.cfg.opt
-        cap = state.params.face_bary.shape[0]
-        params = G.GaussianParams(*(p.detach().requires_grad_() for p in state.params))
-        simulator, sim = None, None
-        if not static:
-            simulator = simulator_from_params(state.sim_params)
-            sim = dict(simulator.named_parameters())
-        screen_offset = torch.zeros((cap, 2), dtype=torch.float32,
-                                    device=self.device, requires_grad=True)
+        with span("forward"):
+            o = self.cfg.opt
+            cap = state.params.face_bary.shape[0]
+            params = G.GaussianParams(*(p.detach().requires_grad_() for p in state.params))
+            simulator, sim = None, None
+            if not static:
+                simulator = simulator_from_params(state.sim_params)
+                sim = dict(simulator.named_parameters())
+            screen_offset = torch.zeros((cap, 2), dtype=torch.float32,
+                                        device=self.device, requires_grad=True)
 
-        outs = []
-        for b in range(cams.time.shape[0]):
-            cam = CameraArrays(*(f[b] for f in cams))
-            outs.append(render(
-                cam, self.width, self.height, self.tanfovx, self.tanfovy,
-                params, state.gstate, self.mesh, simulator,
-                self.mesh_predictions, self.bg, sh_degree,
-                screen_offset=screen_offset, render_static=static,
-                k_cap=o.raster_k_cap, k_chunk=o.raster_k_chunk,
-                backend=self.backend, pack_order=o.raster_pack_order,
-                device=self.device))
-        images = torch.stack([out.rgb for out in outs])              # [B, 3, H, W]
-        loss, ldict = self.batch_loss(
-            images, gt_images, masks, torch.stack([out.vertices for out in outs]),
-            cams.time, static, knn_state,
-            lambda: (torch.stack([out.means3d for out in outs]),
-                     torch.stack([out.rotations for out in outs])))
-        with torch.no_grad():
-            return Forward(
-                loss=loss, params=params, sim=sim, screen_offset=screen_offset,
-                psnr=psnr(images, gt_images).mean(), l1=ldict["l1"].detach(),
-                radii=torch.stack([out.radii for out in outs]).amax(dim=0),
-                visibility=torch.stack([out.visibility for out in outs]).any(dim=0),
-                n_dropped=torch.stack([out.n_dropped for out in outs]).sum())
+            outs = []
+            for b in range(cams.time.shape[0]):
+                cam = CameraArrays(*(f[b] for f in cams))
+                outs.append(render(
+                    cam, self.width, self.height, self.tanfovx, self.tanfovy,
+                    params, state.gstate, self.mesh, simulator,
+                    self.mesh_predictions, self.bg, sh_degree,
+                    screen_offset=screen_offset, render_static=static,
+                    k_cap=o.raster_k_cap, k_chunk=o.raster_k_chunk,
+                    backend=self.backend, pack_order=o.raster_pack_order,
+                    device=self.device))
+            images = torch.stack([out.rgb for out in outs])          # [B, 3, H, W]
+            with span("loss"):
+                loss, ldict = self.batch_loss(
+                    images, gt_images, masks,
+                    torch.stack([out.vertices for out in outs]), cams.time, static,
+                    knn_state,
+                    lambda: (torch.stack([out.means3d for out in outs]),
+                             torch.stack([out.rotations for out in outs])))
+            with torch.no_grad():
+                return Forward(
+                    loss=loss, params=params, sim=sim, screen_offset=screen_offset,
+                    psnr=psnr(images, gt_images).mean(), l1=ldict["l1"].detach(),
+                    radii=torch.stack([out.radii for out in outs]).amax(dim=0),
+                    visibility=torch.stack([out.visibility for out in outs]).any(dim=0),
+                    n_dropped=torch.stack([out.n_dropped for out in outs]).sum())
 
     def batch_loss(self, images: torch.Tensor, gt_images: torch.Tensor,
                    masks: torch.Tensor | None, vertices: torch.Tensor,
@@ -308,46 +312,48 @@ class Trainer:
     def backward(fwd: Forward):
         """(Gaussian grads, simulator grads or None, screen-offset grad);
         leaves the loss does not reach get zeros."""
-        leaves = list(fwd.params) + ([] if fwd.sim is None else list(fwd.sim.values()))
-        leaves.append(fwd.screen_offset)
-        grads = torch.autograd.grad(fwd.loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
-        n = len(fwd.params)
-        g_grads = G.GaussianParams(*grads[:n])
-        sim_grads = None if fwd.sim is None else dict(zip(fwd.sim, grads[n:-1]))
-        return g_grads, sim_grads, grads[-1]
+        with span("backward"):
+            leaves = list(fwd.params) + ([] if fwd.sim is None else list(fwd.sim.values()))
+            leaves.append(fwd.screen_offset)
+            grads = torch.autograd.grad(fwd.loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads)]
+            n = len(fwd.params)
+            g_grads = G.GaussianParams(*grads[:n])
+            sim_grads = None if fwd.sim is None else dict(zip(fwd.sim, grads[n:-1]))
+            return g_grads, sim_grads, grads[-1]
 
     @torch.no_grad()
     def update(self, state: SplatTrainState, fwd: Forward, grads
                ) -> tuple[SplatTrainState, StepMetrics]:
         """Density statistics, the Gaussian Adam and (unless static) the
         simulator Adam; returns the new state and the step's metrics."""
-        g_grads, sim_grads, screen_grad = grads
-        gstate = G.add_densification_stats(
-            state.gstate, torch.linalg.norm(screen_grad, dim=-1), fwd.radii,
-            fwd.visibility)
+        with span("update"):
+            g_grads, sim_grads, screen_grad = grads
+            gstate = G.add_densification_stats(
+                state.gstate, torch.linalg.norm(screen_grad, dim=-1), fwd.radii,
+                fwd.visibility)
 
-        g_updates, g_opt = adam_update(g_grads, state.g_opt, 0.9, 0.999, 1e-15)
-        new_params = G.GaussianParams(*(
-            p - lr * u for p, u, lr in zip(state.params, g_updates,
-                                           self._lr_tree(state.step))))
+            g_updates, g_opt = adam_update(g_grads, state.g_opt, 0.9, 0.999, 1e-15)
+            new_params = G.GaussianParams(*(
+                p - lr * u for p, u, lr in zip(state.params, g_updates,
+                                               self._lr_tree(state.step))))
 
-        if sim_grads is None:
-            new_sim, sim_opt = state.sim_params, state.sim_opt
-        else:
-            sim_updates, sim_opt = adam_update(
-                {k: sim_grads[k] for k in state.sim_params}, state.sim_opt,
-                0.9, 0.999, 1e-8)
-            sim_lr = self.cfg.meshnet.lr_init * self._tail_mult(state.step)
-            new_sim = {k: p - sim_lr * sim_updates[k]
-                       for k, p in state.sim_params.items()}
+            if sim_grads is None:
+                new_sim, sim_opt = state.sim_params, state.sim_opt
+            else:
+                sim_updates, sim_opt = adam_update(
+                    {k: sim_grads[k] for k in state.sim_params}, state.sim_opt,
+                    0.9, 0.999, 1e-8)
+                sim_lr = self.cfg.meshnet.lr_init * self._tail_mult(state.step)
+                new_sim = {k: p - sim_lr * sim_updates[k]
+                           for k, p in state.sim_params.items()}
 
-        new_state = SplatTrainState(new_params, gstate, g_opt, new_sim, sim_opt,
-                                    state.step + 1)
-        metrics = StepMetrics(loss=fwd.loss.detach(), psnr=fwd.psnr, l1=fwd.l1,
-                              n_alive=G.num_alive(gstate), n_dropped=fwd.n_dropped)
-        return new_state, metrics
+            new_state = SplatTrainState(new_params, gstate, g_opt, new_sim, sim_opt,
+                                        state.step + 1)
+            metrics = StepMetrics(loss=fwd.loss.detach(), psnr=fwd.psnr, l1=fwd.l1,
+                                  n_alive=G.num_alive(gstate), n_dropped=fwd.n_dropped)
+            return new_state, metrics
 
     def step(self, state: SplatTrainState, cams: CameraArrays,
              gt_images: torch.Tensor, masks: torch.Tensor | None,

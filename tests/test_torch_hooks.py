@@ -8,7 +8,7 @@
     ``--mesh`` raises; the command line runs with the viewer, wandb, quiet,
     anomaly and single-camera-video flags;
   - ``utils/logging.py`` and ``utils/profiling.py``: the adapters, timers,
-    timestamped stdout, seeding, traces and the NaN checks;
+    timestamped stdout, seeding, spans and the NaN checks;
   - ``data/predictions.py``: the files equal to the JAX writers' (positions,
     faces and edges exactly, normals within 1e-6); the GNN rollout's files
     are held in ``tests/test_torch_gnn.py``.
@@ -262,14 +262,21 @@ def test_logging_hooks(tmp_path, monkeypatch):
     assert draws[0] == draws[1]
 
 
-def test_profiling_hooks(tmp_path):
-    with tprof.trace(str(tmp_path / "trace")):
-        with tprof.step_annotation("step"):
+def test_profiling_hooks():
+    tprof.take_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tprof.span("step"):
             torch.ones(4).sum()
-    assert os.listdir(tmp_path / "trace")
-    timer = tprof.StepTimer()
-    timer.start()
-    assert timer.stop() >= 0.0 and timer.avg_ms is not None
+    assert "step" in {e.name for e in prof.events()}
+    tprof.enable_spans(True)
+    try:
+        with tprof.span("step", unit=5):
+            torch.ones(4).sum()
+    finally:
+        tprof.enable_spans(False)
+    (rec,) = tprof.take_spans()
+    assert (rec.name, rec.parent, rec.unit) == ("step", None, 5)
+    assert rec.end_ns >= rec.start_ns
 
     tprof.enable_debug_checks()
     try:
