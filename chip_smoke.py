@@ -99,8 +99,10 @@ Phases, each of which raises on failure:
      estimation mesh of a 12x12 cloth, 5 views of 96x96, 150 static and
      200 refine steps), planning with the GNN the gnn phase trained:
      ``MPC.model_rollout`` on the card against the CPU (positions within
-     1e-5; ms per call); one ``mpc-cs`` episode of 3 steps (max_steps cut
-     from 20) through the in-memory path, with K2 and K3 launched once per
+     1e-5: the eager first call, the call that captures the CUDA graph and
+     a replay; ms per call; one eager call, one capture, then replays); one
+     ``mpc-cs`` episode of 3 steps (max_steps cut from 20) through the
+     in-memory path, with K2 and K3 launched once per
      camera of every refiner step and no other kernel, finite costs and a
      finite refined history [4, 64, 3]; the same episode again, bit for bit
      (costs, history, every tensor of the refiner's state); K2 and K3
@@ -2298,19 +2300,35 @@ def planning_rollout_vs_cpu(sim_state: dict, gpu: str, dev) -> dict:
             for name, s in (("card", sim_state), ("cpu", gnn_state_on(sim_state, "cpu")))}
     for m in mpcs.values():
         m.init_sampler(1.0, 1, pick[[0, 2, 1]], place[[0, 2, 1]], c["traj_len"])
-    card, cpu = (mpcs[k].model_rollout(feats) for k in ("card", "cpu"))
-    err = float(np.abs(card - cpu).max())
-    shape = list(card.shape)
+    # the card's first call runs eagerly, the second captures its CUDA graph
+    # and replays it, the third replays it
+    cpu = mpcs["cpu"].model_rollout(feats)
+    cards = [mpcs["card"].model_rollout(feats) for _ in range(3)]
+    errs = [float(np.abs(card - cpu).max()) for card in cards]
+    err = max(errs)
+    shape = list(cards[1].shape)
     if shape != [c["n_candidates"], c["horizon"] + 1, c["num_samples"], 3] \
-            or not np.isfinite(card).all() or not err <= TOL_PLAN_ROLLOUT:
-        raise RuntimeError(f"planning: the card's candidate rollouts {shape} are "
-                           f"{err} from the CPU's (limit {TOL_PLAN_ROLLOUT})")
+            or not all(np.isfinite(card).all() for card in cards) \
+            or not err <= TOL_PLAN_ROLLOUT:
+        raise RuntimeError(f"planning: the card's candidate rollouts {shape} (eager, "
+                           f"captured call, replay) are {errs} from the CPU's (limit "
+                           f"{TOL_PLAN_ROLLOUT})")
     ms, host_ms, _ = timed_calls(lambda f: mpcs["card"].model_rollout(f),
                                  [feats] * PLAN_ROLLOUT_REPS)
-    log(f"planning: model_rollout [{shape}] card vs CPU {err:.3g}, {ms:.3f} ms "
-        f"(device), {host_ms:.3f} ms (host) per call [{gpu}]")
-    return {"shape": shape, "card_vs_cpu_pos_max_abs": err, "limit": TOL_PLAN_ROLLOUT,
-            "ms_per_call": ms, "host_ms_per_call": host_ms, "calls": PLAN_ROLLOUT_REPS}
+    graphs = mpcs["card"].rollouts
+    counts = {"captures": graphs.captures, "replays": graphs.replays,
+              "eager": graphs.eager}
+    calls = PLAN_ROLLOUT_REPS + 3
+    if counts != ({"captures": 1, "replays": calls - 2, "eager": 1} if dev.type == "cuda"
+                  else {"captures": 0, "replays": 0, "eager": calls}):
+        raise RuntimeError(f"planning: model_rollout on the card counted {counts}")
+    log(f"planning: model_rollout [{shape}] card vs CPU {errs[0]:.3g} (eager), "
+        f"{errs[1]:.3g} (captured call), {errs[2]:.3g} (replay), {ms:.3f} ms (device), "
+        f"{host_ms:.3f} ms (host) per call, {counts} [{gpu}]")
+    return {"shape": shape, "card_vs_cpu_pos_max_abs": err,
+            "eager_captured_and_replay_vs_cpu": errs, "limit": TOL_PLAN_ROLLOUT,
+            "ms_per_call": ms, "host_ms_per_call": host_ms, "calls": PLAN_ROLLOUT_REPS,
+            "graph_calls": counts}
 
 
 def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:

@@ -7,21 +7,145 @@ order), rolls all of them out through the GNN at once
 (``models.cloth_simulator.rollout_batched``: one graph of A·V nodes on the
 state's device) and scores each by the mean squared distance of its final
 predicted state to the goal.
+
+On a CUDA state a rollout whose shapes and state repeat runs as a captured
+CUDA graph (``RolloutGraphs``): its ~700 small kernels a step are one launch
+a call from the host, which otherwise spends ~10x the device's time
+dispatching them. On the CPU it runs eagerly.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from cloth_splatting_tpu_torch.manipulation.trajectory_gen import bezier_actions
 from cloth_splatting_tpu_torch.models.cloth_simulator import rollout_batched
+from cloth_splatting_tpu_torch.models.meshnet import flat_params
 from cloth_splatting_tpu_torch.utils.profiling import span
 
 
 def state_device(sim_state: dict) -> torch.device:
     """The device a GNN simulator state lives on."""
     return sim_state["out_norm"].acc_sum.device
+
+
+def state_leaves(sim_state: dict) -> list[torch.Tensor]:
+    """Every tensor of a GNN simulator state: the parameter tree's leaves in
+    its order, then the two normalizers' fields."""
+    return list(flat_params([sim_state["gnn"], sim_state["node_norm"],
+                             sim_state["out_norm"]]).values())
+
+
+def rollout_key(sim_state: dict, inputs: tuple, n_steps: int, normalize: bool) -> tuple:
+    """What a captured rollout bakes in: the state's device, the shapes and
+    dtypes of the inputs (A, V, E, history and steps among them),
+    ``n_steps``, ``normalize`` and each state leaf's identity (address,
+    shape, strides). A state whose tensors are replaced gets another key;
+    one updated in place keeps its key."""
+    return (str(state_device(sim_state)),
+            tuple((x.shape, x.dtype) for x in inputs), int(n_steps), bool(normalize),
+            tuple((t.data_ptr(), t.shape, t.stride()) for t in state_leaves(sim_state)))
+
+
+class CapturedRollout:
+    """``rollout_batched`` captured as one CUDA graph over static device
+    buffers: ``inputs`` (pos0, velocity history, node type, edge index,
+    actions, the grasped node as a 0-d tensor) and ``out`` [A, h+1, V, 3].
+    It holds the state's leaves it captured, so none of their addresses is
+    freed and reused while the graph lives."""
+
+    def __init__(self, sim_state: dict, host: tuple, n_steps: int, normalize: bool):
+        """Capture the rollout of ``host``'s shapes; it wants a warm process
+        (lazy initialisation, cuBLAS workspaces): an eager call of the same
+        shapes first. Captured on a side stream with ``capture_begin`` and
+        ``capture_end`` rather than ``torch.cuda.graph``, whose entry
+        synchronizes and releases the allocator's cached blocks, which the
+        planner's refiner then has to allocate again."""
+        dev = state_device(sim_state)
+        self.leaves = state_leaves(sim_state)
+        self.inputs = [torch.as_tensor(x, device=dev) for x in host]
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin()
+            try:
+                self.out = rollout_batched(sim_state, *self.inputs, n_steps,
+                                           normalize=normalize)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def replay(self, host: tuple) -> torch.Tensor:
+        """The rollout of ``host``'s inputs: the static output, valid until
+        the next replay."""
+        for buf, x in zip(self.inputs, host):
+            buf.copy_(torch.from_numpy(x))
+        self.graph.replay()
+        return self.out
+
+
+# keys an MPC keeps: a planner's candidates at its horizon, its one-step
+# prediction, and the shorter horizons of a plan's last steps
+GRAPHS_KEPT = 4
+
+
+def eager_rollout(sim_state: dict, host: tuple, n_steps: int, normalize: bool
+                  ) -> torch.Tensor:
+    """``rollout_batched`` of the host arrays, op by op."""
+    dev = state_device(sim_state)
+    return rollout_batched(sim_state, *(torch.as_tensor(x, device=dev) for x in host),
+                           n_steps, normalize=normalize)
+
+
+class RolloutGraphs:
+    """``rollout_batched`` for an MPC. On a CUDA state a key
+    (``rollout_key``) runs eagerly on its first call, is captured
+    (``CapturedRollout``) and replayed on its second, and is replayed on
+    every later call: a key called once costs no capture. The
+    ``GRAPHS_KEPT`` most recently used keys are kept, seen or captured. A
+    CPU state runs eagerly. ``captures``, ``replays`` and ``eager`` count
+    the calls of each kind."""
+
+    def __init__(self):
+        self.graphs: OrderedDict[tuple, CapturedRollout | None] = OrderedDict()
+        self.captures = self.replays = self.eager = 0
+
+    def insert(self, key: tuple, entry: CapturedRollout | None) -> None:
+        """Keep ``entry`` under ``key`` as the most recently used, dropping
+        the least recently used key beyond ``GRAPHS_KEPT``."""
+        self.graphs[key] = entry
+        self.graphs.move_to_end(key)
+        while len(self.graphs) > GRAPHS_KEPT:
+            self.graphs.popitem(last=False)
+
+    def __call__(self, sim_state: dict, host: tuple, n_steps: int,
+                 normalize: bool) -> torch.Tensor:
+        """Rollouts [A, n_steps + 1, V, 3] on the state's device of the host
+        arrays ``host`` = (pos0 [V, 3] float32, velocity history
+        [hist, V, 3] float32, node type [V] int64, edge index [2, E] int64,
+        actions [A, n_steps, 3] float32, grasped node () int64)."""
+        if state_device(sim_state).type == "cuda":
+            key = rollout_key(sim_state, host, n_steps, normalize)
+            seen = key in self.graphs
+            entry = self.graphs.get(key)
+            if entry is not None:
+                self.insert(key, entry)
+                with span("rollout.replay"):
+                    self.replays += 1
+                    return entry.replay(host)
+            if seen:
+                with span("rollout.capture"):
+                    entry = CapturedRollout(sim_state, host, n_steps, normalize)
+                    self.insert(key, entry)
+                    self.captures += 1
+                    return entry.replay(host)
+            self.insert(key, None)
+        self.eager += 1
+        return eager_rollout(sim_state, host, n_steps, normalize)
 
 
 class MPC:
@@ -37,20 +161,24 @@ class MPC:
         self.candidates: np.ndarray | None = None   # [A, steps, 3]
         self.step_idx = 0
         self.device = state_device(sim_state)
+        self.rollouts = RolloutGraphs()
 
     def _batched_rollout(self, sim_state, pos0, init_vel, node_type, edge_index,
                          actions_batch, grasped, n_steps) -> torch.Tensor:
         """Rollouts [A, n_steps + 1, V, 3] on the state's device of the
         candidates ``actions_batch`` [A, >= n_steps, 3]; the arguments of the
-        JAX package's jitted function, as host arrays."""
-        def t(x, dtype):
-            return torch.as_tensor(np.asarray(x, dtype), device=self.device)
+        JAX package's jitted function, as host arrays. On a CUDA state the
+        result may be a captured graph's output, overwritten by the next
+        call of the same shapes: copy it out first."""
+        n_steps = min(int(n_steps), np.shape(actions_batch)[1])
 
-        return rollout_batched(
-            sim_state, t(pos0, np.float32), t(init_vel, np.float32),
-            t(node_type, np.int64), t(edge_index, np.int64),
-            t(actions_batch, np.float32), int(grasped), n_steps,
-            normalize=self.normalize)
+        def a(x, dtype):
+            return np.ascontiguousarray(x, dtype)
+
+        host = (a(pos0, np.float32), a(init_vel, np.float32), a(node_type, np.int64),
+                a(edge_index, np.int64), a(np.asarray(actions_batch)[:, :n_steps], np.float32),
+                a(grasped, np.int64))
+        return self.rollouts(sim_state, host, n_steps, self.normalize)
 
     # ------------------------------------------------------------- candidates
 

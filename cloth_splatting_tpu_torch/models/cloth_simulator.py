@@ -239,7 +239,7 @@ def rollout_batched(
     node_type: torch.Tensor,         # [V]
     edge_index: torch.Tensor,        # [2, E]
     actions: torch.Tensor,           # [A, S, 3] each candidate's actions
-    grasped: int,
+    grasped: int | torch.Tensor,     # an int, or a 0-d integer tensor on the device
     n_steps: int,
     normalize: bool = True,
 ) -> torch.Tensor:
@@ -247,7 +247,9 @@ def rollout_batched(
     of the JAX package's ``jax.vmap`` of ``rollout`` over candidates. The A
     copies of the graph run as one graph of A·V nodes (copy a's edges offset
     by a·V, its grasped node ``grasped + a·V`` moved by its own action), so
-    each GNN step is one pass over A·V nodes. Returns positions
+    each GNN step is one pass over A·V nodes. Nothing reads a device value
+    back to the host, so the whole call can be captured as a CUDA graph (a
+    tensor ``grasped`` is read on the device). Returns positions
     [A, S+1, V, 3]."""
     a, v = actions.shape[0], positions0.shape[0]
     dev = positions0.device
@@ -255,7 +257,7 @@ def rollout_batched(
         offsets = torch.arange(a, device=dev) * v
         edges = (edge_index[:, None, :] + offsets[None, :, None]).reshape(2, -1)
         types = node_type.repeat(a)
-        handles = int(grasped) + offsets                             # [A]
+        handles = offsets + grasped                                  # [A]
         hist = init_velocity.shape[0]
         vel_hist = torch.cat([init_velocity[i] for i in range(hist)], -1).repeat(a, 1)
         pos = positions0.repeat(a, 1)                                # [A·V, 3]
