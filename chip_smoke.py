@@ -141,13 +141,22 @@ Phases, each of which raises on failure:
      Trainer's step from the same state (metrics 1e-4, face_bary 5e-5,
      grad_accum 1e-3 / 1e-7; the timed run's drift from the Trainer's run
      reported; a shared-card check, not a multi-card speed) and the GNN cut
-     (16 samples a rank; loss 1e-5).
+     (16 samples a rank; loss 1e-5);
+ 17. points: ``models.point_gaussians.render_points`` without a gradient on
+     the benchmark's gs-360-3m field (3.0M free-xyz Gaussians, SH 3,
+     uncapped splats) at 1237x822, whose last column and row of 32 px tiles
+     are partial: K1 launched once a frame and nothing else, the frame
+     bit-identical to K1's output of its pack, which holds every instance
+     the frame's binning emitted and agrees with K1's plain walk within
+     1e-5 (depth: 1e-5 of the deepest Gaussian's); K1 alone on that pack,
+     its bound, registers and blocks an SM.
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
 {"dense": ...} line, the parity line, a {"parity": ...} line, a {"gnn": ...}
 line, a {"planning": ...} line, a {"legacy": ...} line, a {"sweep": ...}
-line, a {"mesh": ...} line, a {"kernels": [...]} line and, last,
+line, a {"mesh": ...} line, a {"points": ...} line, a {"kernels": [...]}
+line and, last,
 {"ok": true, "device": ...}. Exits non-zero and prints no
 result when CUDA is unavailable, when the port package is missing, or when
 any phase fails. Imports nothing of JAX.
@@ -529,7 +538,8 @@ def kernel_alone_ms(fn, kernel: str, iters: int = 20,
     return total_us / 1e3 / count, count
 
 
-def function_bytes(kernel: str, stats: dict, n_tiles: int, p: int) -> int:
+def function_bytes(kernel: str, stats: dict, n_tiles: int, p: int,
+                   pixels: int | None = None) -> int:
     """The bytes ``kernel``'s function moves on a pack, each input read once
     and each output written once, from the plain walk's statistics: the 11
     rows of every instance walked (the live slots of the chunks the walk
@@ -540,10 +550,12 @@ def function_bytes(kernel: str, stats: dict, n_tiles: int, p: int) -> int:
     chunk. K3 and K4 read the started chunks' boundaries and the channels of
     the grad image they use (K3 seven, g_r g_g g_b g_dep g_acc acc U_tot; K4
     six, without U_tot) and write ten gradient rows per instance walked: the
-    other slots of grads [16, B_pad] are zeros that the wrapper allocates."""
+    other slots of grads [16, B_pad] are zeros that the wrapper allocates.
+    ``pixels``: the frame's, where partial tiles leave some of the
+    ``n_tiles * p`` unwritten (K1 only)."""
     walked = stats["instances_walked"] * 11 + n_tiles * (2 if kernel == "K1" else 3)
     if kernel in ("K1", "K2"):
-        pixels = n_tiles * p * 5
+        pixels = (n_tiles * p if pixels is None else pixels) * 5
         if kernel == "K2":
             pixels += stats["chunks_laid"] * p
         return 4 * (walked + pixels)
@@ -552,14 +564,15 @@ def function_bytes(kernel: str, stats: dict, n_tiles: int, p: int) -> int:
                 + n_tiles * p * grad_channels + stats["chunks_started"] * p)
 
 
-def bound(stats: dict, kernel: str, n_tiles: int, p: int) -> dict:
+def bound(stats: dict, kernel: str, n_tiles: int, p: int,
+          pixels: int | None = None) -> dict:
     """The least time the card could take for ``kernel``'s function on a
     pack: the larger of its fp32 operations (on the pairs this pack's data
     finds alive) at the fp32 peak and its bytes (``function_bytes``) at the
     memory rate."""
     ops = stats["pairs_contributing"] * (OPS_PER_WALKED_PAIR
                                          + OPS_PER_CONTRIBUTING_PAIR[kernel])
-    n_bytes = function_bytes(kernel, stats, n_tiles, p)
+    n_bytes = function_bytes(kernel, stats, n_tiles, p, pixels)
     ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
     return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -593,15 +606,21 @@ def span_counts(packed, n_tiles: int, span, kernel: str) -> dict:
             "window_slots_per_cta": window_slots(cap, c)}
 
 
-def compare_k1(packed, width, height, tile_size, label: str, span=None):
+def compare_k1(packed, width, height, tile_size, label: str, span=None,
+               depth_scale: float = 1.0):
     """(max abs difference of K1 and its plain version, walk statistics) on
     one pack; raises above TOL_PLAIN, on non-finite output, or on nonzero
     padding rows. With ``span`` = (tiles_per_program, span_cap) it is
     K1-span against its plain version, the statistics carry the programs'
-    branch counts and whether the output is bit-identical to K1's."""
+    branch counts and whether the output is bit-identical to K1's. The
+    pixels of partial tiles outside the frame, which the kernels leave
+    unwritten, are zeroed on both sides first. The depth channel is held to
+    TOL_PLAIN x ``depth_scale``: its rounding grows with the depths
+    composited (1 for the cloth scenes, whose depths are ~4)."""
     import torch
 
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
+        pixel_coords,
         raster_forward_tiles,
         raster_forward_tiles_plain,
         walk_stats,
@@ -610,11 +629,20 @@ def compare_k1(packed, width, height, tile_size, label: str, span=None):
     name = "K1" if span is None else "K1-span"
     label += span_label(span)
     opts = () if span is None else tuple(span)
+    px, py = pixel_coords(width, tile_size, packed.starts.numel(),
+                          packed.rows16.device)
+    off_frame = ((px >= width) | (py >= height)).permute(0, 2, 1)    # [T, 1, p]
+
+    def composite(*args):
+        return raster_forward_tiles(packed, width, height, tile_size, BG,
+                                    *args).masked_fill(off_frame, 0.0)
+
     n_before = raster_forward_tiles.span_launches
-    out_k = raster_forward_tiles(packed, width, height, tile_size, BG, *opts)
+    out_k = composite(*opts)
     torch.cuda.synchronize()
     out_p, walk = raster_forward_tiles_plain(packed, width, height, tile_size,
                                              BG, *opts)
+    out_p = out_p.masked_fill(off_frame, 0.0)
     if not bool(torch.isfinite(out_k).all()):
         raise RuntimeError(f"{name} {label}: non-finite output")
     if float(out_k[:, 5:8].abs().max()) != 0.0:
@@ -626,11 +654,11 @@ def compare_k1(packed, width, height, tile_size, label: str, span=None):
         if raster_forward_tiles.span_launches != n_before + 1:
             raise RuntimeError(f"{name} {label}: the span kernel was not launched")
         stats["programs"] = span_counts(packed, out_k.shape[0], span, "fwd")
-        stats["bit_identical_to_k1"] = bool(torch.equal(
-            out_k, raster_forward_tiles(packed, width, height, tile_size, BG)))
+        stats["bit_identical_to_k1"] = bool(torch.equal(out_k, composite()))
     log(f"{name} vs plain [{label}] max|diff| {json.dumps(errs)} walk "
         f"{json.dumps(stats)}")
-    bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN}
+    bad = {ch: e for ch, e in errs.items()
+           if not e <= TOL_PLAIN * (depth_scale if ch == "depth" else 1.0)}
     if bad:
         raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     return max(errs.values()), stats
@@ -1140,7 +1168,7 @@ def wide_phase(gen, dev) -> dict:
 
     size, ts = WIDE_SIZE, 32
     packed = sorted_pack(deep_proj(20000, size, size, gen, dev), size // ts,
-                         size // ts, ts, 3, order="exact")
+                         size // ts, ts, order="exact")
     label = f"deep {size}px/{ts}px tiles"
     e1, s1 = compare_k1(packed, size, size, ts, label, WIDE_SPAN)
     e2, s2, out_k, tb_k = compare_k2(packed, size, size, ts, label, WIDE_SPAN)
@@ -2353,7 +2381,7 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
         closed_loop_planning,
     )
     from cloth_splatting_tpu_torch.models.deform import simulator_from_params
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_and_win
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_size_for
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         raster_forward_train,
         raster_forward_train_plain,
@@ -2414,8 +2442,8 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
                             state.params, state.gstate, trainer.mesh,
                             simulator_from_params(state.sim_params),
                             trainer.mesh_predictions, 0)[0]
-    tile, win = tile_and_win(size, size)
-    pack = sorted_pack(proj, size // tile, size // tile, tile, win,
+    tile = tile_size_for(size, size)
+    pack = sorted_pack(proj, size // tile, size // tile, tile,
                        order=trainer.cfg.opt.raster_pack_order)
     label = f"planning refiner {size}px"
     k2_err, stats, out_k, tb_k = compare_k2(pack, size, size, tile, label)
@@ -2535,6 +2563,7 @@ def legacy_render_set(params, state, cams, size: int, sh_degree: int, k_cap: int
     import torch
 
     from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.projection import MAX_SPLAT_RADIUS
     from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
 
     tan = math.tan(LEGACY_FOV / 2)
@@ -2542,7 +2571,7 @@ def legacy_render_set(params, state, cams, size: int, sh_degree: int, k_cap: int
     with torch.no_grad():
         for cam in cams:
             proj = PG.project_points_view(params, state, cam, size, size, tan, tan,
-                                          sh_degree)
+                                          sh_degree, max_radius=MAX_SPLAT_RADIUS)
             rgb, _, _, aux = rasterize_tiled(proj, size, size, (1.0, 1.0, 1.0),
                                              k_cap=k_cap, k_chunk=32)
             images.append(torch.clamp(rgb, 0.0, 1.0))
@@ -2584,6 +2613,8 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     from cloth_splatting_tpu_torch.data.legacy import dnerf_init_cloud
     from cloth_splatting_tpu_torch.models import point_gaussians as PG
     from cloth_splatting_tpu_torch.ops.image import psnr
+    from cloth_splatting_tpu_torch.ops.projection import MAX_SPLAT_RADIUS
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
     from cloth_splatting_tpu_torch.render import camera_arrays
     from cloth_splatting_tpu_torch.train.losses import image_losses
 
@@ -2607,8 +2638,11 @@ def legacy_phase(gpu: str, dev=None) -> dict:
                                       cloud.colors, LEGACY_SH, device=dev)
     last = (LEGACY_ITERATIONS - 1) % LEGACY_TRAIN_CAMS
     with torch.no_grad():
-        rgb0 = PG.render_points(p0, s0, train_cams[last], size, size, tan, tan,
-                                (1.0, 1.0, 1.0), LEGACY_SH, k_cap=LEGACY_K_CAP)[0]
+        # the fit's own renderer: the dense tier at its k_cap, splats capped
+        proj0 = PG.project_points_view(p0, s0, train_cams[last], size, size, tan, tan,
+                                       LEGACY_SH, max_radius=MAX_SPLAT_RADIUS)
+        rgb0 = rasterize_tiled(proj0, size, size, (1.0, 1.0, 1.0), k_cap=LEGACY_K_CAP,
+                               k_chunk=32)[0]
         loss0 = float(image_losses(rgb0[None], train_gts[last][None], 0.2)[0])
     img0, drop0 = legacy_render_set(p0, s0, test_cams, size, LEGACY_SH, LEGACY_K_CAP)
     psnr0 = float(psnr(img0, test_gts).mean())
@@ -2688,6 +2722,7 @@ def legacy_vs_cpu(ref, cloud, dev) -> dict:
 
     from cloth_splatting_tpu_torch.models import point_gaussians as PG
     from cloth_splatting_tpu_torch.ops.image import psnr
+    from cloth_splatting_tpu_torch.ops.projection import MAX_SPLAT_RADIUS
     from cloth_splatting_tpu_torch.ops.rasterize.tiled import DEPTH_BUCKETS, rasterize_tiled
     from cloth_splatting_tpu_torch.ops.sort import quantize_depth
     from cloth_splatting_tpu_torch.render import camera_arrays
@@ -2705,7 +2740,8 @@ def legacy_vs_cpu(ref, cloud, dev) -> dict:
                                           cloud.colors, LEGACY_SH, device=where)
         with torch.no_grad():
             projs[where.type] = PG.project_points_view(p0, s0, wc[0], size, size,
-                                                       tan, tan, LEGACY_SH)
+                                                       tan, tan, LEGACY_SH,
+                                                       max_radius=MAX_SPLAT_RADIUS)
         params, state, loss = PG.fit_static_scene(
             wc, wg, cloud, size, size, tan, tan, sh_degree=LEGACY_SH,
             iterations=LEGACY_SMALL_ITERATIONS, seed=SEED, k_cap=LEGACY_K_CAP,
@@ -3283,6 +3319,103 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
     return record, launches
 
 
+# the plain 3DGS serving path at the benchmark's gs-360-3m configuration: a
+# fixed camera of its orbit-360 ranges (azimuth, elevation rad, radius)
+POINTS_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "benchmark", "configs", "gs-360-3m.json")
+POINTS_CAMERA = (0.7, 0.25, 3.6)
+POINTS_FRAMES = 5
+
+
+def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
+    """``models.point_gaussians.render_points`` without a gradient on the
+    gs-360-3m field (3.0M free-xyz Gaussians drawn from SEED as the
+    benchmark's ``render-gs360`` cell draws them, SH 3, uncapped splats) at
+    1237x822, 39 x 26 tiles of 32 px whose last column and row are partial:
+    one frame with the launch counters set to 0 just before and read just
+    after (K1 once, nothing else), the pack of that frame made again and
+    holding as many instances as the frame's binning emitted, K1 on it
+    bit-identical to the frame and within TOL_PLAIN of its plain walk (the
+    depth channel relative to the deepest Gaussian); then
+    K1 alone on that pack (torch.profiler), its bound on the frame's pixels,
+    its registers and blocks an SM (the one K1 instance the 65k entry also
+    reads), and ms a frame over POINTS_FRAMES frames (CUDA events)."""
+    import torch
+
+    from benchmark.drivers.render_points import camera, make_field
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.rasterize import tiled_fwd as TF
+    from cloth_splatting_tpu_torch.render import CameraArrays
+
+    dev = dev or torch.device("cuda")
+    with open(POINTS_CONFIG) as f:
+        cfg = json.load(f)
+    img = cfg["image"]
+    w, h, sh = img["width"], img["height"], cfg["sh_degree"]
+    tan_x = img["tan_half_fov_x"]
+    tan_y = tan_x * h / w
+    bg = tuple(float(c) for c in img["background"])
+    n = cfg["gaussians"]
+    params = PG.PointGaussianParams(**make_field(cfg, SEED, dev))
+    state = PG.PointGaussianState(
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        max_radii2d=torch.zeros(n, device=dev), grad_accum=torch.zeros(n, device=dev),
+        denom=torch.zeros(n, device=dev))
+    cam_m = camera(POINTS_CAMERA, tan_x, tan_y, dev)
+    cam = CameraArrays(world_view=cam_m["world_view"], full_proj=cam_m["full_proj"],
+                       camera_center=cam_m["center"],
+                       time=torch.zeros((), device=dev))
+
+    def frame():
+        return PG.render_points(params, state, cam, w, h, tan_x, tan_y, bg, sh)[0]
+
+    frame()                                  # warm-up (allocator, the build)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    emitted = TF.COUNTS["instances"]
+    rgb = frame()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    emitted = TF.COUNTS["instances"] - emitted
+    if launches != {**dict.fromkeys(launches, 0), "K1": 1}:
+        raise RuntimeError(f"points frame launched {launches}")
+
+    tile = TF.tile_size_for(w, h)
+    tw, th = TF.tile_grid(w, h, tile)
+    with torch.no_grad():
+        proj = PG.project_points_view(params, state, cam, w, h, tan_x, tan_y, sh)
+    packed = TF.sorted_pack(proj, tw, th, tile, order="exact")
+    instances = int(packed.counts.to(torch.int64).sum())
+    if instances != emitted:
+        raise RuntimeError(f"points pack holds {instances} instances, the frame's "
+                           f"binning emitted {emitted}")
+    label = f"gs-360-3m {w}x{h}"
+    # the field's depths reach ~55 (the background shell): its depth channel
+    # is held to TOL_PLAIN relative to the deepest valid Gaussian
+    depth_scale = max(1.0, float(proj.depth[proj.valid].max()))
+    err, stats = compare_k1(packed, w, h, tile, label, depth_scale=depth_scale)
+    out_k = TF.raster_forward_tiles(packed, w, h, tile, bg)
+    if not torch.equal(rgb, TF.tiles_to_images(out_k, w, h, tile)[0]):
+        raise RuntimeError(f"{label}: render_points' frame is not K1's output")
+    del out_k
+    ms = time_ms(lambda: TF.raster_forward_tiles(packed, w, h, tile, bg), 20)
+    kernel_ms, records = kernel_alone_ms(
+        lambda: TF.raster_forward_tiles(packed, w, h, tile, bg), "K1")
+    b = bound(stats, "K1", tw * th, tile * tile, pixels=w * h)
+    frame_ms = timed_calls(lambda _: frame(), range(POINTS_FRAMES))[0]
+    record = {"gaussians": n, "valid": int(proj.valid.sum()), "width": w,
+              "height": h, "tile": tile, "tiles": tw * th, "instances": instances,
+              "launches": launches["K1"],
+              "max_abs_err": err, "depth_scale": depth_scale, "walk": stats, "ms": ms, "kernel_ms": kernel_ms,
+              "kernel_ms_records": records, "bound_ms": b["bound_ms"],
+              "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / kernel_ms,
+              "registers": (usage.get(KERNEL_ENTRIES["K1"]) or {}).get("registers"),
+              "blocks_per_sm": occupancy["K1"], "frame_ms": frame_ms, "gpu": gpu}
+    log(f"points serving path [{label}]: {json.dumps(record)}")
+    del params, state, proj, packed, rgb
+    torch.cuda.empty_cache()
+    return record
+
 
 def build_scenes(dev):
     """The main paths' scenes at full width: the 65k serving scene of the
@@ -3301,7 +3434,7 @@ def build_scenes(dev):
     from cloth_splatting_tpu_torch.models import gaussians as G
     from cloth_splatting_tpu_torch.models.deform import init_residual_simulator
     from cloth_splatting_tpu_torch.ops.camera import Camera
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_and_win
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_size_for
     from cloth_splatting_tpu_torch.render import camera_arrays, project_view
 
     tan = math.tan(FOV / 2.0)
@@ -3314,7 +3447,7 @@ def build_scenes(dev):
     cams = [camera_arrays(orbit_camera(v, N_FRAMES, FOV, WIDTH, HEIGHT,
                                        float(times[v])), device=dev)
             for v in range(N_FRAMES)]
-    tile, win = tile_and_win(WIDTH, HEIGHT)
+    tile = tile_size_for(WIDTH, HEIGHT)
 
     def project(cam):
         with torch.no_grad():
@@ -3329,12 +3462,12 @@ def build_scenes(dev):
     with torch.no_grad():
         t_proj = project_view(t_cam, WIDTH, HEIGHT, tan, tan, t_params, t_state,
                               mesh, simulator, preds, 1)[0]
-    train_pack = sorted_pack(t_proj, WIDTH // tile, HEIGHT // tile, tile, win,
+    train_pack = sorted_pack(t_proj, WIDTH // tile, HEIGHT // tile, tile,
                              order="fused")
     return types.SimpleNamespace(
         serving=serving, tan=tan, mesh=mesh, params=params, state=state,
         simulator=simulator,
-        preds=preds, cams=cams, project=project, tile=tile, win=win,
+        preds=preds, cams=cams, project=project, tile=tile,
         t_proj=t_proj, train_pack=train_pack)
 
 
@@ -3393,7 +3526,7 @@ def main() -> int:
     sc = build_scenes(dev)
     tan, mesh, params, state = sc.tan, sc.mesh, sc.params, sc.state
     simulator, preds, cams, project = sc.simulator, sc.preds, sc.cams, sc.project
-    tile, win, t_proj, train_pack = sc.tile, sc.win, sc.t_proj, sc.train_pack
+    tile, t_proj, train_pack = sc.tile, sc.t_proj, sc.train_pack
     tw, th = WIDTH // tile, HEIGHT // tile
     n_tiles = tw * th
     p = tile * tile
@@ -3405,7 +3538,7 @@ def main() -> int:
     k1_err = k2_err = k3_err = k3_rel = 0.0
     packs = []
     for v in (0, 3):
-        packed = sorted_pack(project(cams[v]), tw, th, tile, win, order="fused")
+        packed = sorted_pack(project(cams[v]), tw, th, tile, order="fused")
         err, stats = compare_k1(packed, WIDTH, HEIGHT, tile, f"65k view {v}")
         k1_err = max(k1_err, err)
         packs.append((packed, stats))
@@ -3418,9 +3551,9 @@ def main() -> int:
     err, rel = compare_k3(train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile,
                           "65k train cam 0")
     k3_err, k3_rel = max(k3_err, err), max(k3_rel, *rel.values())
-    serve16 = sorted_pack(project(cams[0]), WIDTH // 16, HEIGHT // 16, 16, 5,
+    serve16 = sorted_pack(project(cams[0]), WIDTH // 16, HEIGHT // 16, 16,
                           order="fused")
-    train16 = sorted_pack(t_proj, WIDTH // 16, HEIGHT // 16, 16, 5, order="fused")
+    train16 = sorted_pack(t_proj, WIDTH // 16, HEIGHT // 16, 16, order="fused")
     cull_cases = [("65k view 0", "K1 and K1-span", packs[0][0], WIDTH, HEIGHT,
                    tile, None),
                   ("65k view 0 at 16 px", "K1 and K1-span", serve16, WIDTH,
@@ -3433,8 +3566,7 @@ def main() -> int:
     deep_cases = []
     for ts, size, n in ((32, 256, 20000), (16, 128, 6000)):
         proj = deep_proj(n, size, size, gen, dev)
-        packed = sorted_pack(proj, size // ts, size // ts, ts,
-                             3 if ts == 32 else 5, order="exact")
+        packed = sorted_pack(proj, size // ts, size // ts, ts, order="exact")
         label = f"deep {size}px/{ts}px tiles"
         err, stats = compare_k1(packed, size, size, ts, label)
         if stats["tiles_exited_early"] == 0:
@@ -3670,6 +3802,10 @@ def main() -> int:
     del sweep_scene1, sweep_lone
     print(json.dumps({"mesh": mesh_rec}))
 
+    # 17. the plain 3DGS serving path at gs-360-3m ----------------------------
+    points = points_phase(gpu, usage, occupancy)
+    print(json.dumps({"points": points}))
+
     log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
 
@@ -3748,9 +3884,14 @@ def main() -> int:
                               "eval": eval_launches, "bench": bench_launches["K1"],
                               "parity": parity_launches["K1"],
                               "sweep": sweep_launches["K1"],
-                              "mesh": mesh_launches["K1"]},
+                              "mesh": mesh_launches["K1"],
+                              "points": points["launches"]},
                              k1_err, k1_ms, k1_plain_ms, k1_bound),
                        "K1", cull["65k view 0"])
+    # K1 on the gs-360-3m frame: partial tiles, uncapped splats, ~10M instances
+    k1_entry["at_points_shape"] = {k: points[k] for k in (
+        "instances", "max_abs_err", "depth_scale", "ms", "kernel_ms", "kernel_ms_records",
+        "bound_ms", "bound_by", "share_of_bound", "registers", "blocks_per_sm")}
     k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
                              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                              "cloth_splatting_tpu/ops/rasterize/pallas_train.py:104",
@@ -3766,9 +3907,11 @@ def main() -> int:
     k2_entry["at_planning_shape"] = planning_k["K2"]
     # K1, K2, K3 over the serving frames, the Trainer steps, the fit, the
     # eval splits (K1), the bench, the parity run, (K2, K3) the planning
-    # episode and the sweep (K1: its final evaluation); the span kernels over one span turn of the A/B's frames and
+    # episode and the sweep (K1: its final evaluation), K1 over the points
+    # frame; the span kernels over one span turn of the A/B's frames and
     # steps. K2 and K3 also carry their readings at the planning refiner's
-    # 96 px shape (at_planning_shape: error, times, bound, launches)
+    # 96 px shape (at_planning_shape: error, times, bound, launches), K1 at
+    # the gs-360-3m frame's (at_points_shape)
     print(json.dumps({"kernels": [
         k1_entry,
         clustered(entry("K1-span tiled_fwd_span compositor, one window per program",

@@ -244,7 +244,12 @@ struct GlobalStage {
 // over the tile's live instances in order, stopping after the first chunk
 // at which max over the tile's pixels of T is <= 1e-4 (a tile-wide vote).
 // Writes out [n_tiles, 8, p]: r, g, b + bg (1 - sum w), depth, alpha =
-// sum w, then three zero rows. kRecord (K2) also stores every pixel's T at
+// sum w, then three zero rows. The frame is width x height pixels: a pixel
+// of a partial tile outside it starts with T = 0, so every update leaves its
+// sums as they are and its T never holds the exit vote, and it is not
+// written. kRecord (K2 and K2-span) takes whole tiles only, and then width
+// and height are not read.
+// kRecord (K2) also stores every pixel's T at
 // the start of each chunk it walks to tb[(offset + ci) * p + pixel], and
 // zeros for the tile's chunks after the exit, so "never started" reads as
 // "max boundary is 0". Both are pixel-index-major, as K3 and K4 read them.
@@ -270,9 +275,9 @@ template <int PPT, bool kRecord, typename Stage = GlobalStage>
 __device__ __forceinline__ void composite_tile_patched(
     int tile, const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ offsets, const float* __restrict__ rows16,
-    float* __restrict__ out, float* __restrict__ tb, int tw, int64_t b_pad,
-    float bg0, float bg1, float bg2, float (*sh)[kChunk], float4* boxes,
-    Stage stage = Stage{}) {
+    float* __restrict__ out, float* __restrict__ tb, int tw, int width,
+    int height, int64_t b_pad, float bg0, float bg1, float bg2,
+    float (*sh)[kChunk], float4* boxes, Stage stage = Stage{}) {
   using M = PatchMap<PPT>;
   constexpr int kQ = M::kQ;
   constexpr int p = M::kTile * M::kTile;
@@ -300,10 +305,13 @@ __device__ __forceinline__ void composite_tile_patched(
   const float patch_y0 = static_cast<float>(oy + M::patch_y(warp));
   const float patch_y1 = patch_y0 + static_cast<float>(M::kH - 1);
 
+  bool inside[PPT];
   float T[PPT], acc_r[PPT], acc_g[PPT], acc_b[PPT], acc_d[PPT], acc_w[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    T[i] = 1.0f;
+    inside[i] = kRecord || (ox + M::quad_x(warp, lane) + i % kQ < width &&
+                            oy + M::quad_y(warp, lane) + i / kQ < height);
+    T[i] = inside[i] ? 1.0f : 0.0f;
     acc_r[i] = acc_g[i] = acc_b[i] = acc_d[i] = acc_w[i] = 0.0f;
   }
 
@@ -380,6 +388,7 @@ __device__ __forceinline__ void composite_tile_patched(
   float* o = out + static_cast<int64_t>(tile) * 8 * p;
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
+    if (!inside[i]) continue;
     const int pix = patch_pixel<PPT>(warp, lane, i);
     const float t_final = 1.0f - acc_w[i];
     o[0 * p + pix] = acc_r[i] + t_final * bg0;

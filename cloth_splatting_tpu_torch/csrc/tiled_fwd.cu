@@ -65,12 +65,13 @@ template <int PPT>
 __global__ void __launch_bounds__(kThreads)
 tiled_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ counts,
                  const float* __restrict__ rows16, float* __restrict__ out,
-                 int tw, int64_t b_pad, float bg0, float bg1, float bg2) {
+                 int tw, int width, int height, int64_t b_pad, float bg0,
+                 float bg1, float bg2) {
   __shared__ float sh[kRows][kChunk];
   __shared__ float4 boxes[kChunk];
   composite::composite_tile_patched<PPT, false>(
-      blockIdx.x, starts, counts, nullptr, rows16, out, nullptr, tw, b_pad,
-      bg0, bg1, bg2, sh, boxes);
+      blockIdx.x, starts, counts, nullptr, rows16, out, nullptr, tw, width,
+      height, b_pad, bg0, bg1, bg2, sh, boxes);
 }
 
 // K1-span: K1's walk of this CTA's tile, from the cluster's window when its
@@ -80,8 +81,8 @@ __global__ void __launch_bounds__(kThreads)
 tiled_fwd_span_kernel(const int* __restrict__ starts,
                       const int* __restrict__ counts,
                       const float* __restrict__ rows16, float* __restrict__ out,
-                      int tw, int64_t b_pad, float bg0, float bg1, float bg2,
-                      int tpp, int span_cap) {
+                      int tw, int width, int height, int64_t b_pad, float bg0,
+                      float bg1, float bg2, int tpp, int span_cap) {
   extern __shared__ __align__(128) float window[];
   __shared__ float sh[kRows][kChunk];
   __shared__ float4 boxes[kChunk];
@@ -90,8 +91,8 @@ tiled_fwd_span_kernel(const int* __restrict__ starts,
       starts, counts, rows16, b_pad, tpp, span_cap, window, &bar,
       [&](int tile, auto stage) {
         composite::composite_tile_patched<PPT, false>(
-            tile, starts, counts, nullptr, rows16, out, nullptr, tw, b_pad, bg0,
-            bg1, bg2, sh, boxes, stage);
+            tile, starts, counts, nullptr, rows16, out, nullptr, tw, width,
+            height, b_pad, bg0, bg1, bg2, sh, boxes, stage);
       });
 }
 
@@ -99,12 +100,15 @@ tiled_fwd_span_kernel(const int* __restrict__ starts,
 
 // Launches K1 on `stream`. Pointers are device pointers to contiguous
 // starts/counts i32 [n_tiles], rows16 f32 [16, b_pad] and out f32
-// [n_tiles, 8, tile_size^2]. Returns cudaGetLastError() after the launch
+// [n_tiles, 8, tile_size^2]; the frame is width x height pixels on tiles of
+// tw per row (the last row and column of tiles may be partial: the walk is
+// clipped to the frame). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported tile_size).
 extern "C" int tiled_fwd_launch(const void* starts, const void* counts,
                                 const void* rows16, void* out, int n_tiles,
-                                int tw, int64_t b_pad, int tile_size, float bg0,
-                                float bg1, float bg2, void* stream) {
+                                int tw, int width, int height, int64_t b_pad,
+                                int tile_size, float bg0, float bg1, float bg2,
+                                void* stream) {
   if (n_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* st = static_cast<const int*>(starts);
@@ -112,11 +116,11 @@ extern "C" int tiled_fwd_launch(const void* starts, const void* counts,
   const float* rows = static_cast<const float*>(rows16);
   float* o = static_cast<float*>(out);
   if (tile_size == 32) {
-    tiled_fwd_kernel<4><<<n_tiles, kThreads, 0, s>>>(st, ct, rows, o, tw, b_pad,
-                                                     bg0, bg1, bg2);
+    tiled_fwd_kernel<4><<<n_tiles, kThreads, 0, s>>>(st, ct, rows, o, tw, width,
+                                                     height, b_pad, bg0, bg1, bg2);
   } else if (tile_size == 16) {
-    tiled_fwd_kernel<1><<<n_tiles, kThreads, 0, s>>>(st, ct, rows, o, tw, b_pad,
-                                                     bg0, bg1, bg2);
+    tiled_fwd_kernel<1><<<n_tiles, kThreads, 0, s>>>(st, ct, rows, o, tw, width,
+                                                     height, b_pad, bg0, bg1, bg2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -147,9 +151,10 @@ extern "C" int tiled_fwd_blocks_per_sm(int tile_size) {
 // arguments it cannot take).
 extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
                                      const void* rows16, void* out, int n_tiles,
-                                     int tw, int64_t b_pad, int tile_size,
-                                     float bg0, float bg1, float bg2, int tpp,
-                                     int span_cap, void* stream) {
+                                     int tw, int width, int height, int64_t b_pad,
+                                     int tile_size, float bg0, float bg1,
+                                     float bg2, int tpp, int span_cap,
+                                     void* stream) {
   if (n_tiles <= 0) return 0;
   if (!composite::span_args_ok(n_tiles, b_pad, tpp, span_cap) ||
       !composite::bulk_rows_ok(rows16, b_pad))
@@ -161,12 +166,12 @@ extern "C" int tiled_fwd_span_launch(const void* starts, const void* counts,
   float* o = static_cast<float*>(out);
   if (tile_size == 32)
     return composite::launch_span_cluster(tiled_fwd_span_kernel<4>, n_tiles, tpp,
-                                          span_cap, s, st, ct, rows, o, tw, b_pad,
-                                          bg0, bg1, bg2);
+                                          span_cap, s, st, ct, rows, o, tw, width,
+                                          height, b_pad, bg0, bg1, bg2);
   if (tile_size == 16)
     return composite::launch_span_cluster(tiled_fwd_span_kernel<1>, n_tiles, tpp,
-                                          span_cap, s, st, ct, rows, o, tw, b_pad,
-                                          bg0, bg1, bg2);
+                                          span_cap, s, st, ct, rows, o, tw, width,
+                                          height, b_pad, bg0, bg1, bg2);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

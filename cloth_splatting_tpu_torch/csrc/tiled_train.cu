@@ -108,6 +108,8 @@
 // so K4 stores as K3 does; the TPU kernel's gradient window read-back and
 // its shared-chunk read-modify-write have no counterpart.
 
+#include <climits>
+
 #include "composite.cuh"
 
 namespace {
@@ -155,8 +157,8 @@ tiled_fwd_train_kernel(const int* __restrict__ starts,
   __shared__ float sh[kRows][kChunk];
   __shared__ float4 boxes[kChunk];
   composite::composite_tile_patched<PPT, true>(
-      blockIdx.x, starts, counts, offsets, rows16, out, tb, tw, b_pad, bg0,
-      bg1, bg2, sh, boxes);
+      blockIdx.x, starts, counts, offsets, rows16, out, tb, tw, INT_MAX,
+      INT_MAX, b_pad, bg0, bg1, bg2, sh, boxes);
 }
 
 // K2-span: K2's walk of this CTA's tile, from the cluster's window when its
@@ -178,8 +180,8 @@ tiled_fwd_train_span_kernel(const int* __restrict__ starts,
       starts, counts, rows16, b_pad, tpp, span_cap, window, &bar,
       [&](int tile, auto stage) {
         composite::composite_tile_patched<PPT, true>(
-            tile, starts, counts, offsets, rows16, out, tb, tw, b_pad, bg0,
-            bg1, bg2, sh, boxes, stage);
+            tile, starts, counts, offsets, rows16, out, tb, tw, INT_MAX,
+            INT_MAX, b_pad, bg0, bg1, bg2, sh, boxes, stage);
       });
 }
 

@@ -9,13 +9,21 @@ and split into free slots, an ``alive`` mask, no dynamic shapes).
 
 Initialization as the reference's ``create_from_pcd``: SH DC from the
 points' colours, log-scales ``log(sqrt(clamp(mean 3-NN squared distance,
-1e-7)))``, identity quaternions, opacity logit of 0.1. ``render_points``
-goes through the dense tier (``ops/rasterize/tiled.py``), as the JAX
-package's goes through its XLA tier; no kernel of the port runs here.
+1e-7)))``, identity quaternions, opacity logit of 0.1.
+
+The projection is the published one: a splat's 3-sigma radius is not
+capped (``project_gaussians(max_radius=None)``), where the cloth field caps
+it at 24 px; ``fit_static_scene``, which trains through the dense tier,
+keeps that cap. ``render_points`` serves through the serving rasterizer
+(``ops/rasterize/tiled_fwd.py``: exact binning of every (tile, Gaussian)
+pair, any frame size, K1 on the card) when no leaf needs a gradient, and
+through the dense tier (``ops/rasterize/tiled.py``), as the JAX package's
+goes through its XLA tier, when one does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -30,14 +38,17 @@ from cloth_splatting_tpu_torch.models.gaussians import (
 from cloth_splatting_tpu_torch.ops.image import inverse_sigmoid
 from cloth_splatting_tpu_torch.ops.knn import mean_knn_sq_dist
 from cloth_splatting_tpu_torch.ops.projection import (
+    MAX_SPLAT_RADIUS,
     ProjectedGaussians,
     build_covariance,
     project_gaussians,
 )
 from cloth_splatting_tpu_torch.ops.quaternion import quat_to_rotmat
 from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
+from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fwd
 from cloth_splatting_tpu_torch.ops.sh import eval_sh, rgb_to_sh, sh_to_rgb
 from cloth_splatting_tpu_torch.ops.smallmat import bmv3
+from cloth_splatting_tpu_torch.utils.profiling import span
 
 
 class PointGaussianParams(NamedTuple):
@@ -212,29 +223,49 @@ def add_densification_stats(state: PointGaussianState, xy_grad_norm: torch.Tenso
 
 def project_points_view(params: PointGaussianParams, state: PointGaussianState,
                         cam, width: int, height: int, tanfovx: float,
-                        tanfovy: float, sh_degree: int) -> ProjectedGaussians:
+                        tanfovy: float, sh_degree: int,
+                        max_radius: float | None = None) -> ProjectedGaussians:
     """The front half of ``render_points``: SH colours and the EWA
-    projection of the free-xyz model from one camera (``CameraArrays``)."""
-    dirs = params.xyz - cam.camera_center[None]
-    dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
-    colors = torch.clamp_min(eval_sh(sh_degree, get_features(params), dirs) + 0.5, 0.0)
-    cov = build_covariance(get_scaling(params), params.rotation)
-    return project_gaussians(params.xyz, cov, colors, get_opacity(params)[:, 0],
-                             cam.world_view, cam.full_proj, width, height,
-                             tanfovx, tanfovy, alive=state.alive)
+    projection of the free-xyz model from one camera (``CameraArrays``);
+    ``max_radius`` None is the published rule, a splat's whole 3-sigma
+    support."""
+    with span("points.project_view"):
+        dirs = params.xyz - cam.camera_center[None]
+        dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                                      1e-8)
+        colors = torch.clamp_min(eval_sh(sh_degree, get_features(params), dirs) + 0.5,
+                                 0.0)
+        cov = build_covariance(get_scaling(params), params.rotation)
+        return project_gaussians(params.xyz, cov, colors, get_opacity(params)[:, 0],
+                                 cam.world_view, cam.full_proj, width, height,
+                                 tanfovx, tanfovy, alive=state.alive,
+                                 max_radius=max_radius)
 
 
 def render_points(params: PointGaussianParams, state: PointGaussianState, cam,
                   width: int, height: int, tanfovx: float, tanfovy: float,
                   bg_color: Sequence[float] | torch.Tensor, sh_degree: int,
-                  k_cap: int = 256, k_chunk: int = 32):
-    """Render the free-xyz model from one camera through the dense tier
-    (per-tile list capacity ``k_cap``, chunk ``k_chunk``): (rgb [3, H, W],
-    depth [1, H, W], radii [C]); differentiable."""
-    proj = project_points_view(params, state, cam, width, height, tanfovx,
-                               tanfovy, sh_degree)
-    rgb, depth, _, _ = rasterize_tiled(proj, width, height, bg_color,
-                                       k_cap=k_cap, k_chunk=k_chunk)
+                  k_cap: int = 256, k_chunk: int = 32,
+                  max_radius: float | None = None):
+    """Render the free-xyz model from one camera: (rgb [3, H, W], depth
+    [1, H, W], radii [C]); splats uncapped unless ``max_radius`` is given.
+
+    When no leaf of ``params`` needs a gradient, the serving rasterizer
+    (every (tile, Gaussian) pair binned, sorted by exact depth, composited
+    by K1 on the card and by its plain walk on the CPU) without autograd;
+    otherwise the dense tier (per-tile list capacity ``k_cap``, chunk
+    ``k_chunk``), differentiable."""
+    serving = not (torch.is_grad_enabled() and any(p.requires_grad for p in params))
+    with span("points.render"), torch.no_grad() if serving else contextlib.nullcontext():
+        proj = project_points_view(params, state, cam, width, height, tanfovx,
+                                   tanfovy, sh_degree, max_radius)
+        if serving:
+            bg = tuple(float(c) for c in bg_color)
+            rgb, depth, _, _ = rasterize_tiled_fwd(proj, width, height, bg,
+                                                   pack_order="exact")
+        else:
+            rgb, depth, _, _ = rasterize_tiled(proj, width, height, bg_color,
+                                               k_cap=k_cap, k_chunk=k_chunk)
     return rgb, depth, proj.radius
 
 
@@ -249,7 +280,10 @@ def fit_static_scene(cams, gts, point_cloud, width: int, height: int,
     ground-truth images [3, H, W] in [0, 1] on ``device``: camera
     ``it % len(cams)`` at iteration ``it``, the L1 + 0.2 D-SSIM loss, and
     Adam (eps 1e-15) with the reference's per-group learning rates; no
-    density control. Returns (params, state, the last iteration's loss)."""
+    density control. It renders through the dense tier, whose tiles hold
+    ``k_cap`` instances, so splats keep the cloth field's 24 px cap, as the
+    JAX package's fit does. Returns (params, state, the last iteration's
+    loss)."""
     from cloth_splatting_tpu_torch.train.losses import image_losses
     from cloth_splatting_tpu_torch.train.step import adam_init, adam_update
 
@@ -268,7 +302,8 @@ def fit_static_scene(cams, gts, point_cloud, width: int, height: int,
         i = it % len(cams)
         leaves = PointGaussianParams(*(p.detach().requires_grad_() for p in params))
         rgb, _, _ = render_points(leaves, state, cams[i], width, height, tanfovx,
-                                  tanfovy, bg, sh_degree, k_cap=k_cap)
+                                  tanfovy, bg, sh_degree, k_cap=k_cap,
+                                  max_radius=MAX_SPLAT_RADIUS)
         loss, _ = image_losses(rgb[None], gts[i][None], lambda_dssim=0.2)
         grads = torch.autograd.grad(loss, list(leaves), allow_unused=True)
         grads = PointGaussianParams(*(torch.zeros_like(p) if g is None else g

@@ -3,8 +3,9 @@ counterpart of ``cloth_splatting_tpu/ops/projection.py``.
 
 Camera-space transform, perspective Jacobian with the 3DGS frustum clamp,
 2D covariance J W S W^T J^T with a +0.3 px low-pass on the diagonal, conic
-inverse, 3-sigma radius from the larger eigenvalue (capped, with the support
-ellipse shrunk through ``power_cut``), near cull at z <= 0.2. Covariances
+inverse, 3-sigma radius from the larger eigenvalue (capped at
+``max_radius``, with the support ellipse shrunk through ``power_cut``, or
+uncapped with ``max_radius=None``), near cull at z <= 0.2. Covariances
 travel packed as [N, 6] upper triangles.
 """
 
@@ -127,10 +128,12 @@ def project_gaussians(
     lambda1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     radius_raw = torch.ceil(3.0 * torch.sqrt(lambda1))
     if max_radius is None:
-        # uncapped: support bounded only by the screen diagonal
-        max_radius = float(math.hypot(width, height))
-    radius = torch.clamp_max(radius_raw, max_radius)
-    power_cut = POWER_CUTOFF * (radius / torch.clamp_min(radius_raw, 1.0)) ** 2
+        # the published rule: the whole 3-sigma support, however large
+        radius = radius_raw
+        power_cut = torch.full_like(radius_raw, POWER_CUTOFF)
+    else:
+        radius = torch.clamp_max(radius_raw, max_radius)
+        power_cut = POWER_CUTOFF * (radius / torch.clamp_min(radius_raw, 1.0)) ** 2
 
     valid = (tz > NEAR_CULL_Z) & (det > 0.0)
     on_screen = ((px + radius > 0.0) & (px - radius < width)

@@ -1,10 +1,10 @@
 """Serving rasterizer: sort-based tile binning + the per-tile compositor K1;
 counterpart of ``cloth_splatting_tpu/ops/rasterize/pallas_tiled.py``.
 
-1. ``sorted_pack`` expands each projected Gaussian into the tiles its
-   screen rect covers (a static ``win x win`` slot window, with a capped
-   side stream for big splats), sorts the instances by (tile, depth) with
-   one stable ``torch.sort`` and packs their parameters tile-grouped and
+1. ``sorted_pack`` expands each projected Gaussian into exactly the tiles
+   its screen rect touches (a count, a scan and a scatter: nothing dropped,
+   no support shrunk), sorts the instances by (tile, depth) with one stable
+   ``torch.sort`` and packs their parameters tile-grouped and
    front-to-back as ``rows16`` [16, B_pad].
 2. ``raster_forward_tiles`` composites every tile: on a CUDA tensor it
    launches K1, the hand-written kernel in ``csrc/tiled_fwd.cu``; on a CPU
@@ -16,7 +16,11 @@ K1 replaces the TPU kernel ``pallas_tiled.py::_kernel`` (tile walk
 tile walks the tile's instances in 128-wide chunks ALIGNED to the global
 sorted array (the first chunk is ``start // 128``), composites each pixel
 front to back, and stops after the first chunk at which the MAX over the
-tile's pixels of the transmittance T is <= 1e-4. The background term is
+tile's pixels of the transmittance T is <= 1e-4. Frames of any size are
+tiled by ``ceil(W / tile) x ceil(H / tile)`` tiles: a pixel of the last
+column or row of tiles that lies outside the frame starts with T = 0, so
+it composites nothing and never holds its tile's exit, and it is not
+written. The background term is
 ``bg * (1 - sum w)``; T only drives the exit. Most instance-pixel pairs a
 tile walks are dead, so the kernel's time goes to finding the live ones:
 each warp owns a compact patch of the tile (``patch_pixel``) and walks only
@@ -38,8 +42,10 @@ K2-span and K4, which run the same cluster program.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -55,7 +61,12 @@ from cloth_splatting_tpu_torch.utils.profiling import span
 PACK16 = 16      # param rows: x y conic(3) rgb(3) opacity depth cut pad(5)
 CHUNK = 128      # instances per compositing chunk
 TRANS_EPS = 1e-4
-WIN_SMALL = 2    # slot window (tiles per axis) of the small-splat stream
+WIDE_TILES = 2   # a Gaussian whose rect spans more tiles on an axis is wide
+# What binning has emitted since the process started (or the caller last
+# cleared it): "frames" packed (each with one host read of the scan's
+# total), "instances" emitted and "wide_gaussians". Each adds a number the
+# host already holds from that read.
+COUNTS: collections.Counter = collections.Counter()
 # shared memory of one H100 block: the 227 KB opt-in limit, one chunk's 11
 # used rows, and each span kernel's static shared memory beside its CTA's
 # share of the window (cudaFuncAttributes::sharedSizeBytes, which chip_smoke
@@ -96,42 +107,6 @@ def pack_rows(proj: ProjectedGaussians) -> torch.Tensor:
         dim=1)
 
 
-def _expand_slots(xy, r, valid, depth, gidx_src, tw, th, tile_size, win):
-    """Per-slot (tile_id, depth, gauss_idx) for a win x win window, flat.
-
-    Dead slots (outside the Gaussian's span, or invalid Gaussians) get the
-    sentinel tile tw*th so the sort groups them last."""
-    n = xy.shape[0]
-    slots = win * win
-    n_tiles = tw * th
-    # An invalid Gaussian's xy may be non-finite, and torch's float->int cast
-    # of NaN/inf is undefined; its slots are masked dead below either way.
-    zero = torch.zeros_like(r)
-    x = torch.where(valid, xy[:, 0], zero)
-    y = torch.where(valid, xy[:, 1], zero)
-    r = torch.where(valid, r, zero)
-    x0 = torch.clamp(torch.floor((x - r) / tile_size), 0, tw).to(torch.int32)
-    y0 = torch.clamp(torch.floor((y - r) / tile_size), 0, th).to(torch.int32)
-    x1 = torch.clamp(torch.floor((x + r) / tile_size) + 1, 0, tw).to(torch.int32)
-    y1 = torch.clamp(torch.floor((y + r) / tile_size) + 1, 0, th).to(torch.int32)
-
-    dj = torch.arange(slots, dtype=torch.int32, device=xy.device)
-    tx = x0[:, None] + (dj % win)[None, :]
-    ty = y0[:, None] + (dj // win)[None, :]
-    in_span = (tx < x1[:, None]) & (ty < y1[:, None]) & valid[:, None]
-    tile_id = torch.where(in_span, ty * tw + tx, n_tiles).reshape(-1)
-    depth_c = torch.where(torch.isfinite(depth), depth,
-                          torch.full_like(depth, 3.4e38))
-    depth_b = depth_c[:, None].expand(n, slots).reshape(-1)
-    gidx = gidx_src[:, None].expand(n, slots).reshape(-1)
-    return tile_id, depth_b, gidx
-
-
-def round_big_cap(n: int) -> int:
-    """Static size of the big-Gaussian side stream."""
-    return min(n, max(2048, n // 8))
-
-
 def fused_depth_bits(n_tiles: int) -> int:
     """Bits of depth kept in the fused (tile << bits) | depth i32 sort key:
     what the tile field (values 0..n_tiles) leaves of the 31 non-sign bits."""
@@ -145,106 +120,143 @@ def _float_order_key(d: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) + (1 << 31)
 
 
-def tile_and_win(width: int, height: int) -> tuple[int, int]:
-    """(tile_size, win) for a frame: 32 px tiles for frames of 512 px and
-    more that 32 divides, else 16 px; ``win`` is the span in tiles that a
-    MAX_SPLAT_RADIUS splat needs."""
-    if width % 32 == 0 and height % 32 == 0 and min(width, height) >= 512:
-        return 32, 3
-    return 16, 5
+def tile_size_for(width: int, height: int) -> int:
+    """Tile side for a frame: 32 px for frames of 512 px and more, else 16.
+    A frame of 512 px and more whose sides 16 divides and 32 does not keeps
+    16 px tiles, as the JAX package tiles it."""
+    whole32 = width % 32 == 0 and height % 32 == 0
+    whole16 = width % 16 == 0 and height % 16 == 0
+    return 32 if min(width, height) >= 512 and (whole32 or not whole16) else 16
+
+
+def tile_grid(width: int, height: int, tile_size: int) -> tuple[int, int]:
+    """(tw, th): tiles per row and per column; the last of each may be
+    partial."""
+    return -(-width // tile_size), -(-height // tile_size)
+
+
+def tile_rects(xy: torch.Tensor, r: torch.Tensor, valid: torch.Tensor, tw: int,
+               th: int, tile_size: int):
+    """Per Gaussian the tiles [x0, x1) x [y0, y1) that its screen rect
+    (mean +- radius) touches, clamped to the grid; empty for an invalid
+    Gaussian. Each i32 [N]."""
+    # An invalid Gaussian's xy may be non-finite, and torch's float->int cast
+    # of NaN/inf is undefined; its rect is emptied below either way.
+    zero = torch.zeros_like(r)
+    x = torch.where(valid, xy[:, 0], zero)
+    y = torch.where(valid, xy[:, 1], zero)
+    r = torch.where(valid, r, zero)
+    x0 = torch.clamp(torch.floor((x - r) / tile_size), 0, tw).to(torch.int32)
+    y0 = torch.clamp(torch.floor((y - r) / tile_size), 0, th).to(torch.int32)
+    x1 = torch.clamp(torch.floor((x + r) / tile_size) + 1, 0, tw).to(torch.int32)
+    y1 = torch.clamp(torch.floor((y + r) / tile_size) + 1, 0, th).to(torch.int32)
+    return x0, torch.where(valid, x1, x0), y0, torch.where(valid, y1, y0)
+
+
+def tie_order(r: torch.Tensor, valid: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """The order in which Gaussians are expanded, which the stable sort keeps
+    among instances of equal key: Gaussians whose radius fits a 2-tile span
+    first, by index, then the wider ones, widest first and by index among
+    equal radii.
+
+    A parity rule with the JAX package, not a need of the published
+    rasterizer (which breaks ties by index): it is the order the JAX
+    package's two slot streams give (its small stream, then its big stream
+    by ``top_k``), so a flat cloth facing the camera, all of whose Gaussians
+    lie at one depth, composites as there. Its cost is one stable sort of N
+    floats and two gathers a frame; the tie rank cannot join the exact sort
+    key, whose 64 bits the tile and the f32 depth leave too few of for N
+    (22 bits at 3M Gaussians)."""
+    small_rmax = tile_size / 2.0 - 0.51
+    key = torch.where(valid & (r > small_rmax), -r, torch.full_like(r, -math.inf))
+    return torch.sort(key, stable=True).indices
+
+
+def expand_instances(xy: torch.Tensor, r: torch.Tensor, valid: torch.Tensor,
+                     tw: int, th: int, tile_size: int):
+    """Every (tile, Gaussian) pair whose tile the Gaussian's rect touches, in
+    ``tie_order`` and row-major within a Gaussian: (tile_id i64 [B],
+    gauss_idx i64 [B]). A count per Gaussian, its exclusive scan, and a
+    scatter of each Gaussian's run; nothing is dropped and no support is
+    shrunk. The scan's total is read on the host to size the instance
+    buffer (one device sync, as the published rasterizer makes), and with
+    it the count of wide Gaussians for ``COUNTS``."""
+    with span("raster.expand"):
+        dev = xy.device
+        n = xy.shape[0]
+        x0, x1, y0, y1 = tile_rects(xy, r, valid, tw, th, tile_size)
+        nx, ny = (x1 - x0).to(torch.int64), (y1 - y0).to(torch.int64)
+        order = tie_order(r, valid, tile_size)
+        per = (nx * ny)[order]
+        first = torch.cumsum(per, 0) - per                   # exclusive scan
+        wide = ((nx > WIDE_TILES) | (ny > WIDE_TILES)).sum()
+        total, n_wide = (torch.stack([first[-1] + per[-1], wide]).tolist()
+                         if n else (0, 0))
+        run = torch.repeat_interleave(torch.arange(n, device=dev), per,
+                                      output_size=total)
+        k = torch.arange(total, device=dev) - first[run]
+        owner = order[run]
+        nx_o = nx[owner]
+        tile_id = (y0[owner] + k // nx_o) * tw + x0[owner] + k % nx_o
+        COUNTS["frames"] += 1
+        COUNTS["instances"] += total
+        COUNTS["wide_gaussians"] += n_wide
+        return tile_id, owner
 
 
 def sorted_pack(proj: ProjectedGaussians, tw: int, th: int, tile_size: int,
-                win: int, big_cap: int | None = None,
                 order: str = "exact") -> PackedTiles:
-    """Sort-based tile binning in front-to-back order.
-
-    Gaussians whose span exceeds ``WIN_SMALL`` tiles per axis go into a side
-    stream of ``big_cap`` (default ``round_big_cap(N)``) slots expanded at
-    the full ``win``; the rest expand at ``WIN_SMALL``. Big Gaussians beyond the cap have their
-    support shrunk to the small span (``power_cut`` scaled to match). Both
-    streams share one stable sort, so compositing order stays exact.
+    """Sort-based tile binning in front-to-back order: each valid Gaussian
+    becomes one instance for every tile of the ``tw`` x ``th`` grid that its
+    screen rect touches (``expand_instances``), and one stable sort orders
+    the instances.
 
     ``order``: 'exact' sorts by (tile, f32 depth); 'fused' by one i32 key
     ``(tile << bits) | (depth bits >> (31 - bits))`` (quantized depth).
-    Instances with equal keys keep their expansion order (Gaussian index),
+    Instances with equal keys keep their expansion order (``tie_order``),
     as under the JAX package's stable ``lax.sort``."""
     with span("raster.sort_pack"):
         n_tiles = tw * th
         n = proj.xy.shape[0]
         dev = proj.xy.device
-        xy, r, valid, depth = proj.xy, proj.radius, proj.valid, proj.depth
-        gidx_all = torch.arange(n, dtype=torch.int32, device=dev)
-
-        if win <= WIN_SMALL:
-            tile_id, depth_b, gidx = _expand_slots(
-                xy, r, valid, depth, gidx_all, tw, th, tile_size, win)
-            proj_adj = proj
-        else:
-            if big_cap is None:
-                big_cap = round_big_cap(n)
-            small_rmax = (WIN_SMALL - 1) * tile_size / 2.0 - 0.51
-            is_big = (r > small_rmax) & valid
-            score = torch.where(is_big, r, torch.full_like(r, -1.0))
-            # jax.lax.top_k puts the lower index first among equal scores, and
-            # integer radii tie often; torch.topk promises no tie order, so take
-            # a stable descending sort instead.
-            big_idx = torch.sort(score, descending=True, stable=True).indices[:big_cap]
-            big_sel = score[big_idx] > 0.0
-            in_big = torch.zeros(n, dtype=torch.bool, device=dev)
-            in_big[big_idx] = big_sel
-
-            shrink = is_big & ~in_big
-            r_small = torch.where(shrink, torch.full_like(r, small_rmax), r)
-            cut_adj = torch.where(
-                shrink,
-                proj.power_cut * (small_rmax / torch.clamp_min(r, 1e-6)) ** 2,
-                proj.power_cut)
-            proj_adj = proj._replace(power_cut=cut_adj)
-            tid_s, dep_s, gid_s = _expand_slots(
-                xy, r_small, valid & ~in_big, depth, gidx_all,
-                tw, th, tile_size, WIN_SMALL)
-            tid_b, dep_b, gid_b = _expand_slots(
-                xy[big_idx], r[big_idx], big_sel & valid[big_idx], depth[big_idx],
-                big_idx.to(torch.int32), tw, th, tile_size, win)
-            tile_id = torch.cat([tid_s, tid_b])
-            depth_b = torch.cat([dep_s, dep_b])
-            gidx = torch.cat([gid_s, gid_b])
-
+        tile_id, gidx = expand_instances(proj.xy, proj.radius, proj.valid, tw, th,
+                                         tile_size)
+        depth_b = proj.depth[gidx]
         b = tile_id.shape[0]
-        bounds = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
+        bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
         if order == "fused":
             bits_d = fused_depth_bits(n_tiles)
             dbits = torch.clamp_min(depth_b, 0.0).view(torch.int32)
             # clamp_min may keep -0.0 (bit 0x80000000); mask the sign bit so -0.0
             # keys like +0.0 instead of sorting before tile 0
-            key = (tile_id << bits_d) | ((dbits & 0x7FFFFFFF) >> (31 - bits_d))
+            key = (tile_id.to(torch.int32) << bits_d) | (
+                (dbits & 0x7FFFFFFF) >> (31 - bits_d))
             sorted_key, perm = torch.sort(key, stable=True)
-            edges = torch.searchsorted(sorted_key, bounds << bits_d, right=False)
-        elif order == "exact":
-            key = (tile_id.to(torch.int64) << 32) | _float_order_key(depth_b)
-            sorted_key, perm = torch.sort(key, stable=True)
-            edges = torch.searchsorted(sorted_key, bounds.to(torch.int64) << 32,
+            # in int64: (n_tiles + 1) << bits may pass the i32 range
+            edges = torch.searchsorted(sorted_key.to(torch.int64), bounds << bits_d,
                                        right=False)
+        elif order == "exact":
+            key = (tile_id << 32) | _float_order_key(depth_b)
+            sorted_key, perm = torch.sort(key, stable=True)
+            edges = torch.searchsorted(sorted_key, bounds << 32, right=False)
         else:
             raise ValueError(f"unknown pack order: {order!r}")
-        sorted_gidx = gidx[perm]
         edges = edges.to(torch.int32)
         starts = edges[:-1]
         counts = edges[1:] - starts
 
-        rows_sorted = pack_rows(proj_adj)[sorted_gidx]                   # [B, 16]
-        # pad to a whole number of chunks plus one, as the JAX package does
+        # pad to a whole number of chunks plus one, as the JAX package does:
+        # padding columns point at an all-zero row N of the table
         b_pad = ((b + CHUNK - 1) // CHUNK) * CHUNK + CHUNK
-        rows_sorted = torch.cat(
-            [rows_sorted, rows_sorted.new_zeros((b_pad - b, PACK16))])
-        sorted_gidx = torch.cat(
-            [sorted_gidx, torch.full((b_pad - b,), n, dtype=torch.int32, device=dev)])
-        rows16 = rows_sorted.T.contiguous()                               # [16, B_pad]
+        gather = torch.cat([gidx[perm], torch.full((b_pad - b,), n, dtype=torch.int64,
+                                                   device=dev)])
+        table = torch.cat([pack_rows(proj), proj.xy.new_zeros((1, PACK16))]).T
+        rows16 = table.contiguous().index_select(1, gather)            # [16, B_pad]
+        gauss_idx = gather.to(torch.int32)
 
         aux = RasterAux(n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
                         max_tile_count=counts.max())
-        return PackedTiles(rows16, starts, counts, sorted_gidx, aux)
+        return PackedTiles(rows16, starts, counts, gauss_idx, aux)
 
 
 class PlainWalk(NamedTuple):
@@ -343,7 +355,7 @@ def cluster_shares(packed: PackedTiles, tpp: int, span_cap: int) -> ClusterShare
 
 def pixel_coords(width: int, tile_size: int, n_tiles: int, dev):
     """Absolute pixel coordinates (px, py), each f32 [T, p, 1]."""
-    tw = width // tile_size
+    tw = -(-width // tile_size)
     tiles = torch.arange(n_tiles, device=dev)
     pidx = torch.arange(tile_size * tile_size, device=dev)
     px = ((tiles % tw) * tile_size)[:, None] + (pidx % tile_size)[None, :]
@@ -382,8 +394,8 @@ def raster_forward_tiles_plain(
     All tiles advance together over chunk index ``ci``; a tile takes part
     while ``ci < n_chunks`` and the max of its T exceeds TRANS_EPS, exactly
     the loop condition of K1 and of the TPU kernel."""
-    n_tiles = (width // tile_size) * (height // tile_size)
-    span = resolve_span(n_tiles, packed.rows16.shape[1], tiles_per_program,
+    tw, th = tile_grid(width, height, tile_size)
+    span = resolve_span(tw * th, packed.rows16.shape[1], tiles_per_program,
                         span_cap, "fwd")
     out, walk, _ = plain_walk(packed, width, height, tile_size, bg, span=span)
     return out, walk
@@ -441,7 +453,7 @@ def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
     started stay zero. tbounds is None without it. ``span`` is a resolved
     (tpp, span_cap): tiles of programs that fit read their chunks from the
     program's window."""
-    tw, th = width // tile_size, height // tile_size
+    tw, th = tile_grid(width, height, tile_size)
     n_tiles = tw * th
     p = tile_size * tile_size
     dev = packed.rows16.device
@@ -453,7 +465,10 @@ def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
     lane = torch.arange(CHUNK, device=dev)
     windows = span_windows(packed, rows3d, span)
 
-    trans = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
+    # a pixel outside the frame starts with T = 0: it adds nothing and does
+    # not hold its tile's exit
+    inside = ((px < width) & (py < height))[..., 0]                  # [T, p]
+    trans = inside.to(torch.float32)
     acc = torch.zeros((n_tiles, 5, p), dtype=torch.float32, device=dev)
     walked = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     contributing = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
@@ -474,7 +489,7 @@ def plain_walk(packed: PackedTiles, width: int, height: int, tile_size: int,
         pos = (kt[ta] + ci)[:, None] * CHUNK + lane[None, :]
         live = (pos >= starts[ta, None]) & (pos < ends[ta, None])    # [A, 128]
         _, _, _, alpha, dead = chunk_alpha(blk, px[ta], py[ta], live)
-        contributing[ta] += (~dead).sum(dim=(1, 2))
+        contributing[ta] += (~dead & inside[ta, :, None]).sum(dim=(1, 2))
 
         incl = torch.cumprod(1.0 - alpha, dim=2)
         excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=2)
@@ -581,7 +596,7 @@ def cull_audit(packed: PackedTiles, width: int, height: int, tile_size: int,
     superset of what K1 walks (K1 stops at the tile-wide exit); with K2's
     boundaries [rows, p] (``tiled_train.chunk_layout``'s rows) exactly the
     chunks K2 started, which are the chunks K1, K2 and K3 walk."""
-    n_tiles = (width // tile_size) * (height // tile_size)
+    n_tiles = math.prod(tile_grid(width, height, tile_size))
     p = tile_size * tile_size
     ppt = p // (WARPS * 32)
     dev = packed.rows16.device
@@ -636,9 +651,9 @@ def check_packed(packed: PackedTiles, width: int, height: int, tile_size: int) -
     rows16, starts, counts = packed.rows16, packed.starts, packed.counts
     if tile_size not in (16, 32):
         raise ValueError(f"tile_size must be 16 or 32, got {tile_size}")
-    if width % tile_size or height % tile_size:
-        raise ValueError("width/height must be multiples of tile_size")
-    n_tiles = (width // tile_size) * (height // tile_size)
+    if width < 1 or height < 1:
+        raise ValueError(f"empty frame {width}x{height}")
+    n_tiles = math.prod(tile_grid(width, height, tile_size))
     if rows16.dtype != torch.float32 or rows16.dim() != 2 \
             or rows16.shape[0] != PACK16 or rows16.shape[1] % CHUNK:
         raise ValueError(f"rows16 must be f32 [16, k*{CHUNK}], got "
@@ -659,7 +674,8 @@ def _launchers():
     lib = kernels.load("tiled_fwd")
     fn, span = lib.tiled_fwd_launch, lib.tiled_fwd_span_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    head = [ptr, ptr, ptr, ptr, i32, i32, ctypes.c_int64, i32, f32, f32, f32]
+    head = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_int64, i32, f32, f32,
+            f32]
     fn.argtypes = head + [ptr]
     span.argtypes = head + [i32, i32, ptr]
     fn.restype = span.restype = ctypes.c_int
@@ -671,7 +687,8 @@ def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
                          tiles_per_program: int | None = None,
                          span_cap: int | None = None) -> torch.Tensor:
     """Composite every tile; returns [n_tiles, 8, tile_size^2] with channels
-    (r, g, b with background, depth, alpha, 0, 0, 0).
+    (r, g, b with background, depth, alpha, 0, 0, 0). The kernel leaves the
+    pixels of partial tiles that lie outside the frame unwritten.
 
     A CUDA ``packed`` launches K1 or, when ``resolve_span`` leaves a span,
     K1-span on the current stream (or raises); a CPU one runs the plain
@@ -684,15 +701,15 @@ def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
                                           tiles_per_program, span_cap)[0]
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    tw = width // tile_size
-    n_tiles = tw * (height // tile_size)
+    tw, th = tile_grid(width, height, tile_size)
+    n_tiles = tw * th
     p = tile_size * tile_size
     b_pad = packed.rows16.shape[1]
     tpp, cap = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap, "fwd")
     out = torch.empty((n_tiles, 8, p), dtype=torch.float32, device=dev)
     args = [packed.starts.data_ptr(), packed.counts.data_ptr(),
-            packed.rows16.data_ptr(), out.data_ptr(), n_tiles, tw, b_pad,
-            tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
+            packed.rows16.data_ptr(), out.data_ptr(), n_tiles, tw, width, height,
+            b_pad, tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
     launch = _launchers()[1 if cap else 0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -713,12 +730,14 @@ raster_forward_tiles.span_launches = 0
 
 def tiles_to_images(out_t: torch.Tensor, width: int, height: int,
                     tile_size: int):
-    """[T, 8, p] tile slabs -> (rgb [3,H,W], depth [1,H,W], alpha [1,H,W])."""
-    tw, th = width // tile_size, height // tile_size
+    """[T, 8, p] tile slabs -> (rgb [3,H,W], depth [1,H,W], alpha [1,H,W]),
+    the pixels of partial tiles outside the frame cut off."""
+    tw, th = tile_grid(width, height, tile_size)
 
     def to_image(tiled, ch):
         flat = tiled.reshape(th, tw, ch, tile_size, tile_size)
-        return flat.permute(2, 0, 3, 1, 4).reshape(ch, height, width)
+        img = flat.permute(2, 0, 3, 1, 4).reshape(ch, th * tile_size, tw * tile_size)
+        return img[:, :height, :width]
 
     return (to_image(out_t[:, 0:3, :], 3), to_image(out_t[:, 3:4, :], 1),
             to_image(out_t[:, 4:5, :], 1))
@@ -729,14 +748,13 @@ def rasterize_tiled_fwd(proj: ProjectedGaussians, width: int, height: int,
                         pack_order: str = "exact",
                         tiles_per_program: int | None = None,
                         span_cap: int | None = None):
-    """Pack + composite at ``tile_and_win``'s tiling; returns
-    (rgb [3,H,W], depth [1,H,W], alpha [1,H,W], aux). ``tiles_per_program``
-    and ``span_cap`` are the JAX ``rasterize_pallas``'s span options."""
-    tile_size, win = tile_and_win(width, height)
-    if width % tile_size or height % tile_size:
-        raise ValueError("width/height must be multiples of tile_size")
-    tw, th = width // tile_size, height // tile_size
-    packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
+    """Pack + composite at ``tile_size_for``'s tiling, any frame size;
+    returns (rgb [3,H,W], depth [1,H,W], alpha [1,H,W], aux).
+    ``tiles_per_program`` and ``span_cap`` are the JAX
+    ``rasterize_pallas``'s span options."""
+    tile_size = tile_size_for(width, height)
+    tw, th = tile_grid(width, height, tile_size)
+    packed = sorted_pack(proj, tw, th, tile_size, order=pack_order)
     with span("raster.composite"):
         out_t = raster_forward_tiles(packed, width, height, tile_size, bg,
                                      tiles_per_program, span_cap)

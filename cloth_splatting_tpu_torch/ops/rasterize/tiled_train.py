@@ -64,12 +64,17 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
     resolve_span,
     sorted_pack,
     span_windows,
-    tile_and_win,
+    tile_size_for,
     tiles_to_images,
 )
 from cloth_splatting_tpu_torch.utils.profiling import span
 
 GCH = 8  # grad-image channels: g_r g_g g_b g_dep g_acc acc u_tot pad
+
+
+def check_whole_tiles(width: int, height: int, tile_size: int) -> None:
+    if width % tile_size or height % tile_size:
+        raise ValueError("width/height must be multiples of tile_size")
 
 
 def layout_rows(packed: PackedTiles, n_tiles: int) -> int:
@@ -151,6 +156,7 @@ def raster_forward_train(packed: PackedTiles, width: int, height: int,
     runs the plain version. ``raster_forward_train.launches`` counts K2
     launches and ``raster_forward_train.span_launches`` K2-span launches."""
     check_packed(packed, width, height, tile_size)
+    check_whole_tiles(width, height, tile_size)
     dev = _device(packed)
     if dev.type == "cpu":
         return raster_forward_train_plain(packed, width, height, tile_size, bg,
@@ -286,6 +292,7 @@ def check_backward_inputs(packed: PackedTiles, gimg_t: torch.Tensor,
                           tbounds: torch.Tensor, width: int, height: int,
                           tile_size: int) -> None:
     check_packed(packed, width, height, tile_size)
+    check_whole_tiles(width, height, tile_size)
     n_tiles = (width // tile_size) * (height // tile_size)
     p = tile_size * tile_size
     n_rows = layout_rows(packed, n_tiles)
@@ -373,12 +380,12 @@ class _TiledTrainRaster(torch.autograd.Function):
     def forward(ctx, xy, depth, conic, color, opacity, valid, power_cut,
                 radius, width, height, bg, pack_order, tiles_per_program,
                 span_cap):
-        tile_size, win = tile_and_win(width, height)
+        tile_size = tile_size_for(width, height)
         tw, th = width // tile_size, height // tile_size
         proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic,
                                   radius=radius, color=color, opacity=opacity,
                                   valid=valid, power_cut=power_cut)
-        packed = sorted_pack(proj, tw, th, tile_size, win, order=pack_order)
+        packed = sorted_pack(proj, tw, th, tile_size, order=pack_order)
         with span("raster.composite"):
             out_t, tbounds = raster_forward_train(packed, width, height, tile_size,
                                                   bg, tiles_per_program, span_cap)
@@ -412,12 +419,11 @@ def rasterize_tiled_train(proj: ProjectedGaussians, width: int, height: int,
                           pack_order: str = "exact",
                           tiles_per_program: int | None = None,
                           span_cap: int | None = None):
-    """Differentiable rasterization at ``tile_and_win``'s tiling: (rgb
+    """Differentiable rasterization at ``tile_size_for``'s tiling: (rgb
     [3,H,W], depth [1,H,W], alpha [1,H,W]); counterpart of JAX
-    ``rasterize_pallas_grad``, span options included."""
-    tile_size, _ = tile_and_win(width, height)
-    if width % tile_size or height % tile_size:
-        raise ValueError("width/height must be multiples of tile_size")
+    ``rasterize_pallas_grad``, span options included. The training tier
+    takes whole tiles only."""
+    check_whole_tiles(width, height, tile_size_for(width, height))
     return _TiledTrainRaster.apply(
         proj.xy, proj.depth, proj.conic, proj.color, proj.opacity, proj.valid,
         proj.power_cut, proj.radius, width, height,

@@ -129,7 +129,7 @@ def main() -> int:
     dev = torch.device("cuda")
     sc = cs.build_scenes(dev)
     w, h, tile = cs.WIDTH, cs.HEIGHT, sc.tile
-    serve = sorted_pack(sc.project(sc.cams[0]), w // tile, h // tile, tile, sc.win,
+    serve = sorted_pack(sc.project(sc.cams[0]), w // tile, h // tile, tile,
                         order="fused")
     train = sc.train_pack
     gen = torch.Generator(device=dev)

@@ -108,7 +108,7 @@ def check(form: str, level: int) -> bool:
     ok = True
     for ts, size, n in PACKS:
         packed = sorted_pack(cs.deep_proj(n, size, size, gen, dev), size // ts,
-                             size // ts, ts, 3 if ts == 32 else 5, order="exact")
+                             size // ts, ts, order="exact")
         label = f"{size}px/{ts}px n={n}"
         results = {}
         for span in (None, *SPANS):

@@ -126,14 +126,13 @@ def random_pack(tile_size):
     """Anisotropic, rotated splats with random opacities and cuts, ~10
     chunks deep per tile (the exit fires in most 16 px tiles)."""
     proj = random_proj(1500, W, H, seed=10 + tile_size)
-    return tpt.sorted_pack(proj, W // tile_size, H // tile_size, tile_size,
-                           5 if tile_size == 16 else 3)
+    return tpt.sorted_pack(proj, W // tile_size, H // tile_size, tile_size)
 
 
 def scene_pack(name):
-    make, tile, win = SCENES[name]
+    make, tile, _ = SCENES[name]
     pj = make()
-    return pj, tpt.sorted_pack(to_torch(pj), W // tile, H // tile, tile, win), tile
+    return pj, tpt.sorted_pack(to_torch(pj), W // tile, H // tile, tile), tile
 
 
 CASES = [*SCENES, "random16", "random32"]

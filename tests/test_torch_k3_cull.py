@@ -61,16 +61,15 @@ def test_patch_pixel_is_a_bijection_onto_compact_patches(tile_size):
 
 
 def audit(proj, width, height, tile_size, order="exact"):
-    win = 5 if tile_size == 16 else 3
     packed = tpt.sorted_pack(proj, width // tile_size, height // tile_size,
-                             tile_size, win, order=order)
+                             tile_size, order=order)
     return tpt.cull_audit(packed, width, height, tile_size)
 
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_cull_is_conservative_on_seeded_scenes(name):
-    make, tile, win = SCENES[name]
-    packed = tpt.sorted_pack(to_torch(make()), W // tile, H // tile, tile, win)
+    make, tile, _ = SCENES[name]
+    packed = tpt.sorted_pack(to_torch(make()), W // tile, H // tile, tile)
     # every chunk, and the chunks the forward started (what K3 walks)
     tbounds = ttr.raster_forward_train(packed, W, H, tile, BG)[1]
     for tb in (None, tbounds):

@@ -203,8 +203,7 @@ def reverse_walk(packed, gimg_t, tbounds, width, height, tile_size, bg, span,
 
 
 def edge_pack(tile_size):
-    return tpt.sorted_pack(edge_proj(), 64 // tile_size, 64 // tile_size,
-                           tile_size, 5 if tile_size == 16 else 3)
+    return tpt.sorted_pack(edge_proj(), 64 // tile_size, 64 // tile_size, tile_size)
 
 
 def case(name):
@@ -214,8 +213,8 @@ def case(name):
         if name.startswith(kind):
             ts = int(name[len(kind):])
             return make(ts), ts
-    make, ts, win = SCENES[name]
-    return tpt.sorted_pack(to_torch(make()), W // ts, H // ts, ts, win), ts
+    make, ts, _ = SCENES[name]
+    return tpt.sorted_pack(to_torch(make()), W // ts, H // ts, ts), ts
 
 
 def walk_inputs(packed, ts, seed=7):
@@ -269,13 +268,13 @@ def test_reverse_walk_matches_the_plain_reverse_sweep(name):
 
 def wide_pack():
     """80x80 at 16 px: 25 tiles, so tpp 5 and 25 run clusters of 5."""
-    return tpt.sorted_pack(to_torch(project_scene(n=300, seed=3)), 5, 5, 16, 5)
+    return tpt.sorted_pack(to_torch(project_scene(n=300, seed=3)), 5, 5, 16)
 
 
 def wide121_pack():
     """176x176 at 16 px: 121 tiles of random anisotropic splats, up to 3
     chunks a tile, so tpp 11 runs clusters of one CTA."""
-    return tpt.sorted_pack(random_proj(1500, 176, 176, seed=11), 11, 11, 16, 5)
+    return tpt.sorted_pack(random_proj(1500, 176, 176, seed=11), 11, 11, 16)
 
 
 @pytest.mark.parametrize("name,tpp,span_cap", [
@@ -334,7 +333,7 @@ def test_reverse_sweep_with_span_matches_rasterize_pallas_grad():
     pack where some programs fit their window and some overflow."""
     pj = project_scene(n=250, seed=8)
     tpp, span_cap = 2, 1
-    tp = tpt.sorted_pack(to_torch(pj), W // 16, H // 16, 16, 5)
+    tp = tpt.sorted_pack(to_torch(pj), W // 16, H // 16, 16)
     fits = tpt.span_programs(tp, tpp, span_cap)[1]
     assert bool(fits.any()) and not bool(fits.all())
     tgt = np.random.default_rng(6).uniform(0, 1, (3, H, W)).astype(np.float32)

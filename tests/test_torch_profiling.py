@@ -29,8 +29,8 @@ from cloth_splatting_tpu_torch.utils import profiling as P
 torch.set_num_threads(1)
 
 FOV = 2 * np.arctan(0.4)
-RENDER = ("render", [("render.project_view", []), ("raster.sort_pack", []),
-                     ("raster.composite", [])])
+PACK = ("raster.sort_pack", [("raster.expand", [])])
+RENDER = ("render", [("render.project_view", []), PACK, ("raster.composite", [])])
 MESHNET = [("meshnet.encode", []), ("meshnet.process", []), ("meshnet.decode", [])]
 
 
@@ -190,6 +190,22 @@ def test_render_gives_the_render_tree(spans_on):
     recs = P.take_spans()
     units_follow_roots(recs)
     assert trees(recs) == [RENDER]
+
+
+def test_render_points_gives_the_points_tree(spans_on):
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-0.5, 0.5, (40, 3)).astype(np.float32)
+    params, state = PG.init_from_point_cloud(rng, pts, rng.random((40, 3)), 1,
+                                             device="cpu")
+    cam = camera_arrays(orbit_camera(0, 4, FOV, 40, 24, 0.0), "cpu")
+    tan = float(np.tan(FOV / 2))
+    PG.render_points(params, state, cam, 40, 24, tan, tan * 24 / 40, (0.0, 0.0, 0.0), 1)
+    recs = P.take_spans()
+    units_follow_roots(recs)
+    assert trees(recs) == [("points.render", [("points.project_view", []), PACK,
+                                              ("raster.composite", [])])]
 
 
 def tiny_batch(rng, b=2, v=6, e=8, future=2, hist=2):

@@ -28,6 +28,7 @@ from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_referenc
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_rasterize import H, W, project_scene  # noqa: E402
+from test_torch_points_tiled import brute_instances  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -56,14 +57,20 @@ def hand_proj(xy, depth, radius, conic=(0.05, 0.0, 0.05), opacity=0.8,
     )
 
 
-def assert_packs_identical(pj, tw, th, tile, win, order, big_cap=None):
-    jp = jpt.sorted_pack(pj, tw, th, tile, win, big_cap=big_cap, order=order)
-    tp = tpt.sorted_pack(to_torch(pj), tw, th, tile, win, big_cap=big_cap,
-                         order=order)
-    for name in ("starts", "counts", "gauss_idx"):
+def assert_packs_identical(pj, tw, th, tile, win, order):
+    """The port's instances are the JAX package's: the same starts and
+    counts, and the same gauss_idx and rows16 over the instances. The JAX
+    package sizes its array by its slot windows, the port by its instances,
+    so only the padding after them differs."""
+    jp = jpt.sorted_pack(pj, tw, th, tile, win, order=order)
+    tp = tpt.sorted_pack(to_torch(pj), tw, th, tile, order=order)
+    for name in ("starts", "counts"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(),
                                       np.asarray(getattr(jp, name)), err_msg=name)
-    np.testing.assert_array_equal(tp.rows16.numpy(), np.asarray(jp.rows16))
+    b = int(tp.counts.sum())
+    np.testing.assert_array_equal(tp.gauss_idx[:b].numpy(), np.asarray(jp.gauss_idx)[:b])
+    np.testing.assert_array_equal(tp.rows16[:, :b].numpy(), np.asarray(jp.rows16)[:, :b])
+    assert not tp.rows16[:, b:].any() and bool((tp.gauss_idx[b:] == len(pj.xy)).all())
     assert int(tp.aux.max_tile_count) == int(jp.aux.max_tile_count)
     return jp, tp
 
@@ -77,19 +84,35 @@ def test_sorted_pack_identical(order, seed):
 
 @pytest.mark.parametrize("order", ["fused", "exact"])
 def test_sorted_pack_big_cap_ties(order):
-    """More big splats than the side stream holds, with tied integer radii:
-    which splats stay big (and which get shrunk) follows JAX's top_k, which
-    puts the lower index first among equal radii."""
+    """More big splats than the JAX package's side stream holds (big_cap 7),
+    with tied integer radii and tied depths: the JAX package shrinks the
+    support of those past its cap; the port drops nothing and shrinks
+    nothing. Its instances are every (tile, Gaussian) pair of the splats'
+    rects, ordered by tile, then depth (quantized in the fused order), then
+    radius, largest first, then index: the JAX package's pack when its side
+    stream holds them all, which follows top_k (the lower index first among
+    equal radii)."""
     rng = np.random.default_rng(3)
     n = 40
     xy = rng.uniform(4, 60, (n, 2))
     radius = rng.choice([9.0, 12.0, 12.0, 20.0], n)   # > 7.49: all big at 16 px
     depth = rng.choice([1.0, 2.0, 3.0], n)             # depth ties as well
     pj = hand_proj(xy, depth, radius)
-    jp, tp = assert_packs_identical(pj, 4, 4, 16, 5, order, big_cap=7)
-    # the cap binds: some splats were shrunk to the small span
-    cuts = tp.rows16[10, :int(tp.counts.sum())]
-    assert bool((cuts > -4.5).any()) and bool((cuts == -4.5).any())
+    assert_packs_identical(pj, 4, 4, 16, 5, order)          # big_cap n
+    jp = jpt.sorted_pack(pj, 4, 4, 16, 5, big_cap=7, order=order)
+    tp = tpt.sorted_pack(to_torch(pj), 4, 4, 16, order=order)
+    b = int(tp.counts.sum())
+    want = brute_instances(np.asarray(pj.xy), np.asarray(pj.radius), np.ones(n, bool),
+                           np.asarray(pj.depth), 4, 4, 16)
+    assert [int(g) for g in tp.gauss_idx[:b]] == [g for _, g in want]
+    starts = np.searchsorted([t for t, _ in want], np.arange(16))
+    np.testing.assert_array_equal(tp.starts.numpy(), starts)
+    # the cap binds in the JAX package: some splats were shrunk there, and
+    # none in the port
+    jcuts = np.asarray(jp.rows16)[10, :int(np.asarray(jp.counts).sum())]
+    assert bool((jcuts > -4.5).any())
+    assert bool((tp.rows16[10, :b] == -4.5).all())
+    assert int(np.asarray(jp.counts).sum()) < b
 
 
 @pytest.mark.parametrize("order", ["fused", "exact"])
@@ -137,7 +160,7 @@ def test_plain_compositor_saturated_early_exit():
                    conic=(1 / 64, 0.0, 1 / 64),
                    opacity=rng.uniform(0.1, 0.5, n), seed=4)
     composite_both(pj, W, H, (1.0, 1.0, 1.0))
-    packed = tpt.sorted_pack(to_torch(pj), W // 16, H // 16, 16, 5)
+    packed = tpt.sorted_pack(to_torch(pj), W // 16, H // 16, 16)
     _, walk = tpt.raster_forward_tiles_plain(packed, W, H, 16, (1.0, 1.0, 1.0))
     stats = tpt.walk_stats(packed, walk, 16)
     assert stats["tiles_exited_early"] > 0
@@ -162,7 +185,7 @@ def test_plain_compositor_far_corner_precision():
 
 def test_wrapper_checks_inputs():
     pj = project_scene(n=16, seed=0)
-    packed = tpt.sorted_pack(to_torch(pj), W // 16, H // 16, 16, 5)
+    packed = tpt.sorted_pack(to_torch(pj), W // 16, H // 16, 16)
     with pytest.raises(ValueError, match="contiguous"):
         tpt.raster_forward_tiles(
             packed._replace(rows16=packed.rows16.T.contiguous().T), W, H, 16,
@@ -172,3 +195,36 @@ def test_wrapper_checks_inputs():
                                  W, H, 16, (1.0, 1.0, 1.0))
     with pytest.raises(ValueError, match="tile_size"):
         tpt.raster_forward_tiles(packed, W, H, 8, (1.0, 1.0, 1.0))
+
+
+@pytest.mark.parametrize("order", ["exact", "fused"])
+def test_cloth_render_unchanged_at_32px_tiles(order):
+    """The cloth field's serving render at 512 x 512 (32 px tiles) is, bit for
+    bit, the same compositor on the JAX package's two-stream pack, which is
+    the binning the port had before it binned exactly: the same instances in
+    the same order, so the same frame."""
+    from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
+    from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
+    from cloth_splatting_tpu_torch.render import camera_arrays, project_view, render
+
+    size, tile = 512, 32
+    assert tpt.tile_size_for(size, size) == tile
+    mesh = grid_cloth_mesh(12, 12, size=1.4, device="cpu")
+    params, gstate = target_gaussians(mesh, 3, seed=2, device="cpu")
+    fov = 2 * np.arctan(0.4)
+    cam = camera_arrays(orbit_camera(1, 4, fov, size, size, 0.0), "cpu")
+    tan = float(np.tan(fov / 2))
+    bg = (1.0, 1.0, 1.0)
+    out = render(cam, size, size, tan, tan, params, gstate, mesh, None, None, bg, 3,
+                 backend="tiled_fwd", pack_order=order, device="cpu")
+    with torch.no_grad():
+        proj = project_view(cam, size, size, tan, tan, params, gstate, mesh, None, None,
+                            3)[0]
+    pj = JProj(*(jnp.asarray(t.numpy()) for t in proj))
+    jp = jpt.sorted_pack(pj, size // tile, size // tile, tile, 3, order=order)
+    old = tpt.PackedTiles(*(torch.from_numpy(np.array(getattr(jp, f)))
+                            for f in ("rows16", "starts", "counts", "gauss_idx")), aux=None)
+    assert int(old.counts.sum()) > 1000 and int(old.counts.max()) > tpt.CHUNK
+    rgb, _, _ = tpt.tiles_to_images(
+        tpt.raster_forward_tiles(old, size, size, tile, bg), size, size, tile)
+    assert torch.equal(out.rgb, rgb)

@@ -72,7 +72,7 @@ SCENES = {
 
 def packs(pj):
     jp = jpt.sorted_pack(pj, W // TILE, H // TILE, TILE, WIN)
-    tp = tpt.sorted_pack(to_torch(pj), W // TILE, H // TILE, TILE, WIN)
+    tp = tpt.sorted_pack(to_torch(pj), W // TILE, H // TILE, TILE)
     return jp, tp
 
 
@@ -195,8 +195,12 @@ def test_reverse_sweep_matches_pallas_and_forward_order(scene, tpp, span_cap,
         g_j = np.asarray(jptr._run_backward(
             jp, jnp.asarray(gimg_t.numpy()), tb_j, W, H, TILE, BG,
             interpret=True, tiles_per_program=tpp, span_cap=span_cap))
+        # the same instances; the JAX package's array is longer (its slot
+        # windows), and its columns past them hold no gradient
+        b = int(tp.counts.sum())
+        np.testing.assert_array_equal(g_j[:, b:], 0.0)
         for field, rows in FIELDS.items():
-            assert_field_close(g_t[rows], g_j[rows], field + " vs pallas")
+            assert_field_close(g_t[rows, :b], g_j[rows, :b], field + " vs pallas")
     if scene == "opaque":
         n_laid = int(tpt.chunk_span(tp)[3].sum())
         assert int((tb_t[:n_laid].amax(1) > 0).sum()) < n_laid   # some skipped
