@@ -5,9 +5,12 @@
 
 Phases, each of which raises on failure:
   1. build every kernel of the port from ``cloth_splatting_tpu_torch/csrc``
-     (one ``nvcc`` per source, all started together), read each kernel's
-     registers, shared memory and spills from the build log, and print the
-     card's name and power limit;
+     (one ``nvcc`` per source, all started together; a library built before
+     is compiled again into a temporary directory for its log), read each
+     kernel's registers, shared memory and spills from the build log, fail
+     when the span kernels or any of the point front end's five SH degrees
+     spill or are missing from it, and print the card's name and power
+     limit;
   2. hold each kernel against its plain PyTorch version on the card: K1 on
      the packs of the 65k-Gaussian 800x800 serving scene for two orbit
      views, and K2 and K3 on the pack of the 65k training scene; all three
@@ -149,7 +152,12 @@ Phases, each of which raises on failure:
      bit-identical to K1's output of its pack, which holds every instance
      the frame's binning emitted and agrees with K1's plain walk within
      1e-5 (depth: 1e-5 of the deepest Gaussian's); K1 alone on that pack,
-     its bound, registers and blocks an SM.
+     its bound, registers and blocks an SM; the point front end's kernel
+     (``csrc/point_front.cu``) launched once a frame and the PyTorch ops
+     never run, its
+     ``ProjectedGaussians`` of the frame bit-identical to the PyTorch ops',
+     and the kernel alone against its byte bound, with its registers and
+     blocks an SM, beside the PyTorch ops' time.
 
 Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
 line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
@@ -446,7 +454,44 @@ def gpu_line() -> str:
 KERNEL_ENTRIES = {"K1": "tiled_fwd_kernel<4>", "K1-span": "tiled_fwd_span_kernel<4>",
                   "K2": "tiled_fwd_train_kernel<4>",
                   "K2-span": "tiled_fwd_train_span_kernel<4>",
-                  "K3": "tiled_bwd_kernel<4>", "K4": "tiled_bwd_reverse_kernel<4>"}
+                  "K3": "tiled_bwd_kernel<4>", "K4": "tiled_bwd_reverse_kernel<4>",
+                  "front": "point_front_kernel<3>"}
+
+
+def build_logs() -> dict:
+    """Each kernel's ``nvcc`` log: ``kernels.build_all``'s where it built the
+    library, else (a library built before leaves no log) a compile of the
+    same source and flags into a temporary directory."""
+    import tempfile
+    from pathlib import Path
+
+    from cloth_splatting_tpu_torch import kernels
+
+    logs = kernels.build_all()
+    built = [name for name, text in logs.items() if text is None]
+    if built:
+        saved = kernels.BUILD_DIR
+        with tempfile.TemporaryDirectory() as tmp:
+            kernels.BUILD_DIR = Path(tmp)
+            try:
+                logs.update(kernels.build_all(built))
+            finally:
+                kernels.BUILD_DIR = saved
+    return logs
+
+
+def check_spills(usage: dict) -> None:
+    """Raises unless ``usage`` (``ptxas_usage`` of the build's logs) holds
+    the three span kernels and the point front end at each of its five SH
+    degrees, none of them spilling."""
+    entries = [KERNEL_ENTRIES[key] for key in SPAN_KERNELS]
+    entries += [f"point_front_kernel<{deg}>" for deg in range(5)]
+    for entry in entries:
+        if entry not in usage:
+            raise RuntimeError(f"the build log has no ptxas line of {entry}")
+        spills = usage[entry]
+        if spills.get("spill_stores") or spills.get("spill_loads"):
+            raise RuntimeError(f"{entry} spills: {spills}")
 
 
 def ptxas_usage(build_log: str) -> dict:
@@ -1221,7 +1266,9 @@ class span_options:
 
 
 def launch_counts() -> dict:
-    """The six kernels' launch counters."""
+    """The seven kernels' launch counters: the six tile kernels' and the
+    point front end's ("front")."""
+    from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         raster_forward_train,
@@ -1232,10 +1279,12 @@ def launch_counts() -> dict:
             "K1-span": raster_forward_tiles.span_launches,
             "K2": raster_forward_train.launches,
             "K2-span": raster_forward_train.span_launches,
-            "K3": run_backward.launches, "K4": run_backward.reverse_launches}
+            "K3": run_backward.launches, "K4": run_backward.reverse_launches,
+            "front": project_points_fused.launches}
 
 
 def reset_launch_counts() -> None:
+    from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         raster_forward_train,
@@ -1245,6 +1294,7 @@ def reset_launch_counts() -> None:
     raster_forward_tiles.launches = raster_forward_tiles.span_launches = 0
     raster_forward_train.launches = raster_forward_train.span_launches = 0
     run_backward.launches = run_backward.reverse_launches = 0
+    project_points_fused.launches = 0
 
 
 def timed_calls(fn, args):
@@ -3327,23 +3377,45 @@ POINTS_CAMERA = (0.7, 0.25, 3.6)
 POINTS_FRAMES = 5
 
 
+def bits_differ(got, want) -> dict:
+    """Elements of each field of two ``ProjectedGaussians`` whose bits
+    differ."""
+    import torch
+
+    return {f: int((a != b).sum()) if a.dtype == torch.bool
+            else int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for f, a, b in zip(got._fields, got, want)}
+
+
 def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
     """``models.point_gaussians.render_points`` without a gradient on the
     gs-360-3m field (3.0M free-xyz Gaussians drawn from SEED as the
     benchmark's ``render-gs360`` cell draws them, SH 3, uncapped splats) at
     1237x822, 39 x 26 tiles of 32 px whose last column and row are partial:
     one frame with the launch counters set to 0 just before and read just
-    after (K1 once, nothing else), the pack of that frame made again and
+    after (K1 and the point front end's kernel once each, nothing else), the pack of that frame made again and
     holding as many instances as the frame's binning emitted, K1 on it
     bit-identical to the frame and within TOL_PLAIN of its plain walk (the
     depth channel relative to the deepest Gaussian); then
     K1 alone on that pack (torch.profiler), its bound on the frame's pixels,
     its registers and blocks an SM (the one K1 instance the 65k entry also
-    reads), and ms a frame over POINTS_FRAMES frames (CUDA events)."""
+    reads), and ms a frame over POINTS_FRAMES frames (CUDA events). The
+    point front end: ``models.point_gaussians.COUNTS`` adds one kernel call
+    and no PyTorch call in the counted frame, and the kernel's launch
+    counter one launch; on the frame's camera its
+    eight outputs equal the PyTorch ops' (``project_points_eager``) bit for
+    bit; the kernel alone (torch.profiler), its byte bound (each
+    Gaussian's 59 floats and a byte read, 12 floats and a byte written at
+    3.35 TB/s), registers and blocks an SM, and the PyTorch ops' ms (CUDA
+    events)."""
+    import ctypes
+
     import torch
 
     from benchmark.drivers.render_points import camera, make_field
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops import point_front as PF
     from cloth_splatting_tpu_torch.ops.rasterize import tiled_fwd as TF
     from cloth_splatting_tpu_torch.render import CameraArrays
 
@@ -3373,17 +3445,38 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
     torch.cuda.synchronize()
     reset_launch_counts()
     emitted = TF.COUNTS["instances"]
+    fronts = dict(PG.COUNTS)
     rgb = frame()
     torch.cuda.synchronize()
     launches = launch_counts()
     emitted = TF.COUNTS["instances"] - emitted
-    if launches != {**dict.fromkeys(launches, 0), "K1": 1}:
+    fronts = {k: PG.COUNTS[k] - fronts.get(k, 0) for k in ("front_fused", "front_eager")}
+    if launches != {**dict.fromkeys(launches, 0), "K1": 1, "front": 1}:
         raise RuntimeError(f"points frame launched {launches}")
+    if fronts != {"front_fused": 1, "front_eager": 0}:
+        raise RuntimeError(f"points frame's front end ran {fronts}")
 
     tile = TF.tile_size_for(w, h)
     tw, th = TF.tile_grid(w, h, tile)
     with torch.no_grad():
         proj = PG.project_points_view(params, state, cam, w, h, tan_x, tan_y, sh)
+        eager = PG.project_points_eager(params, state.alive, cam, w, h, tan_x, tan_y, sh)
+    front_differ = bits_differ(proj, eager)
+    del eager
+    if any(front_differ.values()):
+        raise RuntimeError(f"points front end: the kernel's outputs differ from the "
+                           f"PyTorch ops' in {front_differ} elements")
+
+    def fused_front():
+        return PF.project_points_fused(params, state.alive, cam, w, h, tan_x, tan_y, sh)
+
+    front_kernel_ms, front_records = kernel_alone_ms(fused_front, "front")
+    front_eager_ms = time_ms(lambda: PG.project_points_eager(
+        params, state.alive, cam, w, h, tan_x, tan_y, sh), 5)
+    front_bound_ms = n * ((59 * 4 + 1) + (12 * 4 + 1)) / PEAK_HBM_BYTES * 1e3
+    query = kernels.load("point_front").point_front_blocks_per_sm
+    query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+    front_occupancy = query(sh)
     packed = TF.sorted_pack(proj, tw, th, tile, order="exact")
     instances = int(packed.counts.to(torch.int64).sum())
     if instances != emitted:
@@ -3410,7 +3503,17 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
               "kernel_ms_records": records, "bound_ms": b["bound_ms"],
               "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / kernel_ms,
               "registers": (usage.get(KERNEL_ENTRIES["K1"]) or {}).get("registers"),
-              "blocks_per_sm": occupancy["K1"], "frame_ms": frame_ms, "gpu": gpu}
+              "blocks_per_sm": occupancy["K1"], "frame_ms": frame_ms,
+              "front": {"counts": fronts, "launches": launches["front"],
+                        "bits_differ": front_differ,
+                        "kernel_ms": front_kernel_ms,
+                        "kernel_ms_records": front_records,
+                        "bound_ms": front_bound_ms,
+                        "share_of_bound": front_bound_ms / front_kernel_ms,
+                        "usage": usage.get(KERNEL_ENTRIES["front"]),
+                        "blocks_per_sm": front_occupancy,
+                        "eager_ms": front_eager_ms},
+              "gpu": gpu}
     log(f"points serving path [{label}]: {json.dumps(record)}")
     del params, state, proj, packed, rgb
     torch.cuda.empty_cache()
@@ -3503,21 +3606,17 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     t0 = time.time()
     usage = {}
-    for name, text in kernels.build_all().items():
-        if text is not None:
-            log(f"nvcc {name}:\n{text.strip()}")
-            usage.update(ptxas_usage(text))
+    for name, text in build_logs().items():
+        log(f"nvcc {name}:\n{text.strip()}")
+        usage.update(ptxas_usage(text))
     log(f"build: {time.time() - t0:.1f} s; ptxas {json.dumps(usage)}")
+    check_spills(usage)
     occupancy = blocks_per_sm()
     log(f"blocks an SM (occupancy calculator): {json.dumps(occupancy)}")
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     clusters = cluster_occupancy((WIDTH // 32) * (HEIGHT // 32), n_sms)
     log(f"cluster launches at 32 px, tpp={SPAN_32[0]} ({n_sms} SMs): "
         f"{json.dumps(clusters)}")
-    for key in SPAN_KERNELS:
-        spills = usage.get(KERNEL_ENTRIES[key], {})
-        if spills.get("spill_stores") or spills.get("spill_loads"):
-            raise RuntimeError(f"{key} spills: {spills}")
     gpu = gpu_line()
     log(f"gpu: {gpu}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3815,7 +3914,7 @@ def main() -> int:
         # sum; ms: the wrapper call, kernel_ms: the kernel alone, the mean of
         # kernel_ms_records launch records of 20; share_of_bound: bound /
         # kernel alone; ptxas: the entry function's registers, shared memory
-        # and spills from this run's build log (None when it was built before)
+        # and spills from this run's build log
         key = name.split()[0]
         kernel_ms, records = alone[key]
         return {"name": name, "route": "cuda", "source": source,

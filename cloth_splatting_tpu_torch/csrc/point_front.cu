@@ -1,0 +1,479 @@
+// The point front end: SH colour, 3D covariance and EWA projection of every
+// free-xyz Gaussian from one camera, in one pass.
+//
+// It replaces no TPU kernel: the JAX package's front end
+// (cloth_splatting_tpu/models/point_gaussians.py::project_points_view) is
+// XLA. Python wrapper: ops/point_front.py (project_points_fused); its plain
+// PyTorch version is models/point_gaussians.py::project_points_eager, which
+// project_points_view runs on a CPU tensor or with a gradient, and which
+// this kernel answers bit for bit on the serving path.
+//
+// What it computes, per Gaussian g (inputs as stored: xyz [C, 3],
+// features_dc [C, 1, 3], features_rest [C, K-1, 3], log-scales [C, 3], WXYZ
+// rotation [C, 4], opacity logit [C, 1], alive [C]): the unit view direction
+// from the camera centre (norm clamped at 1e-8), the colour
+// max(sum_k basis_k * sh_k + 0.5, 0) at degree DEG, exp of the scales, the
+// opacity's sigmoid, the normalized quaternion's rotation R, the packed
+// covariance R diag(s^2) R^T, and the EWA projection of
+// ops/projection.py::project_gaussians (frustum clamp at 1.3 tan(fov/2),
+// +0.3 low-pass, conic, 3-sigma radius, uncapped or capped at max_radius
+// with the support cut scaled, near cull at z <= 0.2, on-screen and alive
+// tests; radius 0 and depth +inf where not valid). Every float operation is
+// the PyTorch path's, in its order and rounding: each product and sum is
+// rounded on its own (__fmul_rn / __fadd_rn, which the compiler never fuses
+// into an FMA), divisions and square roots are IEEE, exp and rsqrt the
+// libdevice functions PyTorch's kernels call, the two reductions
+// (torch.linalg.norm over 3, a sum over 4) in the order of PyTorch's
+// reduction kernel, and every constant a Python float rounded to float32.
+//
+// What bounds it on the H100: bytes. A Gaussian reads 59 floats and a byte
+// and writes 12 floats and a byte (~0.86 GB at 3.0M Gaussians, 0.26 ms at
+// 3.35 TB/s) against ~400 fp32 operations (~0.02 ms at 67 TFLOP/s).
+//
+// What the design does about it: each warp owns 32 consecutive Gaussians.
+// It copies their rows of each input into shared memory with coalesced
+// 16-byte loads (scalar coalesced loads where a row is not contiguous or
+// aligned), each row at an odd stride in floats so that lane l reading
+// float j of its own row hits bank (l * stride + j) mod 32 without a
+// conflict; each lane then computes its Gaussian from shared memory, and
+// the three-float outputs go back through shared memory as coalesced
+// stores. No block-wide barrier: blocks of 4 warps, 30,208 bytes of shared
+// memory each at degree 3 (7 blocks an SM).
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
+// one rounding per operation, never contracted into an FMA
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+
+// torch.clamp_min / clamp_max / clamp on a CUDA float tensor: NaN passes
+__device__ __forceinline__ float clamp_lo(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float clamp_hi(float v, float hi) {
+  return isnan(v) ? v : fminf(v, hi);
+}
+__device__ __forceinline__ float clamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// The PyTorch path's constants: Python floats (doubles) rounded to float32
+#define F(x) static_cast<float>(x)
+
+// Shared-memory row stride of `used` floats: odd, so a warp reading one
+// float of each of its 32 rows touches 32 banks
+__host__ __device__ constexpr int odd_stride(int used) {
+  return used % 2 ? used : used + 1;
+}
+
+// Rows of SH coefficients a degree uses beyond the DC term, times 3
+__host__ __device__ constexpr int rest_floats(int deg) {
+  return ((deg + 1) * (deg + 1) - 1) * 3;
+}
+
+struct FrontArgs {
+  const float* xyz;
+  const float* fdc;
+  const float* frest;
+  const float* scaling;
+  const float* rotation;
+  const float* opacity;
+  const bool* alive;
+  const float* world_view;  // [4, 4] row-vector transform
+  const float* full_proj;   // [4, 4]
+  const float* center;      // [3]
+  int64_t n;
+  int rest_stride;          // floats of features_rest a Gaussian: (K-1) * 3
+  float width, height, focal_x, focal_y, lim_x, lim_y, max_radius;
+  int capped;
+  float* xy;
+  float* depth;
+  float* conic;
+  float* radius;
+  float* color;
+  float* opacity_out;
+  bool* valid;
+  float* power_cut;
+};
+
+// Copies the USED leading floats of the rows of Gaussians [g0, g0 + count)
+// (rows `stride` floats apart from `src`) into dst, SS floats a row. The
+// scalar loop alone covers every input, coalesced, but its integer division
+// by USED per float costs: on the 3.0M-Gaussian gs-360-3m field at degree 3
+// the kernel takes 0.457 ms with it alone against 0.340 ms with the 16-byte
+// path for whole, aligned warps (H100 80GB HBM3, CUDA events over 50).
+template <int USED, int SS>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+                                      int64_t g0, int count, int stride,
+                                      int lane) {
+  const bool whole = count == 32 && stride == USED &&
+                     (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  if (whole) {
+    // 32 rows of USED floats: 8 * USED float4s from a 16-byte boundary
+    const float4* s4 = reinterpret_cast<const float4*>(src + g0 * USED);
+    for (int v = lane; v < 8 * USED; v += 32) {
+      const float4 q = __ldcs(s4 + v);
+      const int e = 4 * v;
+      if constexpr (SS == USED) {
+        *reinterpret_cast<float4*>(dst + e) = q;
+      } else {
+        const float vals[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dst[((e + k) / USED) * SS + (e + k) % USED] = vals[k];
+      }
+    }
+  } else {
+    for (int e = lane; e < count * USED; e += 32) {
+      const int r = e / USED, c = e % USED;
+      dst[r * SS + c] = __ldcs(src + (g0 + r) * stride + c);
+    }
+  }
+}
+
+// The real SH basis of ops/sh.py::sh_basis at the unit direction (x, y, z),
+// each term in its Python expression's order.
+template <int DEG>
+__device__ __forceinline__ void sh_basis(float x, float y, float z,
+                                         float* b) {
+  b[0] = F(0.28209479177387814);
+  if constexpr (DEG >= 1) {
+    b[1] = mul(y, F(-0.4886025119029199));
+    b[2] = mul(z, F(0.4886025119029199));
+    b[3] = mul(x, F(-0.4886025119029199));
+  }
+  if constexpr (DEG >= 2) {
+    const float xx = mul(x, x), yy = mul(y, y), zz = mul(z, z);
+    const float xy = mul(x, y), yz = mul(y, z), xz = mul(x, z);
+    b[4] = mul(xy, F(1.0925484305920792));
+    b[5] = mul(yz, F(-1.0925484305920792));
+    b[6] = mul(sub(sub(mul(zz, 2.0f), xx), yy), F(0.31539156525252005));
+    b[7] = mul(xz, F(-1.0925484305920792));
+    b[8] = mul(sub(xx, yy), F(0.5462742152960396));
+    if constexpr (DEG >= 3) {
+      b[9] = mul(mul(y, F(-0.5900435899266435)), sub(mul(xx, 3.0f), yy));
+      b[10] = mul(mul(xy, F(2.890611442640554)), z);
+      b[11] = mul(mul(y, F(-0.4570457994644658)),
+                  sub(sub(mul(zz, 4.0f), xx), yy));
+      b[12] = mul(mul(z, F(0.3731763325901154)),
+                  sub(sub(mul(zz, 2.0f), mul(xx, 3.0f)), mul(yy, 3.0f)));
+      b[13] = mul(mul(x, F(-0.4570457994644658)),
+                  sub(sub(mul(zz, 4.0f), xx), yy));
+      b[14] = mul(mul(z, F(1.445305721320277)), sub(xx, yy));
+      b[15] = mul(mul(x, F(-0.5900435899266435)), sub(xx, mul(yy, 3.0f)));
+    }
+    if constexpr (DEG >= 4) {
+      b[16] = mul(mul(xy, F(2.5033429417967046)), sub(xx, yy));
+      b[17] = mul(mul(yz, F(-1.7701307697799304)), sub(mul(xx, 3.0f), yy));
+      b[18] = mul(mul(xy, F(0.9461746957575601)), sub(mul(zz, 7.0f), 1.0f));
+      b[19] = mul(mul(yz, F(-0.6690465435572892)), sub(mul(zz, 7.0f), 3.0f));
+      b[20] = mul(add(mul(zz, sub(mul(zz, 35.0f), 30.0f)), 3.0f),
+                  F(0.10578554691520431));
+      b[21] = mul(mul(xz, F(-0.6690465435572892)), sub(mul(zz, 7.0f), 3.0f));
+      b[22] = mul(mul(sub(xx, yy), F(0.47308734787878004)),
+                  sub(mul(zz, 7.0f), 1.0f));
+      b[23] = mul(mul(xz, F(-1.7701307697799304)), sub(xx, mul(yy, 3.0f)));
+      b[24] = mul(sub(mul(xx, sub(xx, mul(yy, 3.0f))),
+                      mul(yy, sub(mul(xx, 3.0f), yy))),
+                  F(0.6258357354491761));
+    }
+  }
+}
+
+// (at least 6 blocks an SM: left to itself, ptxas gives degree 3 40
+// registers and spills 16 bytes)
+template <int DEG>
+__global__ void __launch_bounds__(kThreads, 6) point_front_kernel(FrontArgs a) {
+  constexpr int kCoef = (DEG + 1) * (DEG + 1);
+  constexpr int kRest = rest_floats(DEG);
+  constexpr int kRestSS = kRest ? odd_stride(kRest) : 0;
+  // a warp's shared memory: rest rows, then xyz, dc and log-scales (3 floats
+  // a row), then the quaternions (4 at a stride of 5)
+  constexpr int kWarpFloats = 32 * kRestSS + 3 * 96 + 32 * 5;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* s_rest = reinterpret_cast<float*>(smem4) + warp * kWarpFloats;
+  float* s_xyz = s_rest + 32 * kRestSS;
+  float* s_dc = s_xyz + 96;
+  float* s_sc = s_dc + 96;
+  float* s_rot = s_sc + 96;
+
+  const int64_t g0 = (int64_t(blockIdx.x) * kWarps + warp) * 32;
+  if (g0 >= a.n) return;
+  const int count = static_cast<int>(a.n - g0 < 32 ? a.n - g0 : 32);
+  stage<3, 3>(s_xyz, a.xyz, g0, count, 3, lane);
+  stage<3, 3>(s_dc, a.fdc, g0, count, 3, lane);
+  if constexpr (kRest > 0)
+    stage<kRest, kRestSS>(s_rest, a.frest, g0, count, a.rest_stride, lane);
+  stage<3, 3>(s_sc, a.scaling, g0, count, 3, lane);
+  stage<4, 5>(s_rot, a.rotation, g0, count, 4, lane);
+  __syncwarp();
+
+  const int64_t g = g0 + lane;
+  const bool live = lane < count;
+  float color[3] = {0.0f, 0.0f, 0.0f}, conic[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    const float* wv = a.world_view;
+    const float* fp = a.full_proj;
+    const float x = s_xyz[lane * 3 + 0], y = s_xyz[lane * 3 + 1],
+                z = s_xyz[lane * 3 + 2];
+
+    // view direction: (xyz - centre) / max(|xyz - centre|, 1e-8); the norm
+    // sums as PyTorch's reduction over 3 does (two lanes, each summing every
+    // other element: x^2 + z^2, then y^2)
+    float dx = sub(x, __ldg(a.center + 0)), dy = sub(y, __ldg(a.center + 1)),
+          dz = sub(z, __ldg(a.center + 2));
+    const float nrm = clamp_lo(
+        __fsqrt_rn(add(add(mul(dx, dx), mul(dz, dz)), mul(dy, dy))), F(1e-8));
+    dx = div(dx, nrm);
+    dy = div(dy, nrm);
+    dz = div(dz, nrm);
+
+    // SH colour, summed term by term in the JAX package's order
+    float b[kCoef];
+    sh_basis<DEG>(dx, dy, dz, b);
+    const float* rest = s_rest + lane * kRestSS;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float v = mul(b[0], s_dc[lane * 3 + c]);
+#pragma unroll
+      for (int k = 1; k < kCoef; ++k) v = add(v, mul(b[k], rest[(k - 1) * 3 + c]));
+      color[c] = clamp_lo(add(v, 0.5f), 0.0f);
+    }
+
+    // activations: exp of the scales, the opacity's sigmoid
+    float s2[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float s = expf(s_sc[lane * 3 + k]);
+      s2[k] = mul(s, s);
+    }
+    const float op = div(1.0f, add(1.0f, expf(-__ldcs(a.opacity + g))));
+
+    // quat_normalize: q * rsqrt(sum q^2 + 1e-12), the sum as PyTorch's
+    // reduction over 4 takes it (two lanes, each summing every other
+    // element): (w^2 + y^2) + (x^2 + z^2)
+    float qw = s_rot[lane * 5 + 0], qx = s_rot[lane * 5 + 1],
+          qy = s_rot[lane * 5 + 2], qz = s_rot[lane * 5 + 3];
+    const float ss = add(add(mul(qw, qw), mul(qy, qy)),
+                         add(mul(qx, qx), mul(qz, qz)));
+    const float inv = rsqrtf(add(ss, F(1e-12)));
+    qw = mul(qw, inv);
+    qx = mul(qx, inv);
+    qy = mul(qy, inv);
+    qz = mul(qz, inv);
+    // quat_to_rotmat
+    float r[3][3];
+    r[0][0] = sub(1.0f, mul(add(mul(qy, qy), mul(qz, qz)), 2.0f));
+    r[0][1] = mul(sub(mul(qx, qy), mul(qw, qz)), 2.0f);
+    r[0][2] = mul(add(mul(qx, qz), mul(qw, qy)), 2.0f);
+    r[1][0] = mul(add(mul(qx, qy), mul(qw, qz)), 2.0f);
+    r[1][1] = sub(1.0f, mul(add(mul(qx, qx), mul(qz, qz)), 2.0f));
+    r[1][2] = mul(sub(mul(qy, qz), mul(qw, qx)), 2.0f);
+    r[2][0] = mul(sub(mul(qx, qz), mul(qw, qy)), 2.0f);
+    r[2][1] = mul(add(mul(qy, qz), mul(qw, qx)), 2.0f);
+    r[2][2] = sub(1.0f, mul(add(mul(qx, qx), mul(qy, qy)), 2.0f));
+    // sym33_from_rs: (xx, xy, xz, yy, yz, zz)
+    auto cov = [&](int i, int j) {
+      return add(add(mul(mul(s2[0], r[i][0]), r[j][0]),
+                     mul(mul(s2[1], r[i][1]), r[j][1])),
+                 mul(mul(s2[2], r[i][2]), r[j][2]));
+    };
+    const float s00 = cov(0, 0), s01 = cov(0, 1), s02 = cov(0, 2),
+                s11 = cov(1, 1), s12 = cov(1, 2), s22 = cov(2, 2);
+
+    // project_gaussians: affine4_shared's row-vector transforms
+    auto affine = [&](const float* m, int j) {
+      return add(add(add(mul(x, __ldg(m + j)), mul(y, __ldg(m + 4 + j))),
+                     mul(z, __ldg(m + 8 + j))),
+                 __ldg(m + 12 + j));
+    };
+    const float t0 = affine(wv, 0), t1 = affine(wv, 1), tz = affine(wv, 2);
+    const float p_w = div(1.0f, add(affine(fp, 3), F(1e-7)));
+    const float px = sub(mul(mul(add(mul(affine(fp, 0), p_w), 1.0f), a.width), 0.5f),
+                         0.5f);
+    const float py = sub(mul(mul(add(mul(affine(fp, 1), p_w), 1.0f), a.height), 0.5f),
+                         0.5f);
+    const float tz_safe = fabsf(tz) < F(1e-6) ? F(1e-6) : tz;
+    const float tx = mul(clamp(div(t0, tz_safe), -a.lim_x, a.lim_x), tz_safe);
+    const float ty = mul(clamp(div(t1, tz_safe), -a.lim_y, a.lim_y), tz_safe);
+    const float inv_z = div(1.0f, tz_safe);
+    const float inv_z2 = mul(inv_z, inv_z);
+    const float j00 = mul(inv_z, a.focal_x);
+    const float j02 = mul(mul(tx, -a.focal_x), inv_z2);
+    const float j11 = mul(inv_z, a.focal_y);
+    const float j12 = mul(mul(ty, -a.focal_y), inv_z2);
+    // A = J W, W_colvec[i][j] = world_view[j][i]
+    const float a00 = add(mul(j00, __ldg(wv + 0)), mul(j02, __ldg(wv + 2)));
+    const float a01 = add(mul(j00, __ldg(wv + 4)), mul(j02, __ldg(wv + 6)));
+    const float a02 = add(mul(j00, __ldg(wv + 8)), mul(j02, __ldg(wv + 10)));
+    const float a10 = add(mul(j11, __ldg(wv + 1)), mul(j12, __ldg(wv + 2)));
+    const float a11 = add(mul(j11, __ldg(wv + 5)), mul(j12, __ldg(wv + 6)));
+    const float a12 = add(mul(j11, __ldg(wv + 9)), mul(j12, __ldg(wv + 10)));
+    // sym33_quadform2
+    auto s_dot = [&](float q0, float q1, float q2, float* o) {
+      o[0] = add(add(mul(s00, q0), mul(s01, q1)), mul(s02, q2));
+      o[1] = add(add(mul(s01, q0), mul(s11, q1)), mul(s12, q2));
+      o[2] = add(add(mul(s02, q0), mul(s12, q1)), mul(s22, q2));
+    };
+    float t[3], u[3];
+    s_dot(a00, a01, a02, t);
+    float c00 = add(add(mul(a00, t[0]), mul(a01, t[1])), mul(a02, t[2]));
+    const float c01 = add(add(mul(a10, t[0]), mul(a11, t[1])), mul(a12, t[2]));
+    s_dot(a10, a11, a12, u);
+    float c11 = add(add(mul(a10, u[0]), mul(a11, u[1])), mul(a12, u[2]));
+    c00 = add(c00, F(0.3));
+    c11 = add(c11, F(0.3));
+    const float det = sub(mul(c00, c11), mul(c01, c01));
+    const float det_safe = fabsf(det) < F(1e-12) ? F(1e-12) : det;
+    const float inv_det = div(1.0f, det_safe);
+    conic[0] = mul(c11, inv_det);
+    conic[1] = mul(-c01, inv_det);
+    conic[2] = mul(c00, inv_det);
+    const float mid = mul(add(c00, c11), 0.5f);
+    const float lambda1 =
+        add(mid, __fsqrt_rn(clamp_lo(sub(mul(mid, mid), det), F(0.1))));
+    const float radius_raw = ceilf(mul(__fsqrt_rn(lambda1), 3.0f));
+    float radius = radius_raw, power_cut = -4.5f;
+    if (a.capped) {
+      radius = clamp_hi(radius_raw, a.max_radius);
+      const float ratio = div(radius, clamp_lo(radius_raw, 1.0f));
+      power_cut = mul(mul(ratio, ratio), -4.5f);
+    }
+    const bool valid = tz > F(0.2) && det > 0.0f && add(px, radius) > 0.0f &&
+                       sub(px, radius) < a.width && add(py, radius) > 0.0f &&
+                       sub(py, radius) < a.height && a.alive[g];
+
+    reinterpret_cast<float2*>(a.xy)[g] = make_float2(px, py);
+    a.depth[g] = valid ? tz : INFINITY;
+    a.radius[g] = valid ? radius : 0.0f;
+    a.opacity_out[g] = op;
+    a.valid[g] = valid;
+    a.power_cut[g] = power_cut;
+  }
+
+  // colour and conic back through shared memory (the inputs' rows are read)
+  __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s_xyz[lane * 3 + c] = color[c];
+      s_dc[lane * 3 + c] = conic[c];
+    }
+  }
+  __syncwarp();
+  for (int e = lane; e < count * 3; e += 32) {
+    a.color[g0 * 3 + e] = s_xyz[e];
+    a.conic[g0 * 3 + e] = s_dc[e];
+  }
+}
+
+template <int DEG>
+constexpr size_t smem_bytes() {
+  constexpr int kRest = rest_floats(DEG);
+  return sizeof(float) * kWarps *
+         (32 * (kRest ? odd_stride(kRest) : 0) + 3 * 96 + 32 * 5);
+}
+
+template <int DEG>
+cudaError_t launch(const FrontArgs& a, cudaStream_t s) {
+  const int64_t blocks = (a.n + kThreads - 1) / kThreads;
+  point_front_kernel<DEG><<<static_cast<unsigned>(blocks), kThreads,
+                            smem_bytes<DEG>(), s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the point front end on `stream` for n Gaussians at SH degree
+// sh_degree (0-4). Inputs are device pointers to contiguous float32 xyz
+// [n, 3], features_dc [n, 1, 3], features_rest [n, rest_stride / 3, 3]
+// (rest_stride >= ((sh_degree + 1)^2 - 1) * 3), log-scales [n, 3], rotation
+// [n, 4], opacity [n, 1], bool alive [n], the camera's world_view and
+// full_proj [4, 4] and centre [3]; outputs contiguous xy [n, 2], depth,
+// radius, opacity, power_cut [n], conic and color [n, 3] float32 and valid
+// [n] bool. focal_* = size / (2 tan(fov/2)) and lim_* = 1.3 tan(fov/2),
+// each a double rounded to float; capped != 0 caps radii at max_radius.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported degree).
+extern "C" int point_front_launch(
+    const void* xyz, const void* fdc, const void* frest, int rest_stride,
+    const void* scaling, const void* rotation, const void* opacity,
+    const void* alive, const void* world_view, const void* full_proj,
+    const void* center, int64_t n, int sh_degree, int width, int height,
+    float focal_x, float focal_y, float lim_x, float lim_y, int capped,
+    float max_radius, void* xy, void* depth, void* conic, void* radius,
+    void* color, void* opacity_out, void* valid, void* power_cut,
+    void* stream) {
+  if (sh_degree < 0 || sh_degree > 4 || rest_stride < rest_floats(sh_degree))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  FrontArgs a{static_cast<const float*>(xyz),
+              static_cast<const float*>(fdc),
+              static_cast<const float*>(frest),
+              static_cast<const float*>(scaling),
+              static_cast<const float*>(rotation),
+              static_cast<const float*>(opacity),
+              static_cast<const bool*>(alive),
+              static_cast<const float*>(world_view),
+              static_cast<const float*>(full_proj),
+              static_cast<const float*>(center),
+              n,
+              rest_stride,
+              static_cast<float>(width),
+              static_cast<float>(height),
+              focal_x,
+              focal_y,
+              lim_x,
+              lim_y,
+              max_radius,
+              capped,
+              static_cast<float*>(xy),
+              static_cast<float*>(depth),
+              static_cast<float*>(conic),
+              static_cast<float*>(radius),
+              static_cast<float*>(color),
+              static_cast<float*>(opacity_out),
+              static_cast<bool*>(valid),
+              static_cast<float*>(power_cut)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (sh_degree) {
+    case 0: err = launch<0>(a, s); break;
+    case 1: err = launch<1>(a, s); break;
+    case 2: err = launch<2>(a, s); break;
+    case 3: err = launch<3>(a, s); break;
+    default: err = launch<4>(a, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// Blocks of the front end at sh_degree that one SM holds at once, from the
+// runtime's occupancy calculator; -1 for an unsupported degree or an error.
+extern "C" int point_front_blocks_per_sm(int sh_degree) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (sh_degree) {
+    case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, point_front_kernel<0>, kThreads, smem_bytes<0>()); break;
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, point_front_kernel<1>, kThreads, smem_bytes<1>()); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, point_front_kernel<2>, kThreads, smem_bytes<2>()); break;
+    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, point_front_kernel<3>, kThreads, smem_bytes<3>()); break;
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, point_front_kernel<4>, kThreads, smem_bytes<4>()); break;
+    default: break;
+  }
+  return err == cudaSuccess ? n : -1;
+}

@@ -22,7 +22,8 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"tiled_fwd": CSRC / "tiled_fwd.cu",
-           "tiled_train": CSRC / "tiled_train.cu"}
+           "tiled_train": CSRC / "tiled_train.cu",
+           "point_front": CSRC / "point_front.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

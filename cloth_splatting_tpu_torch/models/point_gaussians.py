@@ -18,11 +18,16 @@ keeps that cap. ``render_points`` serves through the serving rasterizer
 (``ops/rasterize/tiled_fwd.py``: exact binning of every (tile, Gaussian)
 pair, any frame size, K1 on the card) when no leaf needs a gradient, and
 through the dense tier (``ops/rasterize/tiled.py``), as the JAX package's
-goes through its XLA tier, when one does.
+goes through its XLA tier, when one does. On the same condition, with CUDA
+tensors, the front end (SH, covariance, EWA) is one launch of the
+hand-written kernel ``csrc/point_front.cu`` (``ops/point_front.py``'s
+``project_points_fused``), which gives the PyTorch ops' bits; every other
+call runs those ops (``project_points_eager``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import NamedTuple, Sequence
 
@@ -37,6 +42,7 @@ from cloth_splatting_tpu_torch.models.gaussians import (
 )
 from cloth_splatting_tpu_torch.ops.image import inverse_sigmoid
 from cloth_splatting_tpu_torch.ops.knn import mean_knn_sq_dist
+from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
 from cloth_splatting_tpu_torch.ops.projection import (
     MAX_SPLAT_RADIUS,
     ProjectedGaussians,
@@ -49,6 +55,12 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fw
 from cloth_splatting_tpu_torch.ops.sh import eval_sh, rgb_to_sh, sh_to_rgb
 from cloth_splatting_tpu_torch.ops.smallmat import bmv3
 from cloth_splatting_tpu_torch.utils.profiling import span
+
+
+# Calls of ``project_points_view`` since the process started (or the caller
+# last cleared it): "front_fused" ran the front-end kernel, "front_eager"
+# the PyTorch ops.
+COUNTS: collections.Counter = collections.Counter()
 
 
 class PointGaussianParams(NamedTuple):
@@ -221,6 +233,13 @@ def add_densification_stats(state: PointGaussianState, xy_grad_norm: torch.Tenso
 # ---------------------------------------------------------------- rendering
 
 
+def serving(params: PointGaussianParams) -> bool:
+    """True when no leaf of ``params`` needs a gradient: ``render_points``
+    then serves without autograd, and on CUDA tensors the front end is the
+    kernel."""
+    return not (torch.is_grad_enabled() and any(p.requires_grad for p in params))
+
+
 def project_points_view(params: PointGaussianParams, state: PointGaussianState,
                         cam, width: int, height: int, tanfovx: float,
                         tanfovy: float, sh_degree: int,
@@ -228,18 +247,32 @@ def project_points_view(params: PointGaussianParams, state: PointGaussianState,
     """The front half of ``render_points``: SH colours and the EWA
     projection of the free-xyz model from one camera (``CameraArrays``);
     ``max_radius`` None is the published rule, a splat's whole 3-sigma
-    support."""
+    support. CUDA tensors with no leaf needing a gradient take the kernel
+    (``project_points_fused``), anything else the PyTorch ops
+    (``project_points_eager``); ``COUNTS`` counts which."""
+    fused = params.xyz.is_cuda and serving(params)
+    COUNTS["front_fused" if fused else "front_eager"] += 1
     with span("points.project_view"):
-        dirs = params.xyz - cam.camera_center[None]
-        dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True),
-                                      1e-8)
-        colors = torch.clamp_min(eval_sh(sh_degree, get_features(params), dirs) + 0.5,
-                                 0.0)
-        cov = build_covariance(get_scaling(params), params.rotation)
-        return project_gaussians(params.xyz, cov, colors, get_opacity(params)[:, 0],
-                                 cam.world_view, cam.full_proj, width, height,
-                                 tanfovx, tanfovy, alive=state.alive,
-                                 max_radius=max_radius)
+        project = project_points_fused if fused else project_points_eager
+        return project(params, state.alive, cam, width, height, tanfovx, tanfovy,
+                       sh_degree, max_radius)
+
+
+def project_points_eager(params: PointGaussianParams, alive: torch.Tensor, cam,
+                         width: int, height: int, tanfovx: float, tanfovy: float,
+                         sh_degree: int,
+                         max_radius: float | None = None) -> ProjectedGaussians:
+    """``project_points_view`` in PyTorch ops, on any device and
+    differentiable: the kernel's plain version."""
+    dirs = params.xyz - cam.camera_center[None]
+    dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                                  1e-8)
+    colors = torch.clamp_min(eval_sh(sh_degree, get_features(params), dirs) + 0.5,
+                             0.0)
+    cov = build_covariance(get_scaling(params), params.rotation)
+    return project_gaussians(params.xyz, cov, colors, get_opacity(params)[:, 0],
+                             cam.world_view, cam.full_proj, width, height,
+                             tanfovx, tanfovy, alive=alive, max_radius=max_radius)
 
 
 def render_points(params: PointGaussianParams, state: PointGaussianState, cam,
@@ -250,16 +283,17 @@ def render_points(params: PointGaussianParams, state: PointGaussianState, cam,
     """Render the free-xyz model from one camera: (rgb [3, H, W], depth
     [1, H, W], radii [C]); splats uncapped unless ``max_radius`` is given.
 
-    When no leaf of ``params`` needs a gradient, the serving rasterizer
-    (every (tile, Gaussian) pair binned, sorted by exact depth, composited
-    by K1 on the card and by its plain walk on the CPU) without autograd;
-    otherwise the dense tier (per-tile list capacity ``k_cap``, chunk
-    ``k_chunk``), differentiable."""
-    serving = not (torch.is_grad_enabled() and any(p.requires_grad for p in params))
-    with span("points.render"), torch.no_grad() if serving else contextlib.nullcontext():
+    When no leaf of ``params`` needs a gradient (``serving``), the front-end
+    kernel on CUDA tensors and the serving rasterizer (every (tile,
+    Gaussian) pair binned, sorted by exact depth, composited by K1 on the
+    card and by its plain walk on the CPU) without autograd; otherwise the
+    PyTorch front end and the dense tier (per-tile list capacity ``k_cap``,
+    chunk ``k_chunk``), differentiable."""
+    serve = serving(params)
+    with span("points.render"), torch.no_grad() if serve else contextlib.nullcontext():
         proj = project_points_view(params, state, cam, width, height, tanfovx,
                                    tanfovy, sh_degree, max_radius)
-        if serving:
+        if serve:
             bg = tuple(float(c) for c in bg_color)
             rgb, depth, _, _ = rasterize_tiled_fwd(proj, width, height, bg,
                                                    pack_order="exact")

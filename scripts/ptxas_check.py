@@ -1,5 +1,5 @@
 """Checks how the port's tile kernels (K1, K2, K3 and the span forms
-K1-span, K2-span, K4) come out of ptxas.
+K1-span, K2-span, K4) and its point front end come out of ptxas.
 
 Builds ``cloth_splatting_tpu_torch/csrc`` at ptxas -O0, -O1 and -O3 (the
 default), once from the sources as they are and once with one rewrite of
@@ -14,8 +14,12 @@ window most programs fit and with a window of one chunk (mostly the
 overflow walk), in programs of 2 tiles and of 8 (the cluster program of the
 three span kernels in clusters of 2 and of 8 CTAs, the largest portable
 size); K1-span and K2-span are also held bit-identical to K1 and K2, and K4
-to its plain version and to K3. Before that it compares the PTX of every
-kernel between the two forms.
+to its plain version and to K3. Each build's point front end
+(``csrc/point_front.cu``, which includes no shared header) must spill
+nothing at any SH degree, and its outputs on a 50,000-Gaussian field drawn
+as the benchmark's gs-360-3m must equal the PyTorch ops' bit for bit at
+degrees 0-3, uncapped and capped at 24 px. Before that it compares the PTX
+of every kernel between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
 
@@ -40,6 +44,7 @@ LEVELS = (0, 1, 3)
 FORMS = ("as-is", "loop-index")
 PACKS = ((32, 256, 20000), (16, 128, 6000), (16, 128, 300))
 SPANS = ((2, 41), (2, 1), (8, 41))   # (tiles_per_program, span_cap)
+FRONT_GAUSSIANS = 50_000
 # each line of the rewrite, found once in the walk
 _WALKED = (
     ("  int walked = n_chunks;\n  for (int ci = 0; ci < n_chunks; ++ci) {",
@@ -101,11 +106,11 @@ def check(form: str, level: int) -> bool:
     kernels.CSRC = src
     kernels.SOURCES = {name: src / path.name for name, path in kernels.SOURCES.items()}
     kernels.NVCC_FLAGS = kernels.NVCC_FLAGS + ["-Xptxas", f"-O{level}"]
-    kernels.build_all()
+    logs = kernels.build_all()
     dev = torch.device("cuda")
+    ok = check_front(cs.ptxas_usage(logs["point_front"] or ""), form, level, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
-    ok = True
     for ts, size, n in PACKS:
         packed = sorted_pack(cs.deep_proj(n, size, size, gen, dev), size // ts,
                              size // ts, ts, order="exact")
@@ -140,6 +145,48 @@ def check(form: str, level: int) -> bool:
             ok = ok and err is None
             print(json.dumps({"form": form, "ptxas": f"-O{level}", "pack": label,
                               "kernel": kernel, "ok": err is None, "error": err}),
+                  flush=True)
+    return ok
+
+
+def check_front(usage: dict, form: str, level: int, dev) -> bool:
+    """The point front end of this build: its registers and spills at each
+    SH degree (``usage``, from the build's log), and its outputs against
+    the PyTorch ops' on a gs-360-3m field of FRONT_GAUSSIANS Gaussians;
+    True when nothing spills and every output is bit-identical."""
+    import torch
+
+    import chip_smoke as cs
+    from benchmark.drivers.render_points import camera, make_field
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
+    from cloth_splatting_tpu_torch.render import CameraArrays
+
+    entries = {k: v for k, v in usage.items() if k.startswith("point_front_kernel<")}
+    ok = len(entries) == 5 and not any(v.get("spill_stores") or v.get("spill_loads")
+                                       for v in entries.values())
+    print(json.dumps({"form": form, "ptxas": f"-O{level}", "kernel": "front",
+                      "usage": entries, "ok": ok}), flush=True)
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "gs-360-3m.json").read_text())
+    params = PG.PointGaussianParams(**make_field({**cfg, "gaussians": FRONT_GAUSSIANS},
+                                                 1, dev))
+    alive = torch.rand(FRONT_GAUSSIANS, device=dev) > 0.1
+    img = cfg["image"]
+    w, h, tan_x = img["width"], img["height"], img["tan_half_fov_x"]
+    tan_y = tan_x * h / w
+    cam = camera((0.7, 0.25, 3.6), tan_x, tan_y, dev)
+    cam = CameraArrays(cam["world_view"], cam["full_proj"], cam["center"],
+                       torch.zeros((), device=dev))
+    for deg in range(4):
+        for cap in (None, 24.0):
+            args = (params, alive, cam, w, h, tan_x, tan_y, deg, cap)
+            got, want = project_points_fused(*args), PG.project_points_eager(*args)
+            differ = cs.bits_differ(got, want)
+            agree = not any(differ.values())
+            ok = ok and agree
+            print(json.dumps({"form": form, "ptxas": f"-O{level}",
+                              "kernel": f"front degree {deg} max_radius {cap}",
+                              "ok": agree, "error": None if agree else differ}),
                   flush=True)
     return ok
 
