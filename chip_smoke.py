@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port (``cloth_splatting_tpu_torch``) on one card.
+"""Gate the PyTorch + CUDA port (``cloth_splatting_tpu_torch``) on one card.
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure:
-  1. build every kernel of the port from ``cloth_splatting_tpu_torch/csrc``
+The port's correctness gate on the card: each kernel against its plain
+PyTorch version, and each main path of the port driven on the card with
+its kernel launches counted (``kernels.LAUNCHES``), its outputs checked
+and, where the port promises it, the same bits twice. Speed is the
+benchmark's (``python3 -m benchmark.run``) and, for a kernel edit,
+``scripts/kernel_ab.py``'s: the only times taken here are each kernel
+alone (the ``kernels`` line) and each phase's seconds. Phases, each of
+which raises on failure:
+  1. build: every kernel of the port from ``cloth_splatting_tpu_torch/csrc``
      (one ``nvcc`` per source, all started together; a library built before
      is compiled again into a temporary directory for its log), read each
      kernel's registers, shared memory and spills from the build log, fail
      when the span kernels or any of the point front end's five SH degrees
      spill or are missing from it, and print the card's name and power
      limit;
-  2. hold each kernel against its plain PyTorch version on the card: K1 on
-     the packs of the 65k-Gaussian 800x800 serving scene for two orbit
+  2. kernels: each kernel against its plain PyTorch version on the card: K1
+     on the packs of the 65k-Gaussian 800x800 serving scene for two orbit
      views, and K2 and K3 on the pack of the 65k training scene; all three
      also on deep synthetic packs (thousands of instances per tile, so the
      transmittance exit fires) at both tile sizes; K3 and K4 also against a
@@ -31,25 +38,23 @@ Phases, each of which raises on failure:
      ``tpp`` 5 (the window decides only where a chunk is read from); and the
      three at ``tpp`` 11 over 121 tiles, clusters of one CTA, with
      ``span_cap`` 96 (clamped to what one CTA holds);
-  3. time the six kernels and their plain versions;
-  4. serve frames of the scene at different views and times through the
-     port's ``render`` with the launch counters set to 0 just before and
-     the port's spans on (their host time gives a frame's stages), and
-     check that K1 was launched once per frame and that the frames are
-     finite with nonzero coverage; then the same frames with the span
-     options on (K1-span), beside the default's time;
-  5. check a small render, and the gradients of the differentiable
+  3. alone: each of the six kernels alone (torch.profiler) on the packs of
+     phase 2, the span forms also at ``span_cap`` 96, and its bound from the
+     benchmark's counts (``benchmark/counts/``);
+  4. serving: frames of the scene at different views and times through the
+     port's ``render`` with the launch counts cleared just before: K1
+     launched once per frame and nothing else, the frames finite with
+     nonzero coverage; then the same frames with the span options on, which
+     launch K1-span once a frame and nothing else;
+  5. oracle: a small render, and the gradients of the differentiable
      rasterizer (K2 forward, K3 backward, under autograd; once more with
      the span options: K2-span, K4), against the O(N*P) oracle;
-  6. train: a warm-up step and 5 timed steps of the port's ``Trainer`` on
+  6. train: a warm-up step and 5 steps of the port's ``Trainer`` on
      bench.py's 65k training configuration (3 cameras, 800x800) with the
-     launch counters set to 0 just before and the port's spans on (their
-     host time gives the step's stages), checking that K2 and K3 ran 3
-     times per step, that the loss is finite and that the Gaussians and the
-     simulator moved; then 5 steps with the span options on (K2-span, K4),
-     beside the default's time; then what determinism costs: 5 steps with
-     the package's deterministic switch off, on, on, off, device and host
-     ms per step (the dense phase does the same for its frames);
+     launch counts cleared just before, checking that K2 and K3 ran 3
+     times per step and nothing else, that the loss is finite and that the
+     Gaussians and the simulator moved; then 5 steps with the span options
+     on, which launch K2-span and K4 3 times a step and nothing else;
   7. fit: a scene built in memory (the 65k mesh on an inextensible wave over
      5 times, 4 orbit views rendered at 800x800 by the port's serving path
      into uint8 banks) fitted for 300 iterations of ``fit_banks`` with
@@ -59,33 +64,31 @@ Phases, each of which raises on failure:
   8. eval: the fit's final state, as the fit hands it to
      ``save_scene_checkpoint``, through ``eval.render_sets.render_frames``
      over the fit's 5 held-out frames and the 80-pose spherical video orbit
-     at 800x800 (FPS per split; K1 launched 2 n + 1 times a split and no
-     other kernel), the held-out frames scored in memory by
-     ``eval.metrics.score_images`` (PSNR, SSIM, LPIPS on the ``fixture-v1``
-     weights; the mean PSNR equal to the fit's own held-out evaluation
-     within 1e-3 dB, a frame's LPIPS against itself 0), and the tracked
-     trajectories (Gaussians, then vertices) written as ``all_trajs.npz``
-     and scored against the fit's true vertex trajectory by
-     ``eval.tracking.evaluate_tracking`` (finite MTE);
+     at 800x800 (K1 launched 2 n + 1 times a split and no other kernel),
+     the held-out frames scored in memory by ``eval.metrics.score_images``
+     (PSNR, SSIM, LPIPS on the ``fixture-v1`` weights; the mean PSNR equal
+     to the fit's own held-out evaluation within 1e-3 dB, a frame's LPIPS
+     against itself 0), and the tracked trajectories (Gaussians, then
+     vertices) written as ``all_trajs.npz`` and scored against the fit's
+     true vertex trajectory by ``eval.tracking.evaluate_tracking`` (finite
+     MTE);
   9. bench: ``cloth_splatting_tpu_torch.bench.run`` at the root bench.py's
-     default scales (65k FPS over 40 views on the serving scene; train
-     iterations per second at 4k, 24k and 65k over 20 steps), checking its
-     launch counts, and its JSON line;
+     default scales (the 65k serving scene; training at 4k, 24k and 65k):
+     its launch counts, and finite, positive rates;
  10. dense: the dense tier (``ops/rasterize/tiled.py``, plain PyTorch) on
      the card against the same function on the CPU at 128x128 with a k_cap
      that drops (values and gradients within 1e-5, the same dropped count
      and deepest tile); the 65k serving frames through
      ``render(backend="tiled")`` at k_cap 512 (launching none of the port's
-     kernels; ms per frame, dropped instances, the k_cap at which nothing
-     drops, PSNR against K1's frame); the fit's scene fitted through the
-     tier from k_cap 64: ``grow_k_cap`` runs and the final evaluation drops
-     nothing;
+     kernels; dropped instances, the k_cap at which nothing drops, PSNR
+     against K1's frame); the fit's scene fitted through the tier from
+     k_cap 64: ``grow_k_cap`` runs and the final evaluation drops nothing;
  11. parity: the parity arm at full width (800x800, 24 views, 8 times,
      ``mesh_res`` 24, noise 0) through ``parity_bench``'s in-memory form for
      300 iterations: finite numbers, the held-out PSNR above the initial
-     state's, K1, K2 and K3 launched as often as the run asks; its JSON line;
-     then the same fit again in the same process: every tensor of the final
-     state, the alive count and the line bit-identical to the first fit's;
+     state's, K1, K2 and K3 launched as often as the run asks; then the same
+     fit again in the same process: every tensor of the final state, the
+     alive count and the line bit-identical to the first fit's;
  12. gnn: the GNN dynamics at the full width of the root
      ``train_meshnet_sim.py`` (latent 128, 15 message-passing layers, batch
      32, 200 nodes) on the root ``datacollection.py``'s data (20 trajectories
@@ -93,26 +96,25 @@ Phases, each of which raises on failure:
      against the CPU's), ``train_meshnet`` over 6 curriculum epochs of 10
      steps (the loss must fall within each unroll length) and once more,
      bit for bit; one training step at unroll lengths 1 and 3 against the
-     same step on the CPU; ms per step at unroll lengths 1, 2, 3; a timed
-     validation rollout; a real-world rollout from a start with 3 mm
-     tracking noise whose refinement must lower the edge-length deviation
-     (and from the clean start, reported); no tile kernel launched;
+     same step on the CPU; a validation rollout (finite MSE); a real-world
+     rollout from a start with 3 mm tracking noise whose refinement must
+     lower the edge-length deviation (and from the clean start, reported);
+     no tile kernel launched;
  13. planning: the closed manipulation loop at the root ``planning.py``'s
      defaults (16 candidates, horizon 4, plans of 12 steps, the 64-sample
      estimation mesh of a 12x12 cloth, 5 views of 96x96, 150 static and
      200 refine steps), planning with the GNN the gnn phase trained:
      ``MPC.model_rollout`` on the card against the CPU (positions within
      1e-5: the eager first call, the call that captures the CUDA graph and
-     a replay; ms per call; one eager call, one capture, then replays); one
-     ``mpc-cs`` episode of 3 steps (max_steps cut from 20) through the
-     in-memory path, with K2 and K3 launched once per
-     camera of every refiner step and no other kernel, finite costs and a
-     finite refined history [4, 64, 3]; the same episode again, bit for bit
-     (costs, history, every tensor of the refiner's state); K2 and K3
-     against their plain versions on the final refiner state's pack at
-     96x96 (16 px tiles); ms per refine step and per observation render;
-     and 3-step episodes of ``fixed``, ``random``, ``mpc-oracle`` and
-     ``mpc-ol`` (finite costs, no kernel);
+     a replay; one eager call, one capture, one replay); one ``mpc-cs``
+     episode of 3 steps (max_steps cut from 20) through the in-memory path,
+     with K2 and K3 launched once per camera of every refiner step and no
+     other kernel, finite costs and a finite refined history [4, 64, 3];
+     the same episode again, bit for bit (costs, history, every tensor of
+     the refiner's state); K2 and K3 against their plain versions on the
+     final refiner state's pack at 96x96 (16 px tiles); and 3-step episodes
+     of ``fixed``, ``random``, ``mpc-oracle`` and ``mpc-ol`` (finite costs,
+     no kernel);
  14. legacy: ``models.point_gaussians.fit_static_scene`` (the free-xyz
      model through the dense tier) at the root ``fit_legacy.py``'s defaults
      (sh 3, 500 iterations, k_cap 256, 50 training cameras, white
@@ -135,39 +137,35 @@ Phases, each of which raises on failure:
      through ``parallel.launch`` on the one card: a world of one NCCL rank
      takes 5 sharded steps of the 65k train cell (mesh 1x1) bit-identical
      to 5 ``Trainer.step_banked`` steps from the same state (K2 and K3 3
-     times a step; ms a step of both), then ``train_scene(device_mesh=1x1)``
-     on the sweep's scene 1, every state tensor bit-identical to its lone
-     run, then the GNN cut (3 curriculum epochs of one step at the gnn
-     phase's width) data-parallel, against the single process (loss 1e-6
-     relative a step, parameters 1e-5); two gloo ranks sharing the card take
-     3 timed steps on meshes 2x1 and 1x2, then 3 more, each held to the
-     Trainer's step from the same state (metrics 1e-4, face_bary 5e-5,
-     grad_accum 1e-3 / 1e-7; the timed run's drift from the Trainer's run
-     reported; a shared-card check, not a multi-card speed) and the GNN cut
-     (16 samples a rank; loss 1e-5);
+     times a step), then ``train_scene(device_mesh=1x1)`` on the sweep's
+     scene 1, every state tensor bit-identical to its lone run, then the
+     GNN cut (3 curriculum epochs of one step at the gnn phase's width)
+     data-parallel, against the single process (loss 1e-6 relative a step,
+     parameters 1e-5); two gloo ranks sharing the card take 3 steps on
+     meshes 2x1 and 1x2, then 3 more, each held to the Trainer's step from
+     the same state (metrics 1e-4, face_bary 5e-5, grad_accum 1e-3 / 1e-7;
+     the free-running steps' drift from the Trainer's run reported) and the
+     GNN cut (16 samples a rank; loss 1e-5);
  17. points: ``models.point_gaussians.render_points`` without a gradient on
      the benchmark's gs-360-3m field (3.0M free-xyz Gaussians, SH 3,
      uncapped splats) at 1237x822, whose last column and row of 32 px tiles
-     are partial: K1 launched once a frame and nothing else, the frame
-     bit-identical to K1's output of its pack, which holds every instance
-     the frame's binning emitted and agrees with K1's plain walk within
-     1e-5 (depth: 1e-5 of the deepest Gaussian's); K1 alone on that pack,
-     its bound, registers and blocks an SM; the point front end's kernel
-     (``csrc/point_front.cu``) launched once a frame and the PyTorch ops
-     never run, its
-     ``ProjectedGaussians`` of the frame bit-identical to the PyTorch ops',
-     and the kernel alone against its byte bound, with its registers and
-     blocks an SM, beside the PyTorch ops' time.
+     are partial: K1 and the point front end's kernel
+     (``csrc/point_front.cu``) launched once a frame and nothing else, the
+     PyTorch ops never run; the frame bit-identical to K1's output of its
+     pack, which holds every instance the frame's binning emitted and
+     agrees with K1's plain walk within 1e-5 (depth: 1e-5 of the deepest
+     Gaussian's); the front end's ``ProjectedGaussians`` of the frame
+     bit-identical to the PyTorch ops'; K1 and the front end alone, each
+     with its bound, registers and blocks an SM.
 
-Prints a {"serving": ...} line, a {"train": ...} line, a {"span_ab": ...}
-line, a {"fit": ...} line, an {"eval": ...} line, the bench line, a
-{"dense": ...} line, the parity line, a {"parity": ...} line, a {"gnn": ...}
-line, a {"planning": ...} line, a {"legacy": ...} line, a {"sweep": ...}
-line, a {"mesh": ...} line, a {"points": ...} line, a {"kernels": [...]}
-line and, last,
-{"ok": true, "device": ...}. Exits non-zero and prints no
-result when CUDA is unavailable, when the port package is missing, or when
-any phase fails. Imports nothing of JAX.
+Prints a {"train": ...} line, a {"span": ...} line, a {"fit": ...} line, an
+{"eval": ...} line, a {"dense": ...} line, a {"parity": ...} line, a
+{"gnn": ...} line, a {"planning": ...} line, a {"legacy": ...} line, a
+{"sweep": ...} line, a {"mesh": ...} line, a {"points": ...} line, a
+{"kernels": [...]} line, a {"phases": {phase: seconds}} line and, last,
+{"ok": true, "device": ...}. Exits non-zero and prints no result when CUDA
+is unavailable, when the port package is missing, or when any phase fails.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -182,7 +180,6 @@ import time
 # the field of view, background and training camera times of the benchmark
 # entry, whose serving scene and training configuration this script drives
 from cloth_splatting_tpu_torch.bench import BG, FOV, TRAIN_TIMES
-from cloth_splatting_tpu_torch.utils import profiling
 
 SEED = 0
 WIDTH = HEIGHT = 800
@@ -190,10 +187,6 @@ MESH_RES = 128           # grid_cloth_mesh(128, 128): 65,024 Gaussians
 TRAIN_CAPACITY = 65536
 N_FRAMES = 8
 TRAIN_STEPS = 5
-# the port's spans whose host time gives a train step's and a frame's stages
-STEP_SPANS = ("forward", "render.project_view", "raster.sort_pack", "raster.composite",
-              "loss", "backward", "update")
-FRAME_SPANS = ("render", "render.project_view", "raster.sort_pack", "raster.composite")
 # the span options: 625 tiles of 32 px are 5^4, so tiles_per_program must be
 # 5 there (4 or 8 would silently turn the span off); 2,500 tiles of 16 px
 # take 4. The three span kernels run a program as a cluster of
@@ -225,8 +218,8 @@ FIT_SCHEDULE = dict(iterations=FIT_ITERATIONS, densify_from_iter=100,
 # mean's float rounding differs)
 VIDEO_POSES = 80
 TOL_EVAL_PSNR_DB = 1e-3
-# the bench phase: a warm-up frame and 40 timed views; a warm-up step and 20
-# timed steps of 3 cameras at each of the three training scales
+# the bench phase: a warm-up frame and 40 views; a warm-up step and 20
+# steps of 3 cameras at each of the three training scales
 BENCH_K1 = 1 + 40
 BENCH_K2_K3 = 3 * 3 * (1 + 20)
 # the dense phase: the dense tier (plain PyTorch, the JAX package's XLA tier)
@@ -268,7 +261,6 @@ GNN_MODEL = dict(input_sequence_length=2, n_message_passing=15, latent=128)
 GNN_TRAINER = dict(lr_init=3e-4, lr_decay_rate=0.1, lr_decay_steps=300.0,
                    noise_std=0.0, normalize=True, input_seq_len=2)
 GNN_NODES, GNN_BATCH, GNN_EPOCHS, GNN_STEPS_PER_EPOCH = 200, 32, 6, 10
-GNN_TIMED_STEPS = 5
 GNN_REAL_WORLD_STEPS = 5
 # the real-world rollout starts from the held-out mesh as a tracker sees it:
 # each point off by this much (m, per coordinate; the CPU tests' synthetic
@@ -310,8 +302,6 @@ PLAN_CFG = dict(n_candidates=16, horizon=4, traj_len=12, action_repetition=1,
                 static_steps=150, n_views=5, image_size=96, seed=0)
 PLAN_STEPS, PLAN_STEPS_FULL = 3, 20
 PLAN_OTHER_MODALITIES = ("fixed", "random", "mpc-oracle", "mpc-ol")
-PLAN_ROLLOUT_REPS = 10
-PLAN_TIMED_REFINE = 20
 # the card's candidate rollouts (positions, m) against the CPU's from the
 # same state and inputs: the CPU tests hold the port's batched rollout to
 # JAX's vmap and to single rollouts at 1e-5 (TOL_ROLLOUT of
@@ -419,25 +409,15 @@ GRAD_FIELDS = {"xy": slice(0, 2), "conic": slice(2, 5), "color": slice(5, 8),
 TOL_ORACLE = {"rgb": 3e-4, "depth": 3e-3, "alpha": 3e-4}
 TOL_ORACLE_GRAD = 2e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, and HBM3 bandwidth; benchmark/run.py's PEAK_FLOPS["fp32"]
+# and PEAK_BYTES
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# fp32 operations of the function per contributing instance-pixel pair (one
-# the classification finds alive). Its classification is dx, dy and the
-# quadratic form (11) and alpha (exp, scale, min: 3). It then does, in K1
-# and K2, w = alpha T, five multiply-adds and the T update (13); in K3,
-# w, u = g . c (7), the prefix (2), four colour and depth sums (8),
-# dL/dalpha (7), dpow (1), six moment sums (14) and the T update (2): 42.
-# A pair the function finds dead adds nothing to any output: classifying it
-# is a kernel's way of finding its live pairs and shows in its time, not in
-# its bound (K3 now skips most of them).
-OPS_PER_WALKED_PAIR = 14
-# K4 computes K3's function on the same pairs; only the occlusion suffix
-# differs, S_i = (chunk_total - cum_i) + carry against K3's U_tot - prefix,
-# one addition more per contributing pair (43). That K4 walks each chunk
-# twice to know chunk_total first is this kernel's way, not the function's:
-# the second walk shows in its time, not in its bound.
-OPS_PER_CONTRIBUTING_PAIR = {"K1": 13, "K2": 13, "K3": 42, "K4": 43}
+# the point front end's bytes a Gaussian (59 floats and a byte read, 12
+# floats and a byte written), which benchmark/counts/point_front_end.py
+# does not count
+FRONT_BYTES_PER_GAUSSIAN = (59 * 4 + 1) + (12 * 4 + 1)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -519,46 +499,20 @@ def ptxas_usage(build_log: str) -> dict:
     return usage
 
 
-def span_ms(records, names, units: int) -> dict:
-    """Host ms a unit inside each of the spans ``names`` (inclusive, summed
-    over every span of the name in ``records``, from ``take_spans``)."""
-    return {n: sum(r.end_ns - r.start_ns for r in records if r.name == n) / 1e6 / units
-            for n in names}
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_alone_ms(fn, kernel: str, iters: int = 20,
-                    per_call: int = 1) -> tuple[float, int]:
+def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
     """(mean device time of one launch of ``kernel``, a KERNEL_ENTRIES key,
-    over ``iters`` calls of ``fn``, each launching it ``per_call`` times;
-    the launch records it is the mean of), from torch.profiler's kernel
-    records: the kernel alone, without its wrapper's small kernels and host
-    time. The profiler can drop records in a process that profiles many
-    times: it profiles again, up to three times, until it keeps a record of
-    every launch, takes the session that kept the most, and raises when that
-    is fewer than half."""
+    over ``iters`` calls of ``fn``, each launching it once; the launch
+    records it is the mean of), from torch.profiler's kernel records: the
+    kernel alone, without its wrapper's small kernels and host time. The
+    profiler can drop records in a process that profiles many times: it
+    profiles again, up to three times, until it keeps a record of every
+    launch, takes the session that kept the most, and raises when that is
+    fewer than half."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     entry = KERNEL_ENTRIES[kernel]
-    launches = iters * per_call
     fn()
     torch.cuda.synchronize()
     count, total_us = 0, 0.0
@@ -570,57 +524,38 @@ def kernel_alone_ms(fn, kernel: str, iters: int = 20,
         hits = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and entry in e.key]
         seen = sum(e.count for e in hits)
-        if seen > launches:
+        if seen > iters:
             raise RuntimeError(f"profiler saw {seen} launches of {entry} in "
-                               f"{iters} calls of {per_call}")
+                               f"{iters} calls")
         if seen > count:
             count, total_us = seen, sum(e.self_device_time_total for e in hits)
-        if count == launches:
+        if count == iters:
             break
-    if count < launches // 2:
+    if count < iters // 2:
         raise RuntimeError(f"profiler saw {count} launches of {entry} in {iters} "
-                           f"calls of {per_call}")
+                           f"calls")
     return total_us / 1e3 / count, count
 
 
-def function_bytes(kernel: str, stats: dict, n_tiles: int, p: int,
-                   pixels: int | None = None) -> int:
-    """The bytes ``kernel``'s function moves on a pack, each input read once
-    and each output written once, from the plain walk's statistics: the 11
-    rows of every instance walked (the live slots of the chunks the walk
-    entered; for K3 and K4, the chunks K2 started), the tiles' ints (starts,
-    counts and, but for K1, the boundary offsets) and the per-pixel data.
-    K1 and K2 write r, g, b, depth and alpha (the output's three padding
-    rows are its layout's), K2 also one boundary row of p floats per laid
-    chunk. K3 and K4 read the started chunks' boundaries and the channels of
-    the grad image they use (K3 seven, g_r g_g g_b g_dep g_acc acc U_tot; K4
-    six, without U_tot) and write ten gradient rows per instance walked: the
-    other slots of grads [16, B_pad] are zeros that the wrapper allocates.
-    ``pixels``: the frame's, where partial tiles leave some of the
-    ``n_tiles * p`` unwritten (K1 only)."""
-    walked = stats["instances_walked"] * 11 + n_tiles * (2 if kernel == "K1" else 3)
-    if kernel in ("K1", "K2"):
-        pixels = (n_tiles * p if pixels is None else pixels) * 5
-        if kernel == "K2":
-            pixels += stats["chunks_laid"] * p
-        return 4 * (walked + pixels)
-    grad_channels = {"K3": 7, "K4": 6}[kernel]
-    return 4 * (walked + stats["instances_walked"] * 10
-                + n_tiles * p * grad_channels + stats["chunks_started"] * p)
+def roofline(kernel: str, item: dict) -> dict:
+    """The least time the card could take for ``kernel``'s function on
+    ``item`` ({"gaussians": valid Gaussians, "pixels": the frame's, "pairs":
+    live pairs; the front end's: {"gaussians": all}), by the benchmark's
+    counts (``benchmark/counts/``: the compositor's forward for K1, K1-span,
+    K2 and K2-span, its backward for K3 and K4, ``point_front_end`` and
+    FRONT_BYTES_PER_GAUSSIAN for the front end): the larger of its FLOPs at
+    the fp32 peak and its bytes at the memory rate."""
+    from benchmark.counts import compositor_backward, compositor_forward, point_front_end
 
-
-def bound(stats: dict, kernel: str, n_tiles: int, p: int,
-          pixels: int | None = None) -> dict:
-    """The least time the card could take for ``kernel``'s function on a
-    pack: the larger of its fp32 operations (on the pairs this pack's data
-    finds alive) at the fp32 peak and its bytes (``function_bytes``) at the
-    memory rate."""
-    ops = stats["pairs_contributing"] * (OPS_PER_WALKED_PAIR
-                                         + OPS_PER_CONTRIBUTING_PAIR[kernel])
-    n_bytes = function_bytes(kernel, stats, n_tiles, p, pixels)
-    ops_ms, bytes_ms = ops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_HBM_BYTES * 1e3
-    return {"ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
+    if kernel == "front":
+        flops = point_front_end.flops(item["gaussians"])
+        n_bytes = FRONT_BYTES_PER_GAUSSIAN * item["gaussians"]
+    else:
+        count = compositor_backward if kernel in ("K3", "K4") else compositor_forward
+        flops, n_bytes = count.flops(item), count.bytes_moved(item)
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -664,6 +599,7 @@ def compare_k1(packed, width, height, tile_size, label: str, span=None,
     composited (1 for the cloth scenes, whose depths are ~4)."""
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         pixel_coords,
         raster_forward_tiles,
@@ -682,7 +618,7 @@ def compare_k1(packed, width, height, tile_size, label: str, span=None,
         return raster_forward_tiles(packed, width, height, tile_size, BG,
                                     *args).masked_fill(off_frame, 0.0)
 
-    n_before = raster_forward_tiles.span_launches
+    n_before = kernels.LAUNCHES["K1-span"]
     out_k = composite(*opts)
     torch.cuda.synchronize()
     out_p, walk = raster_forward_tiles_plain(packed, width, height, tile_size,
@@ -696,7 +632,7 @@ def compare_k1(packed, width, height, tile_size, label: str, span=None,
             for i, ch in enumerate(CHANNELS)}
     stats = walk_stats(packed, walk, tile_size)
     if span is not None:
-        if raster_forward_tiles.span_launches != n_before + 1:
+        if kernels.LAUNCHES["K1-span"] != n_before + 1:
             raise RuntimeError(f"{name} {label}: the span kernel was not launched")
         stats["programs"] = span_counts(packed, out_k.shape[0], span, "fwd")
         stats["bit_identical_to_k1"] = bool(torch.equal(out_k, composite()))
@@ -717,6 +653,7 @@ def compare_k2(packed, width, height, tile_size, label: str, span=None):
     also equal K2's bit for bit."""
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         chunk_span,
         walk_stats,
@@ -729,7 +666,7 @@ def compare_k2(packed, width, height, tile_size, label: str, span=None):
     name = "K2" if span is None else "K2-span"
     label += span_label(span)
     opts = () if span is None else tuple(span)
-    n_before = raster_forward_train.span_launches
+    n_before = kernels.LAUNCHES["K2-span"]
     out_k, tb_k = raster_forward_train(packed, width, height, tile_size, BG, *opts)
     torch.cuda.synchronize()
     out_p, tb_p, walk = raster_forward_train_plain(packed, width, height,
@@ -753,7 +690,7 @@ def compare_k2(packed, width, height, tile_size, label: str, span=None):
     stats["chunks_laid"] = n_laid
     stats["chunks_started"] = int(started_k.sum())
     if span is not None:
-        if raster_forward_train.span_launches != n_before + 1:
+        if kernels.LAUNCHES["K2-span"] != n_before + 1:
             raise RuntimeError(f"{name} {label}: the span kernel was not launched")
         stats["programs"] = span_counts(packed, out_k.shape[0], span, "fwd_train")
         out_d, tb_d = raster_forward_train(packed, width, height, tile_size, BG)
@@ -818,6 +755,7 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
     third value: those readings)."""
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         run_backward,
         run_backward_plain,
@@ -826,7 +764,7 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
     name = "K3" if span is None else "K4"
     label += span_label(span)
     opts = () if span is None else tuple(span)
-    n_before = run_backward.reverse_launches
+    n_before = kernels.LAUNCHES["K4"]
     g_k = run_backward(packed, gimg_t, tb, width, height, tile_size, BG, *opts)
     g_again = run_backward(packed, gimg_t, tb, width, height, tile_size, BG, *opts)
     torch.cuda.synchronize()
@@ -847,7 +785,7 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
         raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     if span is None:
         return abs_err, rel
-    if run_backward.reverse_launches != n_before + 2:
+    if kernels.LAUNCHES["K4"] != n_before + 2:
         raise RuntimeError(f"K4 {label}: the reverse kernel was not launched")
     n_tiles = (width // tile_size) * (height // tile_size)
     g_3 = run_backward(packed, gimg_t, tb, width, height, tile_size, BG)
@@ -972,37 +910,6 @@ def cluster_occupancy(n_tiles: int, n_sms: int) -> dict:
     return out
 
 
-def profile_calls(fn, args) -> dict:
-    """Device kernels of ``fn(a)`` for each ``a`` under torch.profiler:
-    launches per call, device busy share of the wall time, and the kernels
-    that take most device time. Busy share is None when the profiler saw
-    no device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for a in args:
-            fn(a)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    n = len(args)
-    return {
-        "kernels_per_call": sum(e.count for e in kernels) / n,
-        "device_busy_share": busy_us / wall_us if busy_us > 0 else None,
-        "device_ms_per_call": busy_us / 1e3 / n,
-        "wall_ms_per_call_profiled": wall_us / 1e3 / n,
-        "top_kernels_ms_per_call": {
-            e.key[:60]: e.self_device_time_total / 1e3 / n for e in top},
-    }
-
-
 def deep_proj(n: int, width: int, height: int, gen, device):
     """Synthetic projected Gaussians piled on the frame's centre: sigma ~8 px,
     radius 24, opacity 0.05..0.4, so central tiles hold thousands of
@@ -1034,16 +941,14 @@ def oracle_grads(proj, width, height, gen, span=None):
     readings."""
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
-        rasterize_tiled_train,
-        run_backward,
-    )
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import rasterize_tiled_train
 
     names = ("xy", "conic", "color", "opacity", "depth")
     tgt = torch.rand(3, height, width, generator=gen, device=proj.xy.device)
     tpp, cap = span if span is not None else (None, None)
-    k4_before = run_backward.reverse_launches
+    k4_before = kernels.LAUNCHES["K4"]
 
     def grads(raster):
         leaves = [getattr(proj, k).detach().clone().requires_grad_() for k in names]
@@ -1053,7 +958,7 @@ def oracle_grads(proj, width, height, gen, span=None):
 
     loss_k, g_k = grads(lambda q: rasterize_tiled_train(
         q, width, height, BG, tiles_per_program=tpp, span_cap=cap))
-    if span is not None and run_backward.reverse_launches != k4_before + 1:
+    if span is not None and kernels.LAUNCHES["K4"] != k4_before + 1:
         raise RuntimeError(f"autograd path with span {span}: K4 was not launched")
     loss_o, g_o = grads(lambda q: rasterize_reference(
         q, width, height, torch.tensor(BG, device=proj.xy.device)))
@@ -1265,105 +1170,20 @@ class span_options:
         self.module.rasterize_tiled_fwd, self.module.rasterize_tiled_train = self.saved
 
 
-def launch_counts() -> dict:
-    """The seven kernels' launch counters: the six tile kernels' and the
-    point front end's ("front")."""
-    from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
-        raster_forward_train,
-        run_backward,
-    )
+def span_turn(run, span, what: str, expected: dict) -> dict:
+    """``run()`` with the span options ``span``, the launch counts cleared
+    just before; raises unless it launched exactly ``expected``. Returns
+    the launches."""
+    from cloth_splatting_tpu_torch import kernels
 
-    return {"K1": raster_forward_tiles.launches,
-            "K1-span": raster_forward_tiles.span_launches,
-            "K2": raster_forward_train.launches,
-            "K2-span": raster_forward_train.span_launches,
-            "K3": run_backward.launches, "K4": run_backward.reverse_launches,
-            "front": project_points_fused.launches}
-
-
-def reset_launch_counts() -> None:
-    from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import raster_forward_tiles
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
-        raster_forward_train,
-        run_backward,
-    )
-
-    raster_forward_tiles.launches = raster_forward_tiles.span_launches = 0
-    raster_forward_train.launches = raster_forward_train.span_launches = 0
-    run_backward.launches = run_backward.reverse_launches = 0
-    project_points_fused.launches = 0
-
-
-def timed_calls(fn, args):
-    """(device ms per call from CUDA events, host ms per call, results) of
-    ``fn(a)`` for each ``a``, one after another."""
-    import torch
-
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t_host = time.perf_counter()
-    start.record()
-    results = [fn(a) for a in args]
-    end.record()
-    end.synchronize()
-    host_ms = (time.perf_counter() - t_host) * 1e3 / len(args)
-    return start.elapsed_time(end) / len(args), host_ms, results
-
-
-def span_ab(run_default, run_span, span, what: str, n: int, expected: dict):
-    """The default path and the span path in turns (default, span, span,
-    default), ``n`` calls each; the launch counters are set to 0 just before
-    the first span turn and read just after the second. Returns (ms per call
-    of the four turns, the launches counted in one span turn: half of what
-    the two turns counted); raises if the span turns launched anything but
-    ``expected`` per turn."""
-    ms = {"default": [], "span": []}
-    ms["default"].append(run_default())
-    reset_launch_counts()
+    kernels.LAUNCHES.clear()
     with span_options(span):
-        ms["span"].append(run_span())
-        ms["span"].append(run_span())
-    counts = launch_counts()
-    ms["default"].append(run_default())
-    want = {k: 2 * v for k, v in expected.items()}
-    got = {k: v for k, v in counts.items() if v}
-    if got != want:
-        raise RuntimeError(f"span A/B {what}: launches {got}, expected {want}")
-    per_turn = {k: v // 2 for k, v in got.items()}
-    log(f"span A/B {what} tpp={span[0]} span_cap={span[1]}: default "
-        f"{ms['default'][0]:.4f} / {ms['default'][1]:.4f}, span "
-        f"{ms['span'][0]:.4f} / {ms['span'][1]:.4f} ms per {what} over {n} "
-        f"(device; order default, span, span, default); launches per span "
-        f"turn {json.dumps(per_turn)}")
-    return ms, per_turn
-
-
-DET_ORDER = ("off", "on", "on", "off")
-
-
-def determinism_ab(warm, timed, what: str, gpu: str) -> dict:
-    """Device and host ms per call of ``timed()`` (``timed_calls``' first two
-    results) with the package's deterministic switch in turns DET_ORDER; one
-    ``warm()`` call starts each turn. The switch is on again at the end."""
-    from cloth_splatting_tpu_torch import set_deterministic
-
-    det = {"order": list(DET_ORDER), "per": what, "ms": [], "host_ms": []}
-    try:
-        for turn in DET_ORDER:
-            set_deterministic(turn == "on")
-            warm()
-            ms, host, _ = timed()
-            det["ms"].append(ms)
-            det["host_ms"].append(host)
-    finally:
-        set_deterministic(True)
-    log(f"determinism A/B, ms per {what} (device / host) in turns {det['order']}: "
-        f"{json.dumps(det['ms'])} / {json.dumps(det['host_ms'])} [{gpu}]")
-    return det
+        run()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if got != expected:
+        raise RuntimeError(f"span {what}: launches {got}, expected {expected}")
+    log(f"span {what} tpp={span[0]} span_cap={span[1]}: launches {json.dumps(got)}")
+    return got
 
 
 def state_tensors(state) -> dict:
@@ -1387,7 +1207,7 @@ def fit_scene(mesh):
     the serving path into uint8 banks, and the held-out frames (the views
     half way between the training views, at every time); checks the bank.
     Returns (traj, cam_bank, gt_bank, the held-out ground truth [T, 3, H, W],
-    the held-out EvalFrames, the NeRF++ radius, seconds)."""
+    the held-out EvalFrames, the NeRF++ radius)."""
     import numpy as np
     import torch
 
@@ -1400,7 +1220,6 @@ def fit_scene(mesh):
     from cloth_splatting_tpu_torch.train.loop import EvalFrame
 
     dev = mesh.pos.device
-    t0 = time.time()
     rest = mesh.pos.cpu().numpy()
     traj = np.stack([cloth_wave_isometric(rest, t)
                      for t in np.linspace(0.0, 1.0, FIT_TIMES)]).astype(np.float32)
@@ -1417,8 +1236,7 @@ def fit_scene(mesh):
                            f"{gt_bank.dtype} coverage {coverage}")
     radius = nerfpp_radius([orbit_camera(v, FIT_VIEWS, FOV, WIDTH, HEIGHT, 0.0)
                             for v in range(FIT_VIEWS)])
-    return (traj, cam_bank, gt_bank, test_gts[0], test_frames, radius,
-            time.time() - t0)
+    return traj, cam_bank, gt_bank, test_gts[0], test_frames, radius
 
 
 def fit_phase(mesh, tan, gpu):
@@ -1437,6 +1255,7 @@ def fit_phase(mesh, tan, gpu):
     import numpy as np
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.models import gaussians as G
     from cloth_splatting_tpu_torch.train import loop
     from cloth_splatting_tpu_torch.train.config import Config
@@ -1448,7 +1267,7 @@ def fit_phase(mesh, tan, gpu):
     from cloth_splatting_tpu_torch.train.step import Trainer
 
     dev = mesh.pos.device
-    traj, cam_bank, gt_bank, test_gts, test_frames, radius, scene_s = fit_scene(mesh)
+    traj, cam_bank, gt_bank, test_gts, test_frames, radius = fit_scene(mesh)
 
     cfg = Config()
     for key, value in FIT_SCHEDULE.items():
@@ -1498,18 +1317,16 @@ def fit_phase(mesh, tan, gpu):
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        kernels.LAUNCHES.clear()
         try:
-            (device_ms, host_ms, (final,)) = timed_calls(
-                lambda _: fit_banks(
-                    trainer, state, cam_bank, gt_bank, None, out_dir=out_dir,
-                    test_frames=test_frames, test_iterations=[FIT_ITERATIONS],
-                    save_iterations=[FIT_ITERATIONS],
-                    checkpoint_iterations=[FIT_ITERATIONS], seed=SEED,
-                    progress_every=FIT_PROGRESS_EVERY), [0])
+            final = fit_banks(trainer, state, cam_bank, gt_bank, None, out_dir=out_dir,
+                              test_frames=test_frames, test_iterations=[FIT_ITERATIONS],
+                              save_iterations=[FIT_ITERATIONS],
+                              checkpoint_iterations=[FIT_ITERATIONS], seed=SEED,
+                              progress_every=FIT_PROGRESS_EVERY)
         finally:
             loop.save_scene_checkpoint = save_scene_checkpoint
-        counts = launch_counts()
+        counts = dict(kernels.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
             ticks = [json.loads(line) for line in f]
@@ -1517,13 +1334,13 @@ def fit_phase(mesh, tan, gpu):
             os.path.join(out_dir, f"chkpnt{FIT_ITERATIONS}.npz"), final)
 
     expected = 3 * FIT_ITERATIONS
-    if counts["K2"] != expected or counts["K3"] != expected \
-            or counts["K1-span"] or counts["K2-span"] or counts["K4"]:
+    if counts.get("K2") != expected or counts.get("K3") != expected \
+            or set(counts) - {"K1", "K2", "K3"}:
         raise RuntimeError(f"fit: launches {counts}, expected K2 = K3 = {expected} "
-                           f"and no span kernel")
-    if counts["K1"] != FIT_TIMES:
+                           f"and no other kernel but K1")
+    if counts.get("K1") != FIT_TIMES:
         raise RuntimeError(f"fit: the held-out evaluation launched K1 "
-                           f"{counts['K1']} times for {FIT_TIMES} frames")
+                           f"{counts.get('K1')} times for {FIT_TIMES} frames")
     for name, t in state_tensors(final).items():
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"fit: non-finite {name}")
@@ -1561,11 +1378,7 @@ def fit_phase(mesh, tan, gpu):
 
     record = {
         "iterations": FIT_ITERATIONS, "views": FIT_VIEWS, "times": FIT_TIMES,
-        "width": WIDTH, "height": HEIGHT,
-        "iterations_per_second": 1e3 / host_ms * FIT_ITERATIONS,
-        "device_ms_per_iteration": device_ms / FIT_ITERATIONS,
-        "host_ms_per_iteration": host_ms / FIT_ITERATIONS,
-        "scene_build_s": scene_s, "gt_bank_mb": gt_bank.numel() / 1e6,
+        "width": WIDTH, "height": HEIGHT, "gt_bank_mb": gt_bank.numel() / 1e6,
         "events": events, "alive_start": alive0, "alive_end": alive1,
         "capacity_start": cap0, "capacity_end": cap1,
         "grow_capacity_fired": events["grow_capacity"] > 0,
@@ -1574,10 +1387,8 @@ def fit_phase(mesh, tan, gpu):
         "test_psnr": test_tick[-1]["test_psnr"], "test_l1": test_tick[-1]["test_l1"],
         "launches": counts, "peak_memory_gb": peak_gb,
         "checkpoint_reloads_equal": True, "gpu": gpu}
-    log(f"fit: {FIT_ITERATIONS} iterations, {record['iterations_per_second']:.3f} "
-        f"it/s, {record['device_ms_per_iteration']:.3f} ms/iteration (device), "
-        f"{record['host_ms_per_iteration']:.3f} (host), events {json.dumps(events)}, "
-        f"alive {alive0} -> {alive1}, capacity {cap0} -> {cap1}, EMA PSNR "
+    log(f"fit: {FIT_ITERATIONS} iterations, events {json.dumps(events)}, alive "
+        f"{alive0} -> {alive1}, capacity {cap0} -> {cap1}, EMA PSNR "
         f"{psnr_50:.3f} at {FIT_PROGRESS_EVERY} -> {psnr_end:.3f} at "
         f"{FIT_ITERATIONS}, held-out PSNR {held_out_start['psnr']:.3f} before the "
         f"fit -> {record['test_psnr']:.3f} [{gpu}]")
@@ -1590,21 +1401,15 @@ def fit_phase(mesh, tan, gpu):
 
 def train_phase(gpu):
     """The 65k training configuration of the port's ``bench.train_setup``
-    (the root bench.py's) through the port's Trainer:
-    a warm-up step, then TRAIN_STEPS timed steps with the launch counters
-    set to 0 just before; then the span A/B over TRAIN_STEPS steps. Returns
-    (the {"train": ...} record, K2 launches, K3 launches, the A/B's ms per
-    step, the span kernels' launches in one span turn)."""
+    (the root bench.py's) through the port's Trainer: a warm-up step, then
+    TRAIN_STEPS steps with the launch counts cleared just before; then
+    TRAIN_STEPS steps with the span options on (``span_turn``). Returns
+    (the {"train": ...} record, K2 launches, K3 launches, the span kernels'
+    launches)."""
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.bench import train_setup
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
-        raster_forward_tiles,
-    )
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
-        raster_forward_train,
-        run_backward,
-    )
 
     trainer, state, cams, gts = train_setup(WIDTH, HEIGHT, MESH_RES, TRAIN_CAPACITY,
                                             torch.device("cuda"))
@@ -1617,33 +1422,18 @@ def train_phase(gpu):
     state, _ = step(state)                      # warm-up (allocator, cuBLAS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    raster_forward_tiles.launches = 0
-    raster_forward_train.launches = 0
-    run_backward.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    profiling.take_spans()
-    profiling.enable_spans(True)
-    t_host = time.perf_counter()
-    start.record()
+    kernels.LAUNCHES.clear()
     losses = []
     for _ in range(TRAIN_STEPS):
         state, metrics = step(state)
         losses.append(metrics.loss)
-    end.record()
-    end.synchronize()
-    host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_STEPS
-    profiling.enable_spans(False)
-    # the step's stages: host time inside the port's spans over those steps
-    stages = span_ms(profiling.take_spans(), STEP_SPANS, TRAIN_STEPS)
-    step_ms = start.elapsed_time(end) / TRAIN_STEPS
-    k2, k3 = raster_forward_train.launches, run_backward.launches
-    k1 = raster_forward_tiles.launches
+    counts = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = len(TRAIN_TIMES) * TRAIN_STEPS
-    if k2 != expected or k3 != expected:
-        raise RuntimeError(f"train: K2 launched {k2} and K3 {k3} times in "
-                           f"{TRAIN_STEPS} steps of {len(TRAIN_TIMES)} cameras")
+    n_cams = len(TRAIN_TIMES)
+    expected = n_cams * TRAIN_STEPS
+    if counts != {"K2": expected, "K3": expected}:
+        raise RuntimeError(f"train: launches {counts} in {TRAIN_STEPS} steps of "
+                           f"{n_cams} cameras, expected K2 = K3 = {expected}")
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"train: non-finite loss {losses}")
@@ -1656,55 +1446,36 @@ def train_phase(gpu):
     if int(state.step) != TRAIN_STEPS + 1:
         raise RuntimeError(f"train: step counter {int(state.step)}")
 
-    # the span A/B: the same steps with the rasterizer's span options on
-    def run_steps():
-        return timed_calls(lambda _: step(state), range(TRAIN_STEPS))[0]
+    def steps():
+        for _ in range(TRAIN_STEPS):
+            step(state)
 
-    n_cams = len(TRAIN_TIMES)
-    ab_ms, ab_launches = span_ab(
-        run_steps, run_steps, SPAN_32, "step", TRAIN_STEPS,
-        {"K2-span": n_cams * TRAIN_STEPS, "K4": n_cams * TRAIN_STEPS})
-
-    # what determinism costs: the same steps with the package's switch off
-    # and on, in turns off, on, on, off
-    det = determinism_ab(lambda: step(state),
-                         lambda: timed_calls(lambda _: step(state), range(TRAIN_STEPS)),
-                         "step", gpu)
-
-    trace = profile_calls(lambda _: step(state), [0])
+    span_launches = span_turn(steps, SPAN_32, "step",
+                              {"K2-span": expected, "K4": expected})
     record = {
-        "steps": TRAIN_STEPS, "cameras": len(TRAIN_TIMES), "gaussians": n_alive,
-        "width": WIDTH, "height": HEIGHT, "ms_per_step": step_ms,
-        "host_ms_per_step": host_ms, "stage_ms": stages,
-        "loss_first": losses[0], "loss_last": losses[-1],
-        "k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
-        "peak_memory_gb": peak_gb,
-        "device_busy_share": trace["device_busy_share"],
-        "kernels_per_step": trace["kernels_per_call"],
-        "determinism_ab": det, "gpu": gpu}
-    log(f"train: {TRAIN_STEPS} steps, {step_ms:.4f} ms/step (device), "
-        f"{host_ms:.4f} ms/step (host), stages {json.dumps(stages)}, K2 {k2} "
-        f"K3 {k3} launches, loss {losses[0]:.6f} -> {losses[-1]:.6f}, largest "
-        f"parameter moves {json.dumps(moved)} simulator {json.dumps(sim_moved)} "
-        f"[{gpu}]")
-    log(f"profile of 1 train step: {json.dumps(trace)}")
-    return record, k2, k3, ab_ms, ab_launches
+        "steps": TRAIN_STEPS, "cameras": n_cams, "gaussians": n_alive,
+        "width": WIDTH, "height": HEIGHT,
+        "loss_first": losses[0], "loss_last": losses[-1], "launches": counts,
+        "peak_memory_gb": peak_gb, "gpu": gpu}
+    log(f"train: {TRAIN_STEPS} steps, launches {json.dumps(counts)}, loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}, largest parameter moves "
+        f"{json.dumps(moved)} simulator {json.dumps(sim_moved)} [{gpu}]")
+    return record, counts["K2"], counts["K3"], span_launches
 
 
 def eval_phase(fitted, gpu: str):
     """The fitted scene through the port's evaluation, on the card: the 5
     held-out frames (the fit's held-out cameras, rebuilt) and the video
-    orbit through ``render_frames``, each split with the launch counters set
-    to 0 just before; the held-out frames scored in memory; the tracked
-    trajectories written and scored. K1's share of a frame is K1 alone
-    (torch.profiler over one more pass of the split, its 2 n + 1 launches)
-    over the split's frame time. Returns (the {"eval": ...} record, K1's
+    orbit through ``render_frames``, each split with the launch counts
+    cleared just before; the held-out frames scored in memory; the tracked
+    trajectories written and scored. Returns (the {"eval": ...} record, K1's
     launches over both splits)."""
     import tempfile
 
     import numpy as np
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data.scene import spherical_video_cameras
     from cloth_splatting_tpu_torch.data.synthetic import orbit_camera
     from cloth_splatting_tpu_torch.eval import lpips as L
@@ -1733,16 +1504,13 @@ def eval_phase(fitted, gpu: str):
                                  simulator, trainer.mesh_predictions, True,
                                  fitted.sh_degree, keep_logs=keep_logs, device=dev)
 
-        reset_launch_counts()
+        kernels.LAUNCHES.clear()
         rs = run(keep_logs=split == "test")
-        counts = {k: v for k, v in launch_counts().items() if v}
+        counts = dict(kernels.LAUNCHES)
         if counts != {"K1": 2 * len(cams) + 1}:
             raise RuntimeError(f"eval {split}: launches {counts} for {len(cams)} "
                                f"cameras, expected K1 = {2 * len(cams) + 1}")
         k1 += counts["K1"]
-        # K1 alone on this split's own frames: the same pass again under the
-        # profiler, after the counts were read
-        k1_ms, k1_records = kernel_alone_ms(run, "K1", 1, counts["K1"])
         covered = []
         for i, frame in enumerate(rs.frames):
             if frame.shape != (3, HEIGHT, WIDTH) or not np.isfinite(frame).all():
@@ -1753,24 +1521,16 @@ def eval_phase(fitted, gpu: str):
             raise RuntimeError(f"eval {split}: nothing rendered {covered}")
         rendered[split] = rs
         record["splits"][split] = {
-            "frames": len(cams), "fps": rs.fps, "elapsed_s": rs.elapsed,
-            "ms_per_frame": 1e3 / rs.fps, "k1_launches": counts["K1"],
-            "k1_ms": k1_ms, "k1_records": k1_records,
-            "k1_share_of_frame": k1_ms * rs.fps / 1e3,
+            "frames": len(cams), "k1_launches": counts["K1"],
             "coverage_min": min(covered), "coverage_max": max(covered)}
-        log(f"eval {split}: {len(cams)} frames at {WIDTH}x{HEIGHT}, FPS "
-            f"{rs.fps:.3f} ({1e3 / rs.fps:.4f} ms a frame; K1 alone on these "
-            f"frames {k1_ms:.4f} ms of it, mean of {k1_records} launches), K1 "
-            f"launches {counts['K1']} [{gpu}]")
+        log(f"eval {split}: {len(cams)} frames at {WIDTH}x{HEIGHT}, K1 launches "
+            f"{counts['K1']}, coverage {min(covered):.4f}..{max(covered):.4f} [{gpu}]")
 
     # the held-out frames scored in memory, against the fit's own reading
     frames = [torch.from_numpy(f).to(dev) for f in rendered["test"].frames]
     gts = fitted.test_gts.to(torch.float32) / 255.0
     weights = L.to_torch(L.fixture_weights(), dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     scores = score_images(zip(frames, gts), weights)
-    score_s = time.perf_counter() - t0
     means = {k: float(np.mean(v)) for k, v in scores.items()}
     self_lpips = score_images([(frames[0], frames[0])], weights)["LPIPS"][0]
     if not all(math.isfinite(v) for vs in scores.values() for v in vs) \
@@ -1798,11 +1558,11 @@ def eval_phase(fitted, gpu: str):
                 raise RuntimeError(f"eval: tracking {name} {mte[name]}")
     record.update(psnr=means["PSNR"], ssim=means["SSIM"], lpips=means["LPIPS"],
                   lpips_weights=L.FIXTURE_VERSION, fit_test_psnr=fitted.test_psnr,
-                  lpips_self=self_lpips, score_s=score_s, per_view=scores,
+                  lpips_self=self_lpips, per_view=scores,
                   tracking=mte, gpu=gpu)
     log(f"eval scores of {FIT_TIMES} held-out frames: PSNR {means['PSNR']:.4f} dB "
         f"(the fit's evaluation {fitted.test_psnr:.4f}), SSIM {means['SSIM']:.4f}, "
-        f"LPIPS ({L.FIXTURE_VERSION}) {means['LPIPS']:.4f}, in {score_s:.3f} s; "
+        f"LPIPS ({L.FIXTURE_VERSION}) {means['LPIPS']:.4f}; "
         f"MTE {mte['gaussians']['mte_mean']:.6f} (Gaussians), "
         f"{mte['vertices']['mte_mean']:.6f} (vertices) scene units [{gpu}]")
     return record, k1
@@ -1811,25 +1571,22 @@ def eval_phase(fitted, gpu: str):
 def bench_phase(scene, gpu: str) -> dict:
     """The port's benchmark entry at the root bench.py's default scales, the
     65k render scale on ``scene`` (the serving scene, built once), with the
-    launch counters set to 0 just before; prints its JSON line. Returns the
-    launches it counted."""
+    launch counts cleared just before: its launches, and finite, positive
+    rates. Returns the launches it counted."""
     import torch
 
-    from cloth_splatting_tpu_torch import bench
+    from cloth_splatting_tpu_torch import bench, kernels
 
-    reset_launch_counts()
-    t0 = time.time()
+    kernels.LAUNCHES.clear()
     result = bench.run(torch.device("cuda"), scene=scene)
-    seconds = time.time() - t0
-    counts = {k: v for k, v in launch_counts().items() if v}
+    counts = dict(kernels.LAUNCHES)
     expected = {"K1": BENCH_K1, "K2": BENCH_K2_K3, "K3": BENCH_K2_K3}
     if counts != expected:
         raise RuntimeError(f"bench: launches {counts}, expected {expected}")
     rates = [v for k, v in result.items() if k not in ("metric", "unit")]
     if not all(math.isfinite(v) and v > 0 for v in rates):
         raise RuntimeError(f"bench: {result}")
-    print(json.dumps(result))
-    log(f"bench: {seconds:.1f} s, launches {json.dumps(counts)} [{gpu}]")
+    log(f"bench: launches {json.dumps(counts)}, every rate finite and positive [{gpu}]")
     return counts
 
 
@@ -1837,9 +1594,9 @@ def dense_phase(sc, gpu: str) -> dict:
     """The dense tier on the card: (1) against the same function on the
     CPU at DENSE_SIZE with a k_cap that drops (values, the binning's
     counts, gradients); (2) the 65k serving scene's frames through
-    ``render(backend="tiled")`` at DENSE_K_CAP, timed, with the launch
-    counters set to 0 just before (the tier launches none of the port's
-    kernels), the dropped count, the deepest tile, the k_cap at which
+    ``render(backend="tiled")`` at DENSE_K_CAP, with the launch counts
+    cleared just before (the tier launches none of the port's kernels),
+    the dropped count, the deepest tile, the k_cap at which
     nothing drops and the frame's PSNR against K1's; (3) the fit's scene
     fitted through the tier for DENSE_FIT_ITERATIONS iterations from
     DENSE_FIT_K_CAP, every iteration a tick: ``grow_k_cap`` must run and the
@@ -1847,6 +1604,7 @@ def dense_phase(sc, gpu: str) -> dict:
     import numpy as np
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data.meshing import grid_cloth_mesh
     from cloth_splatting_tpu_torch.data.synthetic import orbit_camera, target_gaussians
     from cloth_splatting_tpu_torch.models import gaussians as G
@@ -1908,20 +1666,15 @@ def dense_phase(sc, gpu: str) -> dict:
                       device=dev)
 
     with torch.no_grad():
-        frame(sc.cams[0])
-        reset_launch_counts()
-        device_ms, host_ms, outs = timed_calls(frame, sc.cams[:DENSE_FRAMES])
-        counts = {k: v for k, v in launch_counts().items() if v}
+        kernels.LAUNCHES.clear()
+        outs = [frame(c) for c in sc.cams[:DENSE_FRAMES]]
+        counts = dict(kernels.LAUNCHES)
         proj0 = sc.project(sc.cams[0])
 
         def raster(k_cap):
             return rasterize_tiled(proj0, WIDTH, HEIGHT, BG, k_cap=k_cap,
                                    k_chunk=min(32, k_cap))
 
-        raster_ms = timed_calls(lambda _: raster(DENSE_K_CAP), range(3))[0]
-        det = determinism_ab(lambda: frame(sc.cams[0]),
-                             lambda: timed_calls(frame, sc.cams[:DENSE_FRAMES]),
-                             "frame", gpu)
         caps = {}
         cap = DENSE_K_CAP
         while True:
@@ -1946,17 +1699,14 @@ def dense_phase(sc, gpu: str) -> dict:
     record["serving"] = {
         "frames": DENSE_FRAMES, "width": WIDTH, "height": HEIGHT,
         "gaussians": int(sc.state.alive.sum()), "k_cap": DENSE_K_CAP,
-        "ms_per_frame": device_ms, "host_ms_per_frame": host_ms,
-        "determinism_ab": det,
-        "rasterize_ms": raster_ms, "n_dropped": int(outs[0].n_dropped),
+        "n_dropped": int(outs[0].n_dropped),
         "max_tile_count": int(aux512.max_tile_count), "n_dropped_by_k_cap": caps,
         "k_cap_nothing_dropped": cap,
         "psnr_vs_k1_db": float(psnr(torch.clamp(outs[0].rgb, 0, 1),
                                     torch.clamp(k1_rgb, 0, 1))),
         "psnr_vs_k1_db_nothing_dropped": float(psnr(torch.clamp(exact, 0, 1),
                                                     torch.clamp(k1_rgb, 0, 1)))}
-    log(f"dense 65k {WIDTH}x{HEIGHT} k_cap {DENSE_K_CAP}: {device_ms:.3f} ms/frame "
-        f"(device), {host_ms:.3f} (host), rasterize_tiled {raster_ms:.3f} ms, "
+    log(f"dense 65k {WIDTH}x{HEIGHT} k_cap {DENSE_K_CAP}: no kernel launched, "
         f"dropped {record['serving']['n_dropped']}, deepest tile "
         f"{record['serving']['max_tile_count']}, nothing drops at k_cap {cap} "
         f"({json.dumps(caps)}), PSNR vs K1 "
@@ -1965,7 +1715,7 @@ def dense_phase(sc, gpu: str) -> dict:
         f"{cap}) [{gpu}]")
 
     # 3. a short fit through the tier from an overflowing k_cap
-    traj, cam_bank, gt_bank, _, test_frames, radius, _ = fit_scene(sc.mesh)
+    traj, cam_bank, gt_bank, _, test_frames, radius = fit_scene(sc.mesh)
     cfg = Config()
     for key, value in dict(iterations=DENSE_FIT_ITERATIONS, raster_backend="tiled",
                            raster_k_cap=DENSE_FIT_K_CAP, densify_from_iter=10**6,
@@ -1986,13 +1736,11 @@ def dense_phase(sc, gpu: str) -> dict:
 
     trainer.grow_k_cap = counted_grow
     ticks = []
-    reset_launch_counts()
-    t0 = time.time()
+    kernels.LAUNCHES.clear()
     final = fit_banks(trainer, state0, cam_bank, gt_bank, None, seed=SEED,
                       on_iteration=lambda i, m: ticks.append(m["psnr"]))
     ev = evaluate_split(trainer, final, test_frames, cfg.model.white_background, 0)
-    fit_s = time.time() - t0
-    counts = {k: v for k, v in launch_counts().items() if v}
+    counts = dict(kernels.LAUNCHES)
     if counts:
         raise RuntimeError(f"dense fit: launched {counts}")
     if not grown or ev["n_dropped"] != 0 or not all(map(math.isfinite, ticks)) \
@@ -2000,31 +1748,31 @@ def dense_phase(sc, gpu: str) -> dict:
         raise RuntimeError(f"dense fit: k_cap grew to {grown}, evaluation {ev}, "
                            f"PSNR ticks {ticks}")
     record["fit"] = {"iterations": DENSE_FIT_ITERATIONS, "k_cap_start": DENSE_FIT_K_CAP,
-                     "k_cap_grown_to": grown, "seconds": fit_s,
+                     "k_cap_grown_to": grown,
                      "eval_k_cap": ev["k_cap"], "eval_n_dropped": ev["n_dropped"],
                      "test_psnr": ev["psnr"], "train_psnr": ticks}
     log(f"dense fit: {DENSE_FIT_ITERATIONS} iterations from k_cap {DENSE_FIT_K_CAP}, "
         f"grown to {grown}, evaluation at k_cap {ev['k_cap']} dropped "
-        f"{ev['n_dropped']}, test PSNR {ev['psnr']:.3f}, {fit_s:.1f} s [{gpu}]")
+        f"{ev['n_dropped']}, test PSNR {ev['psnr']:.3f} [{gpu}]")
     return record
 
 
 def parity_phase(gpu: str) -> tuple[dict, dict]:
     """The parity arm at full width through ``parity_bench``'s in-memory
-    form (PARITY_ARGV), with the launch counters set to 0 just before: every
+    form (PARITY_ARGV), with the launch counts cleared just before: every
     number finite, the held-out PSNR above the initial state's, and K1, K2
-    and K3 launched as often as the run asks and nothing else. Prints the
-    run's JSON line. Then the same fit again in this process: every tensor
-    of its final state, the alive count and the line must be the same bits.
-    Returns (the {"parity": ...} record, its launches)."""
+    and K3 launched as often as the run asks and nothing else. Then the same
+    fit again in this process: every tensor of its final state, the alive
+    count and the line must be the same bits. Returns (the {"parity": ...}
+    record, its launches)."""
     import torch
 
-    from cloth_splatting_tpu_torch import parity_bench
+    from cloth_splatting_tpu_torch import kernels, parity_bench
 
     args = parity_bench.build_parser().parse_args(PARITY_ARGV)
-    reset_launch_counts()
+    kernels.LAUNCHES.clear()
     run = parity_bench.run_in_memory(args)
-    counts = {k: v for k, v in launch_counts().items() if v}
+    counts = dict(kernels.LAUNCHES)
     line = run["line"]
     n_test = len(parity_bench.TEST_VIEWS) * args.n_times
     # K1: the ground truth of every view and time, the test split scored
@@ -2044,10 +1792,9 @@ def parity_phase(gpu: str) -> tuple[dict, dict]:
     if not line["value"] > run["test_psnr_before"]:
         raise RuntimeError(f"parity: test PSNR {run['test_psnr_before']:.3f} before "
                            f"the fit, {line['value']} after")
-    print(json.dumps(line))
     log(f"parity: {PARITY_ITERATIONS} iterations (the arm's 7,500 cut 25x; static "
-        f"{static} of them), {run['iterations_per_second']:.3f} it/s, "
-        f"{run['n_gaussians']} Gaussians, test PSNR {run['test_psnr_before']:.3f} "
+        f"{static} of them), {run['n_gaussians']} Gaussians, test PSNR "
+        f"{run['test_psnr_before']:.3f} "
         f"-> {line['value']} dB, launches {json.dumps(counts)} [{gpu}]")
     # the same fit again, same seed, same process: every tensor of the final
     # state, the alive count and the held-out PSNR must be the same bits
@@ -2065,8 +1812,8 @@ def parity_phase(gpu: str) -> tuple[dict, dict]:
     log(f"parity: the second fit gave the same bits in all {len(a)} state tensors, "
         f"{again['n_gaussians']} Gaussians, test PSNR {again['line']['value']} dB")
     record = {"argv": PARITY_ARGV, "line": line, "launches": counts, "gpu": gpu,
-              "repeat": repeat,
-              **{k: v for k, v in run.items() if k not in ("line", "state")}}
+              "repeat": repeat, "test_psnr_before": run["test_psnr_before"],
+              "n_gaussians": run["n_gaussians"]}
     return record, counts
 
 
@@ -2147,16 +1894,16 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
     a held-out validation rollout each epoch (the loss must fall within each
     unroll length), then the same training again, bit for bit; one training
     step at unroll lengths 1 and 3 against the CPU's (``gnn_step_vs_cpu``);
-    ms per training step at each unroll length (device and host, kernels per step,
-    busy share), a timed validation rollout (finite per-step MSE), and a
-    real-world rollout of GNN_REAL_WORLD_STEPS steps from the held-out start
-    with tracking noise, with and without the edge-length refinement
+    a validation rollout (finite per-step MSE), and a real-world rollout of
+    GNN_REAL_WORLD_STEPS steps from the held-out start with tracking noise,
+    with and without the edge-length refinement
     (refining must lower the mean edge-length deviation from the noise-free
-    rest lengths). None of the six tile kernels may launch. Returns (the
+    rest lengths). No kernel of the port may launch. Returns (the
     {"gnn": ...} record, the trained state)."""
     import numpy as np
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data.trajectories import (
         ClothSampleDataset,
         process_trajectory,
@@ -2173,12 +1920,9 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
     )
 
     dev = dev or torch.device("cuda")
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
+    kernels.LAUNCHES.clear()
     train_raw = collect_trajectories(GNN_TRAIN_TRAJS, seed=0, device=dev, **GNN_DATA)
     val_raw = collect_trajectories(GNN_VAL_TRAJS, seed=1, device=dev, **GNN_DATA)
-    data_s = time.time() - t0
     cpu0 = collect_trajectories(1, seed=0, device="cpu", **GNN_DATA)[0]
     data_err = float(np.abs(train_raw[0]["pos"] - cpu0["pos"]).max())
     if not data_err <= TOL_GNN_DATA:
@@ -2196,17 +1940,12 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
 
     def train():
         state = init_cloth_simulator(np.random.default_rng(0), device=dev, **GNN_MODEL)
-        torch.cuda.synchronize()
-        t = time.time()
-        state, losses = train_meshnet(trainer, state, train_ds, val_ds,
-                                      n_epochs=GNN_EPOCHS, batch_size=GNN_BATCH,
-                                      curriculum=True, steps_per_epoch=GNN_STEPS_PER_EPOCH,
-                                      seed=0)
-        torch.cuda.synchronize()
-        return state, losses, time.time() - t
+        return train_meshnet(trainer, state, train_ds, val_ds, n_epochs=GNN_EPOCHS,
+                             batch_size=GNN_BATCH, curriculum=True,
+                             steps_per_epoch=GNN_STEPS_PER_EPOCH, seed=0)
 
-    state, losses, train_s = train()
-    counts = {k: v for k, v in launch_counts().items() if v}
+    state, losses = train()
+    counts = dict(kernels.LAUNCHES)
     if counts:
         raise RuntimeError(f"gnn: tile kernels launched on the GNN path: {counts}")
     # the loss falls within each unroll length of the curriculum: an epoch's
@@ -2219,7 +1958,7 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
     if not (all(math.isfinite(x) for x in losses) and falls["within_each_unroll_length"]):
         raise RuntimeError(f"gnn: the loss did not fall within an unroll length: "
                            f"per epoch {losses} (unroll {unroll})")
-    again, losses2, _ = train()
+    again, losses2 = train()
     a, b = gnn_tensors(state), gnn_tensors(again)
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     identical = not differ and losses == losses2
@@ -2229,38 +1968,9 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
 
     step_vs_cpu = gnn_step_vs_cpu(trainer, state, train_ds, gpu)
 
-    # ms per training step at each unroll length, from the trained state
-    steps = {}
-    for future in (1, 2, 3):
-        train_ds.set_future_seq_len(future)
-        rng = np.random.default_rng(future)
-        batches = [train_ds.batch(rng, GNN_BATCH) for _ in range(GNN_TIMED_STEPS + 1)]
-        opt = trainer.init_opt(state)
-        s, opt, _ = trainer.train_step(state, opt, batches[0], 0, future)   # warm-up
-        carry = [s, opt]
-
-        def one(batch):
-            carry[0], carry[1], loss = trainer.train_step(carry[0], carry[1], batch,
-                                                          0, future)
-            return loss
-
-        ms, host_ms, _ = timed_calls(one, batches[1:])
-        trace = profile_calls(one, batches[1:2])
-        steps[f"unroll_{future}"] = {
-            "ms_per_step": ms, "host_ms_per_step": host_ms,
-            "kernels_per_step": trace["kernels_per_call"],
-            "device_busy_share": trace["device_busy_share"],
-            "device_ms_per_step_profiled": trace["device_ms_per_call"],
-            "top_kernels_ms_per_step": trace["top_kernels_ms_per_call"]}
-        log(f"gnn step at unroll {future}: {ms:.3f} ms (device), {host_ms:.3f} ms "
-            f"(host), {trace['kernels_per_call']:.0f} kernels, busy "
-            f"{trace['device_busy_share']} [{gpu}]")
-
-    # a timed validation rollout over the held-out trajectory 0
+    # a validation rollout over the held-out trajectory 0
     item = val_ds.rollout_item(0)
-    trainer.validate_rollout(state, item)                       # warm-up
-    ms, host_ms, (val,) = timed_calls(lambda it: trainer.validate_rollout(state, it),
-                                      [item])
+    val = trainer.validate_rollout(state, item)
     n_roll = val["per_step_mse"].shape[0]
     if not np.isfinite(val["per_step_mse"]).all():
         raise RuntimeError(f"gnn: rollout MSE {val['per_step_mse']}")
@@ -2282,19 +1992,15 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
     deviation = {}
     for start, pos0 in (("tracked", noisy), ("clean", p0)):
         for refine in (False, True):
-            torch.cuda.synchronize()
-            t = time.time()
             traj, _ = rollout(state, tensor(pos0, np.float32),
                               tensor(item["init_velocity"], np.float32),
                               tensor(item["node_type"], np.int64), edge_index,
                               tensor(item["actions"], np.float32), grasped,
                               n_steps=GNN_REAL_WORLD_STEPS, real_world=refine,
                               rest_lengths=rest)
-            torch.cuda.synchronize()
             deviation[f"{start}_{'refined' if refine else 'plain'}"] = {
                 "mean_edge_length_deviation": edge_length_deviation(
                     traj, edge_index, grasped, rest),
-                "ms_per_step": (time.time() - t) * 1e3 / GNN_REAL_WORLD_STEPS,
                 "finite": bool(torch.isfinite(traj).all())}
     refined, plain = deviation["tracked_refined"], deviation["tracked_plain"]
     if not (refined["finite"] and refined["mean_edge_length_deviation"]
@@ -2303,26 +2009,23 @@ def gnn_phase(gpu: str, dev=None) -> tuple[dict, dict]:
 
     record = {
         "data": {"trajectories": GNN_TRAIN_TRAJS, "held_out": GNN_VAL_TRAJS,
-                 **GNN_DATA, "seconds": data_s,
-                 "card_vs_cpu_pos_max_abs_traj0": data_err, "limit": TOL_GNN_DATA},
+                 **GNN_DATA, "card_vs_cpu_pos_max_abs_traj0": data_err,
+                 "limit": TOL_GNN_DATA},
         "model": {**GNN_MODEL, "mlp_hidden_layers": 2, "nodes": train_ds.n_nodes,
                   "edges_max": train_ds.e_max, "batch": GNN_BATCH},
         "epochs": GNN_EPOCHS, "steps_per_epoch": GNN_STEPS_PER_EPOCH,
         "unroll_by_epoch": unroll,
-        "epoch_loss": losses, "loss_falls": falls, "train_seconds": train_s,
+        "epoch_loss": losses, "loss_falls": falls,
         "second_training_bit_identical": identical,
         "step_card_vs_cpu": step_vs_cpu,
-        "step": steps,
         "validate_rollout": {"steps": n_roll, "mean_mse": val["mean_mse"],
-                             "per_step_mse": val["per_step_mse"].tolist(),
-                             "ms_per_step": ms / n_roll,
-                             "host_ms_per_step": host_ms / n_roll},
+                             "per_step_mse": val["per_step_mse"].tolist()},
         "real_world_rollout": {"steps": GNN_REAL_WORLD_STEPS,
                                "tracking_noise_m": GNN_TRACKING_NOISE, **deviation},
         "tile_kernel_launches": counts, "gpu": gpu}
-    log(f"gnn: data {data_s:.1f} s (card vs CPU {data_err:.3g}), losses "
-        f"{json.dumps(losses)}, training {train_s:.1f} s, the second training "
-        f"bit-identical, rollout {ms / n_roll:.3f} ms/step, tracked start's "
+    log(f"gnn: data card vs CPU {data_err:.3g}, losses {json.dumps(losses)}, the "
+        f"second training bit-identical, rollout mean MSE {val['mean_mse']:.4g}, "
+        f"tracked start's "
         f"edge-length deviation {plain['mean_edge_length_deviation']:.4g} -> "
         f"{refined['mean_edge_length_deviation']:.4g} refined [{gpu}]")
     return record, state
@@ -2346,9 +2049,9 @@ def planning_rollout_vs_cpu(sim_state: dict, gpu: str, dev) -> dict:
     """``MPC.model_rollout`` of PLAN_CFG's candidates on the card and on the
     CPU from one state of the planning episode's estimation mesh (after one
     step of the fixed plan, so the velocity history is not zero): positions
-    within TOL_PLAN_ROLLOUT; ms per call on the card."""
+    within TOL_PLAN_ROLLOUT; on the card one eager call, one capture, one
+    replay."""
     import numpy as np
-    import torch
 
     from cloth_splatting_tpu_torch.data.trajectories import process_trajectory
     from cloth_splatting_tpu_torch.manipulation.env import ClothEnv
@@ -2391,21 +2094,16 @@ def planning_rollout_vs_cpu(sim_state: dict, gpu: str, dev) -> dict:
         raise RuntimeError(f"planning: the card's candidate rollouts {shape} (eager, "
                            f"captured call, replay) are {errs} from the CPU's (limit "
                            f"{TOL_PLAN_ROLLOUT})")
-    ms, host_ms, _ = timed_calls(lambda f: mpcs["card"].model_rollout(f),
-                                 [feats] * PLAN_ROLLOUT_REPS)
     graphs = mpcs["card"].rollouts
     counts = {"captures": graphs.captures, "replays": graphs.replays,
               "eager": graphs.eager}
-    calls = PLAN_ROLLOUT_REPS + 3
-    if counts != ({"captures": 1, "replays": calls - 2, "eager": 1} if dev.type == "cuda"
-                  else {"captures": 0, "replays": 0, "eager": calls}):
+    if counts != ({"captures": 1, "replays": 1, "eager": 1} if dev.type == "cuda"
+                  else {"captures": 0, "replays": 0, "eager": 3}):
         raise RuntimeError(f"planning: model_rollout on the card counted {counts}")
     log(f"planning: model_rollout [{shape}] card vs CPU {errs[0]:.3g} (eager), "
-        f"{errs[1]:.3g} (captured call), {errs[2]:.3g} (replay), {ms:.3f} ms (device), "
-        f"{host_ms:.3f} ms (host) per call, {counts} [{gpu}]")
+        f"{errs[1]:.3g} (captured call), {errs[2]:.3g} (replay), {counts} [{gpu}]")
     return {"shape": shape, "card_vs_cpu_pos_max_abs": err,
             "eager_captured_and_replay_vs_cpu": errs, "limit": TOL_PLAN_ROLLOUT,
-            "ms_per_call": ms, "host_ms_per_call": host_ms, "calls": PLAN_ROLLOUT_REPS,
             "graph_calls": counts}
 
 
@@ -2413,31 +2111,25 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
     """Phase 13: the closed manipulation loop on the card, planning with the
     GNN state the gnn phase trained. Candidate rollouts against the CPU's
     (``planning_rollout_vs_cpu``); one ``mpc-cs`` episode through the
-    in-memory path at PLAN_CFG with PLAN_STEPS steps, from launch counters
-    set to 0 just before: finite costs, K2 and K3 launched once per camera
+    in-memory path at PLAN_CFG with PLAN_STEPS steps, from launch counts
+    cleared just before: finite costs, K2 and K3 launched once per camera
     of every refiner step and no other kernel, a finite refined history of
     [PLAN_STEPS + 1, 64, 3]; the same episode again, bit for bit (costs,
     history, every tensor of the refiner's state); K2 and K3 against their
     plain versions on the pack of the final refiner state's newest camera at
-    96x96; ms per refine step and per observation render; then
-    PLAN_STEPS-step episodes of the other four modalities (finite costs, no
-    kernel). Returns (the {"planning": ...} record, K2/K3's launches and
+    96x96; then PLAN_STEPS-step episodes of the other four modalities
+    (finite costs, no kernel). Returns (the {"planning": ...} record, K2/K3's launches and
     readings at this shape)."""
     import numpy as np
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.manipulation.planning import (
         PlanningConfig,
         closed_loop_planning,
     )
     from cloth_splatting_tpu_torch.models.deform import simulator_from_params
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import sorted_pack, tile_size_for
-    from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
-        raster_forward_train,
-        raster_forward_train_plain,
-        run_backward,
-        run_backward_plain,
-    )
     from cloth_splatting_tpu_torch.render import CameraArrays, project_view
 
     dev = dev or torch.device("cuda")
@@ -2452,15 +2144,11 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
 
     def episode():
         ep = {}
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t = time.time()
+        kernels.LAUNCHES.clear()
         res = closed_loop_planning(sim_state, cfg, None, device=dev, episode=ep)
-        torch.cuda.synchronize()
-        seconds = time.time() - t
-        return res, ep, seconds, {k: v for k, v in launch_counts().items() if v}
+        return res, ep, dict(kernels.LAUNCHES)
 
-    res, ep, seconds, counts = episode()
+    res, ep, counts = episode()
     history = ep["history"]
     if counts != {"K2": expected, "K3": expected}:
         raise RuntimeError(f"planning: mpc-cs launched {counts}, expected K2 and K3 "
@@ -2471,9 +2159,9 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
             or not np.isfinite(history).all():
         raise RuntimeError(f"planning: refined history {history.shape}, finite "
                            f"{bool(np.isfinite(history).all())}")
-    log(f"planning: mpc-cs {PLAN_STEPS} steps in {seconds:.1f} s, costs "
+    log(f"planning: mpc-cs {PLAN_STEPS} steps, costs "
         f"{json.dumps(res['costs'])}, launches {json.dumps(counts)} [{gpu}]")
-    res2, ep2, seconds2, counts2 = episode()
+    res2, ep2, counts2 = episode()
     a, b = (state_tensors(e["refiner"].state) for e in (ep, ep2))
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     if differ or res2 != res or counts2 != counts \
@@ -2483,7 +2171,7 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
     del ep2
 
     # K2 and K3 on one refiner step's pack: the final state's newest camera
-    refiner, synth = ep["refiner"], ep["synth"]
+    refiner = ep["refiner"]
     trainer, state, scene = refiner.trainer, refiner.state, refiner.scene
     size = cfg.image_size
     cam = CameraArrays(*(f[0, scene.n_times - 1] for f in scene.cam_bank))
@@ -2501,70 +2189,39 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
     gen.manual_seed(SEED)
     gimg = cotangent_tiles(out_k, size, size, tile, gen)
     k3_err, k3_rel = compare_k3(pack, gimg, tb_k, size, size, tile, label)
-    n_tiles, p = (size // tile) ** 2, tile * tile
-    shape = {"width": size, "height": size, "tile": tile, "tiles": n_tiles,
+    shape = {"width": size, "height": size, "tile": tile, "tiles": (size // tile) ** 2,
              "gaussians_alive": int(state.gstate.alive.sum()),
              "capacity": int(state.gstate.alive.numel()), "walk": stats}
-    k_at = {
-        "K2": {**shape, "max_abs_err": k2_err,
-               "ms": time_ms(lambda: raster_forward_train(pack, size, size, tile, BG), 50),
-               "plain_ms": time_ms(lambda: raster_forward_train_plain(
-                   pack, size, size, tile, BG), 5, 1),
-               **bound(stats, "K2", n_tiles, p)},
-        "K3": {**shape, "max_abs_err": k3_err, "max_rel_err": max(k3_rel.values()),
-               "ms": time_ms(lambda: run_backward(pack, gimg, tb_k, size, size, tile,
-                                                  BG), 50),
-               "plain_ms": time_ms(lambda: run_backward_plain(
-                   pack, gimg, tb_k, size, size, tile, BG), 5, 1),
-               **bound(stats, "K3", n_tiles, p)}}
-    for key, rec in k_at.items():
-        rec["launches"] = counts[key]
+    k_at = {"K2": {**shape, "max_abs_err": k2_err, "launches": counts["K2"]},
+            "K3": {**shape, "max_abs_err": k3_err, "max_rel_err": max(k3_rel.values()),
+                   "launches": counts["K3"]}}
     log(f"planning: K2/K3 at {size}px: {json.dumps(k_at)} [{gpu}]")
-
-    # ms per refine step (the final data, PLAN_TIMED_REFINE more steps) and
-    # per observation render (every view of one state)
-    torch.cuda.synchronize()
-    refine_ms, refine_host_ms, _ = timed_calls(
-        lambda n: refiner.update_mesh_predictions(n), [1] * PLAN_TIMED_REFINE)
-    render_ms, render_host_ms, _ = timed_calls(
-        lambda t: synth.render_state(history[-1], t),
-        list(range(synth.n_times, synth.n_times + 3)))
-    del ep, refiner, synth
+    del ep, refiner
 
     others = {}
     for modality in PLAN_OTHER_MODALITIES:
-        reset_launch_counts()
-        t = time.time()
+        kernels.LAUNCHES.clear()
         r = closed_loop_planning(sim_state if modality.startswith("mpc") else None,
                                  PlanningConfig(modality=modality, max_steps=PLAN_STEPS,
                                                 **PLAN_CFG), None, device=dev)
-        torch.cuda.synchronize()
-        launched = {k: v for k, v in launch_counts().items() if v}
+        launched = dict(kernels.LAUNCHES)
         if launched or not all(map(math.isfinite, r["costs"])) \
                 or len(r["costs"]) != PLAN_STEPS:
             raise RuntimeError(f"planning: {modality} costs {r['costs']}, kernels "
                                f"launched {launched}")
-        others[modality] = {**r, "seconds": time.time() - t}
-    log(f"planning: refine step {refine_ms:.3f} ms (device) {refine_host_ms:.3f} ms "
-        f"(host), observation render {render_ms:.3f} ms per state of "
-        f"{cfg.n_views} views; other modalities "
+        others[modality] = r
+    log(f"planning: other modalities "
         f"{json.dumps({k: v['costs'] for k, v in others.items()})} [{gpu}]")
     record = {
         "config": {**PLAN_CFG, "max_steps": PLAN_STEPS, "in_memory": True,
                    "gnn": {k: GNN_MODEL[k] for k in ("n_message_passing", "latent")}},
         "reduced": {"max_steps": [PLAN_STEPS_FULL, PLAN_STEPS]},
         "model_rollout": rollout,
-        "mpc_cs": {**res, "seconds": seconds, "launches": counts,
+        "mpc_cs": {**res, "launches": counts,
                    "launches_expected": {"K2": expected, "K3": expected},
                    "cameras_per_refine_step": cams_per_refine,
                    "history_shape": list(history.shape),
-                   "second_episode_bit_identical": True,
-                   "ms_per_refine_step": refine_ms,
-                   "host_ms_per_refine_step": refine_host_ms,
-                   "refine_steps_timed": PLAN_TIMED_REFINE,
-                   "ms_per_observation_render": render_ms,
-                   "ms_per_observation_view": render_ms / cfg.n_views,
-                   "host_ms_per_observation_render": render_host_ms},
+                   "second_episode_bit_identical": True},
         "kernels_at_refiner_shape": k_at,
         "other_modalities": others, "gpu": gpu}
     return record, k_at
@@ -2651,7 +2308,7 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     tier, as the root fit_legacy.py runs it) at that script's defaults on a
     scene of NeRF-synthetic size built in memory (``legacy_cameras``,
     ``legacy_reference``, ``load_dnerf_scene``'s init cloud), with the
-    launch counters set to 0 just before: the loss falls, the held-out
+    launch counts cleared just before: the loss falls, the held-out
     PSNR over LEGACY_TEST_CAMS cameras beats the initial model's, no kernel
     of the port runs; the first LEGACY_REPEAT iterations twice give the same
     bits; LEGACY_SMALL_ITERATIONS iterations at LEGACY_SMALL px on the card
@@ -2660,6 +2317,7 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     import numpy as np
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data.legacy import dnerf_init_cloud
     from cloth_splatting_tpu_torch.models import point_gaussians as PG
     from cloth_splatting_tpu_torch.ops.image import psnr
@@ -2670,7 +2328,6 @@ def legacy_phase(gpu: str, dev=None) -> dict:
 
     dev = dev or torch.device("cuda")
     size, tan = LEGACY_SIZE, math.tan(LEGACY_FOV / 2)
-    t0 = time.time()
     ref = legacy_reference(dev)
     cams = [camera_arrays(c, dev) for c in
             legacy_cameras(LEGACY_TRAIN_CAMS + LEGACY_TEST_CAMS, size, SEED)]
@@ -2678,7 +2335,6 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     train_cams, test_cams = cams[:LEGACY_TRAIN_CAMS], cams[LEGACY_TRAIN_CAMS:]
     train_gts, test_gts = gts[:LEGACY_TRAIN_CAMS], torch.stack(gts[LEGACY_TRAIN_CAMS:])
     cloud = dnerf_init_cloud(LEGACY_POINTS, SEED)
-    scene_s = time.time() - t0
     kw = dict(sh_degree=LEGACY_SH, seed=SEED, k_cap=LEGACY_K_CAP,
               white_background=True, device=dev)
 
@@ -2697,17 +2353,17 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     img0, drop0 = legacy_render_set(p0, s0, test_cams, size, LEGACY_SH, LEGACY_K_CAP)
     psnr0 = float(psnr(img0, test_gts).mean())
 
-    reset_launch_counts()
-    device_ms, host_ms, ((params, state, loss),) = timed_calls(
-        lambda _: PG.fit_static_scene(train_cams, train_gts, cloud, size, size, tan,
-                                      tan, iterations=LEGACY_ITERATIONS, **kw), [0])
-    counts = launch_counts()
+    kernels.LAUNCHES.clear()
+    params, state, loss = PG.fit_static_scene(train_cams, train_gts, cloud, size, size,
+                                              tan, tan, iterations=LEGACY_ITERATIONS,
+                                              **kw)
+    counts = dict(kernels.LAUNCHES)
     img1, drop_test = legacy_render_set(params, state, test_cams, size, LEGACY_SH,
                                         LEGACY_K_CAP)
     psnr1 = float(psnr(img1, test_gts).mean())
     _, drop_train = legacy_render_set(params, state, train_cams, size, LEGACY_SH,
                                       LEGACY_K_CAP)
-    if any(counts.values()):
+    if counts:
         raise RuntimeError(f"legacy: the dense-tier fit launched {counts}")
     for name, t in params._asdict().items():
         if not bool(torch.isfinite(t).all()):
@@ -2734,20 +2390,14 @@ def legacy_phase(gpu: str, dev=None) -> dict:
         "train_cameras": LEGACY_TRAIN_CAMS, "test_cameras": LEGACY_TEST_CAMS,
         "sh_degree": LEGACY_SH, "k_cap": LEGACY_K_CAP,
         "init_points": LEGACY_POINTS, "reference_points": int(ref[1].alive.sum()),
-        "ground_truth_k_cap": gt_k_cap, "scene_build_s": scene_s,
-        "fit_s": host_ms / 1e3,
-        "device_ms_per_iteration": device_ms / LEGACY_ITERATIONS,
-        "host_ms_per_iteration": host_ms / LEGACY_ITERATIONS,
-        "iterations_per_second": 1e3 * LEGACY_ITERATIONS / host_ms,
-        "loss_start": loss0, "loss_end": loss, "test_psnr_before_fit": psnr0,
+        "ground_truth_k_cap": gt_k_cap, "loss_start": loss0, "loss_end": loss,
+        "test_psnr_before_fit": psnr0,
         "test_psnr": psnr1,
         "dropped_most_a_frame": {"test_start": drop0, "test_end": drop_test,
                                  "train_end": drop_train},
         "launches": counts, "repeat_bit_identical": True, "vs_cpu": vs_cpu,
         "gpu": gpu}
-    log(f"legacy: {LEGACY_ITERATIONS} iterations at {size}x{size} in "
-        f"{record['fit_s']:.1f} s, {record['device_ms_per_iteration']:.3f} ms/iteration "
-        f"(device), {record['host_ms_per_iteration']:.3f} (host); loss {loss0:.5f} -> "
+    log(f"legacy: {LEGACY_ITERATIONS} iterations at {size}x{size}; loss {loss0:.5f} -> "
         f"{loss:.5f}; held-out PSNR {psnr0:.3f} -> {psnr1:.3f} dB over "
         f"{LEGACY_TEST_CAMS} cameras; dropped (most a frame) "
         f"{json.dumps(record['dropped_most_a_frame'])} at k_cap {LEGACY_K_CAP}; "
@@ -2894,7 +2544,7 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
     """Phase 15: ``train_scenes_parallel`` on the card over two scenes of
     one signature (``sweep_scene`` from SWEEP_SCENE_SEEDS), both placed on
     the one card so that they form one group, on SWEEP_SCHEDULE, with the
-    launch counters set to 0 just before: K2 and K3 launched once per
+    launch counts cleared just before: K2 and K3 launched once per
     camera of every step of both scenes, K1 only by the final evaluation
     (its held-out frames); then scene 1 alone through ``train_scene``:
     every tensor of its state equal to the sweep's, bit for bit. Returns
@@ -2905,6 +2555,7 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
 
     import torch
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.parallel.sweep import (
         group_scenes,
         train_scenes_parallel,
@@ -2912,9 +2563,7 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
     from cloth_splatting_tpu_torch.train.config import Config
     from cloth_splatting_tpu_torch.train.loop import train_scene
 
-    t0 = time.time()
     scenes = [sweep_scene(mesh, s) for s in SWEEP_SCENE_SEEDS]
-    scene_s = time.time() - t0
     cfg = Config()
     for key, value in SWEEP_SCHEDULE.items():
         setattr(cfg.opt, key, value)
@@ -2923,20 +2572,17 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
     if groups != [[0, 1]]:
         raise RuntimeError(f"sweep: groups {groups}, expected one of both scenes")
     with tempfile.TemporaryDirectory() as out:
-        reset_launch_counts()
-        sweep_device_ms, sweep_host_ms, (swept,) = timed_calls(
-            lambda _: train_scenes_parallel(
-                copy.deepcopy(cfg), scenes, [f"{out}/s0", f"{out}/s1"],
-                devices=devices, test_iterations=[SWEEP_ITERATIONS], seed=SEED), [0])
-        counts = launch_counts()
-        lone_device_ms, lone_host_ms, (lone,) = timed_calls(
-            lambda _: train_scene(copy.deepcopy(cfg), scenes[1], f"{out}/lone",
-                                  test_iterations=[SWEEP_ITERATIONS], seed=SEED,
-                                  device=mesh.pos.device), [0])
+        kernels.LAUNCHES.clear()
+        swept = train_scenes_parallel(copy.deepcopy(cfg), scenes,
+                                      [f"{out}/s0", f"{out}/s1"], devices=devices,
+                                      test_iterations=[SWEEP_ITERATIONS], seed=SEED)
+        got = dict(kernels.LAUNCHES)
+        lone = train_scene(copy.deepcopy(cfg), scenes[1], f"{out}/lone",
+                           test_iterations=[SWEEP_ITERATIONS], seed=SEED,
+                           device=mesh.pos.device)
     static = SWEEP_SCHEDULE["static_reconst_iteration"] - 1
     per_scene = static + 3 * (SWEEP_ITERATIONS - static)
     expected = {"K1": 2 * FIT_TIMES, "K2": 2 * per_scene, "K3": 2 * per_scene}
-    got = {k: v for k, v in counts.items() if v}
     if got != expected:
         raise RuntimeError(f"sweep: launches {got}, expected {expected}")
     a, b = state_tensors(swept[1]), state_tensors(lone)
@@ -2956,21 +2602,12 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
         "groups": groups,
         "iterations": SWEEP_ITERATIONS, "schedule": SWEEP_SCHEDULE,
         "views": FIT_VIEWS, "times": FIT_TIMES, "width": WIDTH, "height": HEIGHT,
-        "scene_build_s": scene_s, "sweep_s": sweep_host_ms / 1e3,
-        "sweep_device_ms_per_iteration": sweep_device_ms / SWEEP_ITERATIONS,
-        "iterations_per_second_x_scenes": 1e3 * SWEEP_ITERATIONS * len(scenes)
-        / sweep_host_ms,
-        "lone_s": lone_host_ms / 1e3,
-        "lone_iterations_per_second": 1e3 * SWEEP_ITERATIONS / lone_host_ms,
         "alive_end": [int(st.gstate.alive.sum()) for st in swept],
         "launches": got, "state_tensors": len(a), "lone_bit_identical": True,
         "gpu": gpu}
     log(f"sweep: {len(scenes)} scenes x {SWEEP_ITERATIONS} iterations in one group on "
-        f"one card, {record['sweep_s']:.1f} s, "
-        f"{record['iterations_per_second_x_scenes']:.3f} it/s x scenes; scene 1 "
-        f"alone {record['lone_s']:.1f} s ({record['lone_iterations_per_second']:.3f} "
-        f"it/s), all {len(a)} state tensors bit-identical to the sweep's; launches "
-        f"{json.dumps(got)} [{gpu}]")
+        f"one card; scene 1 alone: all {len(a)} state tensors bit-identical to the "
+        f"sweep's; launches {json.dumps(got)} [{gpu}]")
     return record, got, scenes[1], lone
 
 
@@ -3034,15 +2671,16 @@ def mesh_train_cell(device, shapes, steps: int, held: bool = False) -> dict:
     65k cell at full width in (view x time) banks; on rank 0 first ``steps``
     unsharded ``Trainer.step_banked`` steps, then, on every rank, a warm-up
     step and ``steps`` sharded steps (``ShardedTrainer.step_banked``) on a
-    mesh of each of ``shapes``, all from the same state, the launch counters
-    set to 0 just before and read just after. With ``held``, each mesh's
+    mesh of each of ``shapes``, all from the same state, the launch counts
+    cleared just before and read just after. With ``held``, each mesh's
     ``steps`` again, each held to the Trainer's step from the same (gathered)
     state (``held_step_errors``). Returns rank 0's record (per mesh and for
-    the Trainer: state tensors on the CPU, losses, ms a step device and
-    host, launches, the held steps' errors), None on the other ranks."""
+    the Trainer: state tensors on the CPU, losses, launches, the held steps'
+    errors), None on the other ranks."""
     import torch
     import torch.distributed as dist
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.bench import train_setup
     from cloth_splatting_tpu_torch.parallel.mesh import make_mesh
     from cloth_splatting_tpu_torch.parallel.trainer import ShardedTrainer
@@ -3062,23 +2700,13 @@ def mesh_train_cell(device, shapes, steps: int, held: bool = False) -> dict:
                                       sh_degree=1, static=False, carry=carry)
 
         one(state, StepCarry.zeros(device))          # warm-up, discarded
-        torch.cuda.synchronize(device)
-        reset_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        kernels.LAUNCHES.clear()
         carry, metrics = StepCarry.zeros(device), []
-        t_host = time.perf_counter()
-        start.record()
         for _ in range(steps):
             state, m, carry = one(state, carry)
             metrics.append(m)
-        end.record()
-        end.synchronize()
-        host_ms = (time.perf_counter() - t_host) * 1e3 / steps
-        counts = {k: v for k, v in launch_counts().items() if v}
         return state, {
-            "ms_per_step": start.elapsed_time(end) / steps, "host_ms_per_step": host_ms,
-            "launches": counts,
+            "launches": dict(kernels.LAUNCHES),
             "metrics": [{k: float(v) for k, v in x._asdict().items()} for x in metrics],
             "carry": {k: float(v) for k, v in carry._asdict().items()}}
 
@@ -3112,7 +2740,6 @@ def mesh_gnn(device, train_raw: list, data_parallel: bool) -> dict:
     width) from the gnn phase's data: per-step losses and the trained
     tensors on the CPU; data-parallel over the initialized world when asked."""
     import numpy as np
-    import torch
 
     from cloth_splatting_tpu_torch.data.trajectories import (
         ClothSampleDataset,
@@ -3127,13 +2754,10 @@ def mesh_gnn(device, train_raw: list, data_parallel: bool) -> dict:
                                 for r in train_raw])
     trainer = MeshnetTrainer(device=device, **GNN_TRAINER)
     state = init_cloth_simulator(np.random.default_rng(0), device=device, **GNN_MODEL)
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
     state, losses = train_meshnet(trainer, state, ds, None, n_epochs=MESH_GNN_EPOCHS,
                                   batch_size=GNN_BATCH, curriculum=True,
                                   steps_per_epoch=1, seed=0, data_parallel=data_parallel)
-    torch.cuda.synchronize(device)
-    return {"losses": losses, "s": time.perf_counter() - t0,
+    return {"losses": losses,
             "tensors": {k: v.cpu() for k, v in gnn_tensors(state).items()}}
 
 
@@ -3141,10 +2765,11 @@ def mesh_nccl_rank(device, scene, train_raw) -> dict:
     """The mesh phase's world of one NCCL rank: the train cell at 1x1, then
     ``train_scene(device_mesh=1x1)`` on the sweep phase's scene, then the
     train command's rank path on it (``mesh_cli``), each with the launch
-    counters from 0, then the GNN cut data-parallel."""
+    counts cleared just before, then the GNN cut data-parallel."""
     import copy
     import tempfile
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.train.config import Config
     from cloth_splatting_tpu_torch.train.loop import train_scene_rank
 
@@ -3153,12 +2778,11 @@ def mesh_nccl_rank(device, scene, train_raw) -> dict:
     for key, value in SWEEP_SCHEDULE.items():
         setattr(cfg.opt, key, value)
     with tempfile.TemporaryDirectory() as tmp:
-        reset_launch_counts()
-        t0 = time.perf_counter()
+        kernels.LAUNCHES.clear()
         state = train_scene_rank(device, (1, 1), copy.deepcopy(cfg), scene, tmp,
                                  {"test_iterations": [SWEEP_ITERATIONS], "seed": SEED})
-        out["scene"] = {"state": state_tensors(state), "s": time.perf_counter() - t0,
-                        "launches": {k: v for k, v in launch_counts().items() if v}}
+        out["scene"] = {"state": state_tensors(state),
+                        "launches": dict(kernels.LAUNCHES)}
     out["cli"] = mesh_cli(device, scene, state)
     out["gnn"] = mesh_gnn(device, train_raw, True)
     return out
@@ -3173,10 +2797,11 @@ def mesh_cli(device, scene, template) -> dict:
     (``parallel.mesh.agree``, an NCCL all-reduce) runs before the loop and
     at every iteration; no evaluation and no PLY, one checkpoint at the
     end. Returns the checkpoint's state (restored into ``template``'s
-    layout), the agreements counted, the launches and the seconds."""
+    layout), the agreements counted and the launches."""
     import tempfile
     from unittest import mock
 
+    from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.data import scene as scene_module
     from cloth_splatting_tpu_torch.parallel import mesh as PM
     from cloth_splatting_tpu_torch.parallel.launch import main_rank
@@ -3189,15 +2814,13 @@ def mesh_cli(device, scene, template) -> dict:
         for key, value in SWEEP_SCHEDULE.items():
             argv += [f"--{key}", str(value)]
         PM.COUNTS.clear()
-        reset_launch_counts()
-        t0 = time.perf_counter()
+        kernels.LAUNCHES.clear()
         with mock.patch.object(scene_module, "load_cloth_scene", lambda *a, **k: scene):
             main_rank(device, "cloth_splatting_tpu_torch.train.__main__", argv)
-        seconds = time.perf_counter() - t0
-        launches = {k: v for k, v in launch_counts().items() if v}
+        launches = dict(kernels.LAUNCHES)
         state = load_train_checkpoint(f"{tmp}/chkpnt{SWEEP_ITERATIONS}.npz", template)
     return {"state": state_tensors(state), "agreed": PM.COUNTS["all_reduce_max/world"],
-            "launches": launches, "s": seconds}
+            "launches": launches}
 
 
 def mesh_gloo_rank(device, train_raw) -> dict | None:
@@ -3224,7 +2847,7 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
     evaluation; then ``train --mesh 1x1`` (``mesh_cli``) on the same scene:
     its checkpoint bit-identical to the lone run, the viewer agreed over
     NCCL once before the loop and once an iteration, K2/K3 as before;
-    (3) gloo, 2x1 and 1x2: MESH_GLOO_STEPS timed steps each (K2/K3
+    (3) gloo, 2x1 and 1x2: MESH_GLOO_STEPS steps each (K2/K3
     once per camera a rank renders: 2x1, the batch padded to 4, 2 a rank;
     1x2, all 3) and as many more, each within TOL_MESH of the Trainer's
     step from the same state, every float tensor of the state held
@@ -3245,13 +2868,9 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
     train_raw = collect_trajectories(GNN_TRAIN_TRAJS, seed=0, device=dev, **GNN_DATA)
     cpu_scene = dataclasses.replace(
         scene, initial_mesh=Mesh(*(t.cpu() for t in scene.initial_mesh)))
-    t0 = time.time()
     nccl = launch(mesh_nccl_rank, 1, dev, args=(cpu_scene, train_raw))[0]
-    nccl_s = time.time() - t0
-    t0 = time.time()
     gloo = launch(mesh_gloo_rank, 2, dev, args=(train_raw,), backend="gloo",
                   devices=[dev] * 2)[0]
-    gloo_s = time.time() - t0
     single = mesh_gnn(dev, train_raw, False)
 
     failures = []
@@ -3295,7 +2914,7 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
     for shape in MESH_GLOO_SHAPES:
         name = f"{shape[0]}x{shape[1]}"
         got, ref = gloo["train"][name], gloo["train"]["trainer"]
-        # the timed run's drift from the Trainer's run (not gated: over free
+        # the free run's drift from the Trainer's run (not gated: over free
         # steps the rounding of the ranks' sums moves every vertex)
         drift = float((got["state"]["params.face_bary"]
                        - ref["state"]["params.face_bary"]).abs().max())
@@ -3324,44 +2943,37 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
                 and all(torch.equal(run["tensors"][k], single["tensors"][k])
                         for k in single["tensors"]))
         gnn[name] = {"loss_rel": rel, "params_abs": params, "bit_identical": bits,
-                     "losses": run["losses"], "s": run["s"]}
+                     "losses": run["losses"]}
         if not max(rel) <= tol or (name == "nccl_1" and not params <= TOL_MESH_GNN_PARAMS):
             failures.append(f"gnn {name} against the single process: {json.dumps(gnn[name])}")
     if failures:
         raise RuntimeError("mesh: " + "; ".join(failures))
 
-    def times(rec):
-        return {"ms_per_step": rec["ms_per_step"], "host_ms_per_step": rec["host_ms_per_step"]}
-
     launches = {k: sum(r["launches"].get(k, 0) for r in
                        (tr["1x1"], sc, cli, gloo["train"]["2x1"], gloo["train"]["1x2"]))
                 for k in ("K1", "K2", "K3")}
     record = {
-        "nccl_1x1": {"steps": MESH_STEPS, "trainer": times(tr["trainer"]),
-                     "sharded": times(tr["1x1"]), "bit_identical": True,
+        "nccl_1x1": {"steps": MESH_STEPS, "bit_identical": True,
                      "launches": tr["1x1"]["launches"]},
-        "train_scene_1x1": {"iterations": SWEEP_ITERATIONS, "s": sc["s"],
+        "train_scene_1x1": {"iterations": SWEEP_ITERATIONS,
                             "bit_identical_to_lone": True, "launches": sc["launches"]},
-        "train_cli_1x1": {"iterations": SWEEP_ITERATIONS, "s": cli["s"],
+        "train_cli_1x1": {"iterations": SWEEP_ITERATIONS,
                           "bit_identical_to_lone": True, "nccl_agreements": cli["agreed"],
                           "launches": cli["launches"]},
-        "gloo_shared_card": {"steps": MESH_GLOO_STEPS, "trainer": times(gloo["train"]["trainer"]),
-                             **{n: {**times(gloo["train"][n]), "errors": errors[n],
+        "gloo_shared_card": {"steps": MESH_GLOO_STEPS,
+                             **{n: {"errors": errors[n],
                                     "rank0_launches": gloo["train"][n]["launches"]}
                                 for n in errors},
                              "note": "two ranks on one card over gloo: a check, not a "
                                      "multi-card speed"},
         "gnn": {**gnn, "single_losses": single["losses"], "epochs": MESH_GNN_EPOCHS,
                 "batch": GNN_BATCH},
-        "launch_s": {"nccl_1": nccl_s, "gloo_2": gloo_s}, "launches": launches, "gpu": gpu}
-    log(f"mesh: NCCL 1x1 {MESH_STEPS} steps {tr['1x1']['ms_per_step']:.4f} ms/step "
-        f"(host {tr['1x1']['host_ms_per_step']:.4f}) against the Trainer's "
-        f"{tr['trainer']['ms_per_step']:.4f} ({tr['trainer']['host_ms_per_step']:.4f}), "
-        f"bit-identical; train_scene 1x1 {sc['s']:.1f} s and train --mesh 1x1 "
-        f"{cli['s']:.1f} s ({cli['agreed']} viewer agreements over NCCL) bit-identical "
-        f"to the lone run; "
-        f"gloo shared card {json.dumps({n: times(gloo['train'][n]) for n in errors})}, "
-        f"each step against the Trainer's from the same state: largest face_bary "
+        "launches": launches, "gpu": gpu}
+    log(f"mesh: NCCL 1x1 {MESH_STEPS} steps bit-identical to the Trainer's; "
+        f"train_scene 1x1 and train --mesh 1x1 ({cli['agreed']} viewer agreements "
+        f"over NCCL) bit-identical to the lone run; gloo shared card "
+        f"{', '.join(errors)}, each step against the Trainer's from the same state: "
+        f"largest face_bary "
         f"{max(e['face_bary_abs'] for n in errors for e in errors[n]['held']):.3g}, "
         f"metrics {max(max(e['metrics_rel'].values()) for n in errors for e in errors[n]['held']):.3g}; "
         f"gnn {json.dumps({n: (max(g['loss_rel']), g['params_abs'], g['bit_identical']) for n, g in gnn.items()})} "
@@ -3374,7 +2986,6 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
 POINTS_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "benchmark", "configs", "gs-360-3m.json")
 POINTS_CAMERA = (0.7, 0.25, 3.6)
-POINTS_FRAMES = 5
 
 
 def bits_differ(got, want) -> dict:
@@ -3392,22 +3003,18 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
     gs-360-3m field (3.0M free-xyz Gaussians drawn from SEED as the
     benchmark's ``render-gs360`` cell draws them, SH 3, uncapped splats) at
     1237x822, 39 x 26 tiles of 32 px whose last column and row are partial:
-    one frame with the launch counters set to 0 just before and read just
-    after (K1 and the point front end's kernel once each, nothing else), the pack of that frame made again and
-    holding as many instances as the frame's binning emitted, K1 on it
-    bit-identical to the frame and within TOL_PLAIN of its plain walk (the
-    depth channel relative to the deepest Gaussian); then
-    K1 alone on that pack (torch.profiler), its bound on the frame's pixels,
-    its registers and blocks an SM (the one K1 instance the 65k entry also
-    reads), and ms a frame over POINTS_FRAMES frames (CUDA events). The
-    point front end: ``models.point_gaussians.COUNTS`` adds one kernel call
-    and no PyTorch call in the counted frame, and the kernel's launch
-    counter one launch; on the frame's camera its
-    eight outputs equal the PyTorch ops' (``project_points_eager``) bit for
-    bit; the kernel alone (torch.profiler), its byte bound (each
-    Gaussian's 59 floats and a byte read, 12 floats and a byte written at
-    3.35 TB/s), registers and blocks an SM, and the PyTorch ops' ms (CUDA
-    events)."""
+    one frame with the launch counts cleared just before and read just
+    after (K1 and the point front end's kernel once each, nothing else), the
+    pack of that frame made again and holding as many instances as the
+    frame's binning emitted, K1 on it bit-identical to the frame and within
+    TOL_PLAIN of its plain walk (the depth channel relative to the deepest
+    Gaussian); then K1 alone on that pack (torch.profiler), its bound
+    (``roofline``) on the frame's pixels, its registers and blocks an SM
+    (the one K1 instance the 65k entry also reads). The point front end:
+    ``models.point_gaussians.COUNTS`` adds one kernel call and no PyTorch
+    call in the counted frame; on the frame's camera its eight outputs equal
+    the PyTorch ops' (``project_points_eager``) bit for bit; the kernel
+    alone (torch.profiler), its bound, registers and blocks an SM."""
     import ctypes
 
     import torch
@@ -3442,16 +3049,14 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
         return PG.render_points(params, state, cam, w, h, tan_x, tan_y, bg, sh)[0]
 
     frame()                                  # warm-up (allocator, the build)
-    torch.cuda.synchronize()
-    reset_launch_counts()
+    kernels.LAUNCHES.clear()
     emitted = TF.COUNTS["instances"]
     fronts = dict(PG.COUNTS)
     rgb = frame()
-    torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = dict(kernels.LAUNCHES)
     emitted = TF.COUNTS["instances"] - emitted
     fronts = {k: PG.COUNTS[k] - fronts.get(k, 0) for k in ("front_fused", "front_eager")}
-    if launches != {**dict.fromkeys(launches, 0), "K1": 1, "front": 1}:
+    if launches != {"K1": 1, "front": 1}:
         raise RuntimeError(f"points frame launched {launches}")
     if fronts != {"front_fused": 1, "front_eager": 0}:
         raise RuntimeError(f"points frame's front end ran {fronts}")
@@ -3471,9 +3076,7 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
         return PF.project_points_fused(params, state.alive, cam, w, h, tan_x, tan_y, sh)
 
     front_kernel_ms, front_records = kernel_alone_ms(fused_front, "front")
-    front_eager_ms = time_ms(lambda: PG.project_points_eager(
-        params, state.alive, cam, w, h, tan_x, tan_y, sh), 5)
-    front_bound_ms = n * ((59 * 4 + 1) + (12 * 4 + 1)) / PEAK_HBM_BYTES * 1e3
+    front_bound = roofline("front", {"gaussians": n})
     query = kernels.load("point_front").point_front_blocks_per_sm
     query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
     front_occupancy = query(sh)
@@ -3491,28 +3094,26 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
     if not torch.equal(rgb, TF.tiles_to_images(out_k, w, h, tile)[0]):
         raise RuntimeError(f"{label}: render_points' frame is not K1's output")
     del out_k
-    ms = time_ms(lambda: TF.raster_forward_tiles(packed, w, h, tile, bg), 20)
     kernel_ms, records = kernel_alone_ms(
         lambda: TF.raster_forward_tiles(packed, w, h, tile, bg), "K1")
-    b = bound(stats, "K1", tw * th, tile * tile, pixels=w * h)
-    frame_ms = timed_calls(lambda _: frame(), range(POINTS_FRAMES))[0]
-    record = {"gaussians": n, "valid": int(proj.valid.sum()), "width": w,
+    valid = int(proj.valid.sum())
+    b = roofline("K1", {"gaussians": valid, "pixels": w * h,
+                        "pairs": stats["pairs_contributing"]})
+    record = {"gaussians": n, "valid": valid, "width": w,
               "height": h, "tile": tile, "tiles": tw * th, "instances": instances,
-              "launches": launches["K1"],
-              "max_abs_err": err, "depth_scale": depth_scale, "walk": stats, "ms": ms, "kernel_ms": kernel_ms,
-              "kernel_ms_records": records, "bound_ms": b["bound_ms"],
-              "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / kernel_ms,
+              "launches": launches["K1"], "max_abs_err": err,
+              "depth_scale": depth_scale, "walk": stats, "kernel_ms": kernel_ms,
+              "kernel_ms_records": records, **b,
+              "share_of_bound": b["bound_ms"] / kernel_ms,
               "registers": (usage.get(KERNEL_ENTRIES["K1"]) or {}).get("registers"),
-              "blocks_per_sm": occupancy["K1"], "frame_ms": frame_ms,
+              "blocks_per_sm": occupancy["K1"],
               "front": {"counts": fronts, "launches": launches["front"],
                         "bits_differ": front_differ,
                         "kernel_ms": front_kernel_ms,
-                        "kernel_ms_records": front_records,
-                        "bound_ms": front_bound_ms,
-                        "share_of_bound": front_bound_ms / front_kernel_ms,
+                        "kernel_ms_records": front_records, **front_bound,
+                        "share_of_bound": front_bound["bound_ms"] / front_kernel_ms,
                         "usage": usage.get(KERNEL_ENTRIES["front"]),
-                        "blocks_per_sm": front_occupancy,
-                        "eager_ms": front_eager_ms},
+                        "blocks_per_sm": front_occupancy},
               "gpu": gpu}
     log(f"points serving path [{label}]: {json.dumps(record)}")
     del params, state, proj, packed, rgb
@@ -3589,27 +3190,29 @@ def main() -> int:
     from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         raster_forward_tiles,
-        raster_forward_tiles_plain,
         sorted_pack,
     )
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
         raster_forward_train,
-        raster_forward_train_plain,
         run_backward,
-        run_backward_plain,
     )
     from cloth_splatting_tpu_torch.render import camera_arrays, project_view, render
 
-    t_start = time.time()
     dev = torch.device("cuda")
+    # each phase's seconds, on the host clock, from the end of the one before
+    phases, clock = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        phases[phase] = now - clock[0]
+        clock[0] = now
 
     # 1. build ---------------------------------------------------------------
-    t0 = time.time()
     usage = {}
     for name, text in build_logs().items():
         log(f"nvcc {name}:\n{text.strip()}")
         usage.update(ptxas_usage(text))
-    log(f"build: {time.time() - t0:.1f} s; ptxas {json.dumps(usage)}")
+    log(f"ptxas {json.dumps(usage)}")
     check_spills(usage)
     occupancy = blocks_per_sm()
     log(f"blocks an SM (occupancy calculator): {json.dumps(occupancy)}")
@@ -3621,14 +3224,13 @@ def main() -> int:
     log(f"gpu: {gpu}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    lap("build")
 
     sc = build_scenes(dev)
     tan, mesh, params, state = sc.tan, sc.mesh, sc.params, sc.state
     simulator, preds, cams, project = sc.simulator, sc.preds, sc.cams, sc.project
     tile, t_proj, train_pack = sc.tile, sc.t_proj, sc.train_pack
     tw, th = WIDTH // tile, HEIGHT // tile
-    n_tiles = tw * th
-    p = tile * tile
     n_alive = int(state.alive.sum())
     log(f"scene: {n_alive} Gaussians (capacity {state.alive.numel()}), "
         f"{mesh.pos.shape[0]} vertices, {WIDTH}x{HEIGHT}")
@@ -3637,10 +3239,11 @@ def main() -> int:
     k1_err = k2_err = k3_err = k3_rel = 0.0
     packs = []
     for v in (0, 3):
-        packed = sorted_pack(project(cams[v]), tw, th, tile, order="fused")
+        proj = project(cams[v])
+        packed = sorted_pack(proj, tw, th, tile, order="fused")
         err, stats = compare_k1(packed, WIDTH, HEIGHT, tile, f"65k view {v}")
         k1_err = max(k1_err, err)
-        packs.append((packed, stats))
+        packs.append((packed, stats, int(proj.valid.sum())))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     err, train_stats, train_out, train_tb = compare_k2(
@@ -3700,105 +3303,50 @@ def main() -> int:
     span_err, span_programs_taken, span_identical = span_phase(span_cases, gen)
     span_caps = span_cap_phase(packs[0][0], train_pack, train_gimg, train_tb, tile)
     wide = wide_phase(gen, dev)
+    lap("kernels")
 
-    # 3. times at the main paths' shapes ---------------------------------------
-    packed, stats = packs[0]
-    k1_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG), 50)
-    alone = {"K1": kernel_alone_ms(
-        lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG), "K1")}
-    k1_plain_ms = time_ms(
-        lambda: raster_forward_tiles_plain(packed, WIDTH, HEIGHT, tile, BG), 3, 1)
-    k1_bound = bound(stats, "K1", n_tiles, p)
-    log(f"K1 65k view 0: {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound "
-        f"{json.dumps(k1_bound)} [{gpu}]")
-
-    k2_ms = time_ms(lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile,
-                                                 BG), 50)
-    alone["K2"] = kernel_alone_ms(
-        lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile, BG), "K2")
-    k2_plain_ms = time_ms(lambda: raster_forward_train_plain(
-        train_pack, WIDTH, HEIGHT, tile, BG), 3, 1)
-    k2_bound = bound(train_stats, "K2", n_tiles, p)
-    log(f"K2 65k train cam 0: {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, bound "
-        f"{json.dumps(k2_bound)} [{gpu}]")
-
-    k3_ms = time_ms(lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH,
-                                         HEIGHT, tile, BG), 50)
-    alone["K3"] = kernel_alone_ms(lambda: run_backward(
-        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), "K3")
-    k3_plain_ms = time_ms(lambda: run_backward_plain(
-        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG), 3, 1)
-    k3_bound = bound(train_stats, "K3", n_tiles, p)
-    log(f"K3 65k train cam 0: {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound "
-        f"{json.dumps(k3_bound)} [{gpu}]")
-
-    # the span kernels at the same shapes: the same function, so K1-span's
-    # and K2-span's bounds are K1's and K2's; K4's is K3's with one more
-    # addition per contributing pair and without U_tot's channel
-    k1s_ms = time_ms(lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG,
-                                                  *SPAN_32), 50)
-    k1s_plain_ms = time_ms(lambda: raster_forward_tiles_plain(
-        packed, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
-    k2s_ms = time_ms(lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile,
-                                                  BG, *SPAN_32), 50)
-    k2s_plain_ms = time_ms(lambda: raster_forward_train_plain(
-        train_pack, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
-    k4_ms = time_ms(lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH,
-                                         HEIGHT, tile, BG, *SPAN_32), 50)
-    alone["K1-span"] = kernel_alone_ms(lambda: raster_forward_tiles(
-        packed, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K1-span")
-    alone["K2-span"] = kernel_alone_ms(lambda: raster_forward_train(
-        train_pack, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K2-span")
-    alone["K4"] = kernel_alone_ms(lambda: run_backward(
-        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), "K4")
-    log("kernels alone (torch.profiler; ms, launch records of 20): "
-        f"{json.dumps(alone)} [{gpu}]")
-    # the span kernels alone at the largest window of SPAN_CAPS
+    # 3. each kernel alone at the main paths' shapes ---------------------------
+    # K1 and K1-span on the serving pack of view 0, the others on the training
+    # pack of camera 0; the span forms at SPAN_32 and at the largest window of
+    # SPAN_CAPS
+    packed, stats, serve_valid = packs[0]
     big = (SPAN_32[0], SPAN_CAPS[-1])
-    alone_big = {
-        "K1-span": kernel_alone_ms(lambda: raster_forward_tiles(
-            packed, WIDTH, HEIGHT, tile, BG, *big), "K1-span"),
-        "K2-span": kernel_alone_ms(lambda: raster_forward_train(
-            train_pack, WIDTH, HEIGHT, tile, BG, *big), "K2-span"),
-        "K4": kernel_alone_ms(lambda: run_backward(
-            train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *big), "K4")}
-    log(f"span kernels alone at tpp={big[0]} span_cap={big[1]} (torch.profiler; "
-        f"ms, launch records of 20): {json.dumps(alone_big)} [{gpu}]")
-    k4_plain_ms = time_ms(lambda: run_backward_plain(
-        train_pack, train_gimg, train_tb, WIDTH, HEIGHT, tile, BG, *SPAN_32), 3, 1)
-    k4_bound = bound(train_stats, "K4", n_tiles, p)
-    log(f"span kernels at tpp={SPAN_32[0]} span_cap={SPAN_32[1]}: K1-span "
-        f"{k1s_ms:.4f} ms (K1 {k1_ms:.4f}), plain {k1s_plain_ms:.3f}; K2-span "
-        f"{k2s_ms:.4f} ms (K2 {k2_ms:.4f}), plain {k2s_plain_ms:.3f}; K4 "
-        f"{k4_ms:.4f} ms (K3 {k3_ms:.4f}), plain {k4_plain_ms:.3f}, bound "
-        f"{json.dumps(k4_bound)} [{gpu}]")
+
+    def calls(span):
+        return {
+            "K1": lambda: raster_forward_tiles(packed, WIDTH, HEIGHT, tile, BG, *span),
+            "K2": lambda: raster_forward_train(train_pack, WIDTH, HEIGHT, tile, BG,
+                                               *span),
+            "K3": lambda: run_backward(train_pack, train_gimg, train_tb, WIDTH, HEIGHT,
+                                       tile, BG, *span)}
+
+    spanned = {"K1": "K1-span", "K2": "K2-span", "K3": "K4"}
+    alone = {key: kernel_alone_ms(fn, key) for key, fn in calls(()).items()}
+    alone.update({spanned[key]: kernel_alone_ms(fn, spanned[key])
+                  for key, fn in calls(SPAN_32).items()})
+    alone_big = {spanned[key]: kernel_alone_ms(fn, spanned[key])
+                 for key, fn in calls(big).items()}
+    log("kernels alone (torch.profiler; ms, launch records of 20): "
+        f"{json.dumps(alone)}; span forms at tpp={big[0]} span_cap={big[1]}: "
+        f"{json.dumps(alone_big)} [{gpu}]")
+    # the functions the kernels compute, on these packs
+    serve_item = {"gaussians": serve_valid, "pixels": WIDTH * HEIGHT,
+                  "pairs": stats["pairs_contributing"]}
+    train_item = {"gaussians": int(t_proj.valid.sum()), "pixels": WIDTH * HEIGHT,
+                  "pairs": train_stats["pairs_contributing"]}
+    lap("alone")
 
     # 4. the serving path: frames through render ------------------------------
     def frame(cam):
         return render(cam, WIDTH, HEIGHT, tan, tan, params, state, mesh,
                       simulator, preds, BG, 3, device=dev)
 
-    frame(cams[0])                          # warm-up (allocator, cuBLAS)
-    torch.cuda.synchronize()
-    raster_forward_tiles.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    profiling.take_spans()
-    profiling.enable_spans(True)
-    t_host = time.perf_counter()
-    start.record()
+    kernels.LAUNCHES.clear()
     outs = [frame(c) for c in cams]
-    end.record()
-    end.synchronize()
-    host_ms = (time.perf_counter() - t_host) * 1e3 / N_FRAMES
-    profiling.enable_spans(False)
-    # a frame's stages: host time inside the port's spans over those frames
-    stage_ms = span_ms(profiling.take_spans(), FRAME_SPANS, N_FRAMES)
-    log(f"stages of a frame (host ms inside spans): {json.dumps(stage_ms)}")
-    k1_launches = raster_forward_tiles.launches
-    frame_ms = start.elapsed_time(end) / N_FRAMES
-    if k1_launches != N_FRAMES:
-        raise RuntimeError(f"K1 launched {k1_launches} times for {N_FRAMES} frames")
+    serving_launches = dict(kernels.LAUNCHES)
+    if serving_launches != {"K1": N_FRAMES}:
+        raise RuntimeError(f"serving: launches {serving_launches} for {N_FRAMES} "
+                           f"frames, expected K1 = {N_FRAMES}")
     coverages = []
     for i, out in enumerate(outs):
         if tuple(out.rgb.shape) != (3, HEIGHT, WIDTH):
@@ -3809,24 +3357,13 @@ def main() -> int:
         coverages.append(float(out.alpha.mean()))
     if min(coverages) <= 0.0:
         raise RuntimeError(f"a frame has no coverage: {coverages}")
-    log(f"serving: {N_FRAMES} frames, {frame_ms:.4f} ms/frame (device), "
-        f"{host_ms:.4f} ms/frame (host), K1 launches {k1_launches}, "
-        f"alpha coverage {min(coverages):.4f}..{max(coverages):.4f} [{gpu}]")
-    trace = profile_calls(frame, cams[:2])
-    log(f"profile of 2 frames: {json.dumps(trace)}")
-    print(json.dumps({"serving": {
-        "frames": N_FRAMES, "gaussians": n_alive, "width": WIDTH,
-        "height": HEIGHT, "ms_per_frame": frame_ms,
-        "host_ms_per_frame": host_ms, "stage_ms": stage_ms,
-        "device_busy_share": trace["device_busy_share"],
-        "kernels_per_frame": trace["kernels_per_call"], "gpu": gpu}}))
-
-    # the span A/B of the serving path: the same frames with K1-span
-    def run_frames():
-        return timed_calls(frame, cams)[0]
-
-    serve_ab_ms, serve_ab_launches = span_ab(
-        run_frames, run_frames, SPAN_32, "frame", N_FRAMES, {"K1-span": N_FRAMES})
+    log(f"serving: {N_FRAMES} frames of {n_alive} Gaussians, launches "
+        f"{json.dumps(serving_launches)}, alpha coverage "
+        f"{min(coverages):.4f}..{max(coverages):.4f} [{gpu}]")
+    del outs
+    serve_span = span_turn(lambda: [frame(c) for c in cams], SPAN_32, "frame",
+                           {"K1-span": N_FRAMES})
+    lap("serving")
 
     # 5. a small render and its gradients against the oracle -------------------
     small_mesh = grid_cloth_mesh(8, 8, size=1.2, device=dev)
@@ -3847,82 +3384,92 @@ def main() -> int:
         raise RuntimeError("small render has no coverage")
     oracle_grads(proj, 64, 64, gen)
     oracle_grads(proj, 64, 64, gen, span=(4, 8))
+    lap("oracle")
 
     # 6. the training path: steps of the Trainer -------------------------------
-    train, k2_launches, k3_launches, train_ab_ms, train_ab_launches = \
-        train_phase(gpu)
+    train, k2_launches, k3_launches, train_span = train_phase(gpu)
     print(json.dumps({"train": train}))
-    print(json.dumps({"span_ab": {
+    print(json.dumps({"span": {
         "tiles_per_program": SPAN_32[0], "span_cap": SPAN_32[1],
-        "order": "default, span, span, default",
-        "serving_ms_per_frame": serve_ab_ms, "frames": N_FRAMES,
-        "train_ms_per_step": train_ab_ms, "steps": TRAIN_STEPS,
+        "launches": {"serving": serve_span, "train": train_span},
         "programs": span_programs_taken,
         "bit_identical_to_default": span_identical, "span_caps": span_caps,
         "wide": wide, "gpu": gpu}}))
+    lap("train")
 
     # 7. the full fit ----------------------------------------------------------
     fit, fit_launches, fitted = fit_phase(mesh, tan, gpu)
     print(json.dumps({"fit": fit}))
+    lap("fit")
 
     # 8. evaluation of the fitted scene ----------------------------------------
     ev, eval_launches = eval_phase(fitted, gpu)
     del fitted
     print(json.dumps({"eval": ev}))
+    lap("eval")
 
     # 9. the port's benchmark entry --------------------------------------------
     bench_launches = bench_phase(sc.serving, gpu)
+    lap("bench")
 
     # 10. the dense tier -------------------------------------------------------
     print(json.dumps({"dense": dense_phase(sc, gpu)}))
+    lap("dense")
 
     # 11. the parity run --------------------------------------------------------
     parity, parity_launches = parity_phase(gpu)
     print(json.dumps({"parity": parity}))
+    lap("parity")
 
     # 12. the GNN dynamics -----------------------------------------------------
     gnn, gnn_state = gnn_phase(gpu)
     print(json.dumps({"gnn": gnn}))
+    lap("gnn")
 
     # 13. the closed manipulation loop -----------------------------------------
     planning, planning_k = planning_phase(gpu, gnn_state)
     del gnn_state
     print(json.dumps({"planning": planning}))
+    lap("planning")
 
     # 14. the legacy free-xyz fit (the dense tier) -----------------------------
     print(json.dumps({"legacy": legacy_phase(gpu)}))
+    lap("legacy")
 
     # 15. the scene-parallel sweep ---------------------------------------------
     sweep, sweep_launches, sweep_scene1, sweep_lone = sweep_phase(mesh, gpu)
     print(json.dumps({"sweep": sweep}))
+    lap("sweep")
 
     # 16. the multi-device layer: a world of one NCCL rank, two gloo ranks ----
     mesh_rec, mesh_launches = mesh_phase(gpu, sweep_scene1, sweep_lone)
     del sweep_scene1, sweep_lone
     print(json.dumps({"mesh": mesh_rec}))
+    lap("mesh")
 
     # 17. the plain 3DGS serving path at gs-360-3m ----------------------------
     points = points_phase(gpu, usage, occupancy)
     print(json.dumps({"points": points}))
+    lap("points")
 
-    log(f"total: {time.time() - t_start:.1f} s")
     print(gpu)
 
-    def entry(name, source, replaces, by_path, err, ms, plain_ms, b):
+    def entry(name, source, replaces, by_path, err, item):
         # launches_by_path: each main path's own count, read just after the
-        # path was driven from counters set to 0 just before; launches: their
-        # sum; ms: the wrapper call, kernel_ms: the kernel alone, the mean of
-        # kernel_ms_records launch records of 20; share_of_bound: bound /
-        # kernel alone; ptxas: the entry function's registers, shared memory
-        # and spills from this run's build log
+        # path was driven from counts cleared just before; launches: their
+        # sum; kernel_ms: the kernel alone, the mean of kernel_ms_records
+        # launch records of 20; bound_ms: ``roofline`` of the function on
+        # ``item``; share_of_bound: bound / kernel alone; ptxas: the entry
+        # function's registers, shared memory and spills from this run's
+        # build log
         key = name.split()[0]
         kernel_ms, records = alone[key]
+        b = roofline(key, item)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None,
-                "kernel_ms": kernel_ms, "kernel_ms_records": records,
+                "launches_by_path": by_path, "max_abs_err": err, **b,
+                "library_ms": None, "kernel_ms": kernel_ms,
+                "kernel_ms_records": records,
                 "share_of_bound": b["bound_ms"] / kernel_ms,
                 "ptxas": usage.get(KERNEL_ENTRIES[key])}
 
@@ -3936,17 +3483,14 @@ def main() -> int:
                       "bench": bench_launches["K3"], "parity": parity_launches["K3"],
                       "planning": planning_k["K3"]["launches"],
                       "sweep": sweep_launches["K3"], "mesh": mesh_launches["K3"]},
-                     max(k3_err, planning_k["K3"]["max_abs_err"]), k3_ms, k3_plain_ms,
-                     k3_bound)
+                     max(k3_err, planning_k["K3"]["max_abs_err"]), train_item)
     k3_entry["max_rel_err"] = max(k3_rel, planning_k["K3"]["max_rel_err"])
     k3_entry["at_planning_shape"] = planning_k["K3"]
     k3_entry["cull_audit"] = cull["65k train cam 0"]
     k4_entry = entry("K4 tiled_bwd_reverse reverse gradient sweep",
                      "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                      "cloth_splatting_tpu/ops/rasterize/pallas_train.py:655",
-                     {"span_train": train_ab_launches["K4"]}, span_err["K4"],
-                     k4_ms, k4_plain_ms,
-                     k4_bound)
+                     {"span_train": train_span["K4"]}, span_err["K4"], train_item)
     k4_entry["max_rel_err"] = span_err["K4_rel"]
     k4_entry["max_rel_err_vs_k3"] = span_err["K4_vs_K3_rel"]
 
@@ -3979,17 +3523,18 @@ def main() -> int:
     k1_entry = patched(entry("K1 tiled_fwd compositor",
                              "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
                              "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:305",
-                             {"serving": k1_launches, "fit": fit_launches["K1"],
+                             {"serving": serving_launches["K1"],
+                              "fit": fit_launches["K1"],
                               "eval": eval_launches, "bench": bench_launches["K1"],
                               "parity": parity_launches["K1"],
                               "sweep": sweep_launches["K1"],
                               "mesh": mesh_launches["K1"],
                               "points": points["launches"]},
-                             k1_err, k1_ms, k1_plain_ms, k1_bound),
+                             k1_err, serve_item),
                        "K1", cull["65k view 0"])
     # K1 on the gs-360-3m frame: partial tiles, uncapped splats, ~10M instances
     k1_entry["at_points_shape"] = {k: points[k] for k in (
-        "instances", "max_abs_err", "depth_scale", "ms", "kernel_ms", "kernel_ms_records",
+        "instances", "max_abs_err", "depth_scale", "kernel_ms", "kernel_ms_records",
         "bound_ms", "bound_by", "share_of_bound", "registers", "blocks_per_sm")}
     k2_entry = patched(entry("K2 tiled_fwd_train compositor + boundaries",
                              "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
@@ -4000,34 +3545,35 @@ def main() -> int:
                               "planning": planning_k["K2"]["launches"],
                               "sweep": sweep_launches["K2"],
                               "mesh": mesh_launches["K2"]},
-                             max(k2_err, planning_k["K2"]["max_abs_err"]), k2_ms,
-                             k2_plain_ms, k2_bound),
+                             max(k2_err, planning_k["K2"]["max_abs_err"]), train_item),
                        "K2", cull["65k train cam 0"])
     k2_entry["at_planning_shape"] = planning_k["K2"]
     # K1, K2, K3 over the serving frames, the Trainer steps, the fit, the
     # eval splits (K1), the bench, the parity run, (K2, K3) the planning
     # episode and the sweep (K1: its final evaluation), K1 over the points
-    # frame; the span kernels over one span turn of the A/B's frames and
-    # steps. K2 and K3 also carry their readings at the planning refiner's
-    # 96 px shape (at_planning_shape: error, times, bound, launches), K1 at
-    # the gs-360-3m frame's (at_points_shape)
+    # frame; the span kernels over the span turn's frames and steps. K2 and
+    # K3 also carry their readings at the planning refiner's 96 px shape
+    # (at_planning_shape: error, launches), K1 at the gs-360-3m frame's
+    # (at_points_shape)
     print(json.dumps({"kernels": [
         k1_entry,
         clustered(entry("K1-span tiled_fwd_span compositor, one window per program",
                         "cloth_splatting_tpu_torch/csrc/tiled_fwd.cu",
                         "cloth_splatting_tpu/ops/rasterize/pallas_tiled.py:376",
-                        {"span_serving": serve_ab_launches["K1-span"]},
-                        span_err["K1-span"], k1s_ms, k1s_plain_ms, k1_bound),
+                        {"span_serving": serve_span["K1-span"]},
+                        span_err["K1-span"], serve_item),
                   "K1-span", "K1's patched, culled walk", cull["65k view 0"]),
         k2_entry,
         clustered(entry("K2-span tiled_fwd_train_span, one window per program",
                         "cloth_splatting_tpu_torch/csrc/tiled_train.cu",
                         "cloth_splatting_tpu/ops/rasterize/pallas_train.py:169",
-                        {"span_train": train_ab_launches["K2-span"]},
-                        span_err["K2-span"], k2s_ms, k2s_plain_ms, k2_bound),
+                        {"span_train": train_span["K2-span"]},
+                        span_err["K2-span"], train_item),
                   "K2-span", "K2's patched, culled walk", cull["65k train cam 0"]),
         k3_entry, k4_entry,
     ]}))
+    log(f"total: {sum(phases.values()):.1f} s")
+    print(json.dumps({"phases": phases}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,16 +7,23 @@ into ``_build/`` beside this file (git-ignored); a library's file name
 carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
 the flags, so an edited source or header is rebuilt. Nothing is built or
 loaded at import time.
+
+Every launch goes through ``launch``, which counts it in ``LAUNCHES`` by
+the kernel's name: "K1", "K1-span", "K2", "K2-span", "K3", "K4" and
+"front" (the point front end).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
@@ -28,6 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# successful launches by kernel name, since the process started or the
+# caller last cleared it
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -86,3 +96,14 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def launch(name: str, fn, dev, *args) -> None:
+    """Call the ctypes launcher ``fn(*args, stream)`` of kernel ``name`` on
+    ``dev``'s current stream; raise RuntimeError if it returns a CUDA error,
+    else count one launch in ``LAUNCHES[name]``."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

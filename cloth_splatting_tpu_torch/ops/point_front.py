@@ -80,8 +80,8 @@ def project_points_fused(params: PointGaussianParams, alive: torch.Tensor, cam,
     tensors may have any layout (a transposed ``world_view`` is copied, 16
     floats); raises ValueError on other inputs it does not take
     (``check_front_inputs``), before any library is loaded, and RuntimeError
-    if the launch fails. ``project_points_fused.launches`` counts the
-    kernel's launches (none for zero Gaussians)."""
+    if the launch fails. ``kernels.LAUNCHES["front"]`` counts the kernel's
+    launches (none for zero Gaussians)."""
     camera = [t.contiguous() for t in (cam.world_view, cam.full_proj,
                                        cam.camera_center)]
     check_front_inputs(params, alive, *camera, sh_degree)
@@ -102,13 +102,6 @@ def project_points_fused(params: PointGaussianParams, alive: torch.Tensor, cam,
             focal_y, 1.3 * tanfovx, 1.3 * tanfovy, int(max_radius is not None),
             0.0 if max_radius is None else float(max_radius), *out]
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        err = _launcher()(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"point_front kernel launch failed: CUDA error {err}")
     if c > 0:
-        project_points_fused.launches += 1
+        kernels.launch("front", _launcher(), dev, *args)
     return out
-
-
-project_points_fused.launches = 0

@@ -692,8 +692,7 @@ def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
 
     A CUDA ``packed`` launches K1 or, when ``resolve_span`` leaves a span,
     K1-span on the current stream (or raises); a CPU one runs the plain
-    version. ``raster_forward_tiles.launches`` counts K1 launches and
-    ``raster_forward_tiles.span_launches`` K1-span launches."""
+    version. ``kernels.LAUNCHES`` counts them as "K1" and "K1-span"."""
     check_packed(packed, width, height, tile_size)
     dev = packed.rows16.device
     if dev.type == "cpu":
@@ -710,22 +709,11 @@ def raster_forward_tiles(packed: PackedTiles, width: int, height: int,
     args = [packed.starts.data_ptr(), packed.counts.data_ptr(),
             packed.rows16.data_ptr(), out.data_ptr(), n_tiles, tw, width, height,
             b_pad, tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
-    launch = _launchers()[1 if cap else 0]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(*args, tpp, cap, stream) if cap else launch(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"tiled_fwd{'_span' if cap else ''} kernel launch "
-                           f"failed: CUDA error {err}")
     if cap:
-        raster_forward_tiles.span_launches += 1
+        kernels.launch("K1-span", _launchers()[1], dev, *args, tpp, cap)
     else:
-        raster_forward_tiles.launches += 1
+        kernels.launch("K1", _launchers()[0], dev, *args)
     return out
-
-
-raster_forward_tiles.launches = 0
-raster_forward_tiles.span_launches = 0
 
 
 def tiles_to_images(out_t: torch.Tensor, width: int, height: int,

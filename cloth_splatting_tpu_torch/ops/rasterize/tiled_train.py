@@ -128,14 +128,6 @@ def _launchers():
     return fwd, bwd, fwd_span, bwd_rev
 
 
-def _launch(fn, name: str, dev, *args) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def _device(packed: PackedTiles) -> torch.device:
     dev = packed.rows16.device
     if dev.type not in ("cpu", "cuda"):
@@ -153,8 +145,8 @@ def raster_forward_train(packed: PackedTiles, width: int, height: int,
     A CUDA ``packed`` launches K2 or, when ``resolve_span`` leaves a span,
     K2-span (or raises): rows of tbounds past the sum of the tiles' chunk
     counts are left unwritten, and the backward never reads them. A CPU one
-    runs the plain version. ``raster_forward_train.launches`` counts K2
-    launches and ``raster_forward_train.span_launches`` K2-span launches."""
+    runs the plain version. ``kernels.LAUNCHES`` counts them as "K2" and
+    "K2-span"."""
     check_packed(packed, width, height, tile_size)
     check_whole_tiles(width, height, tile_size)
     dev = _device(packed)
@@ -175,16 +167,10 @@ def raster_forward_train(packed: PackedTiles, width: int, height: int,
             tbounds.data_ptr(), n_tiles, tw, b_pad, tile_size, float(bg[0]),
             float(bg[1]), float(bg[2])]
     if cap:
-        _launch(_launchers()[2], "tiled_fwd_train_span", dev, *args, tpp, cap)
-        raster_forward_train.span_launches += 1
+        kernels.launch("K2-span", _launchers()[2], dev, *args, tpp, cap)
     else:
-        _launch(_launchers()[0], "tiled_fwd_train", dev, *args)
-        raster_forward_train.launches += 1
+        kernels.launch("K2", _launchers()[0], dev, *args)
     return out, tbounds
-
-
-raster_forward_train.launches = 0
-raster_forward_train.span_launches = 0
 
 
 def chunk_grads_plain(blk, px, py, live, g4, kk, t_start, suffix,
@@ -317,9 +303,8 @@ def run_backward(packed: PackedTiles, gimg_t: torch.Tensor,
     [T, p, 8] and the forward's boundaries.
 
     A CUDA ``packed`` launches K3 or, when ``resolve_span`` leaves a span,
-    K4 (or raises); a CPU one runs the plain version.
-    ``run_backward.launches`` counts K3 launches and
-    ``run_backward.reverse_launches`` K4 launches."""
+    K4 (or raises); a CPU one runs the plain version. ``kernels.LAUNCHES``
+    counts them as "K3" and "K4"."""
     check_backward_inputs(packed, gimg_t, tbounds, width, height, tile_size)
     dev = _device(packed)
     if dev.type == "cpu":
@@ -336,16 +321,10 @@ def run_backward(packed: PackedTiles, gimg_t: torch.Tensor,
             tbounds.data_ptr(), grads.data_ptr(), n_tiles, tw, b_pad,
             tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
     if cap:
-        _launch(_launchers()[3], "tiled_bwd_reverse", dev, *args, tpp, cap)
-        run_backward.reverse_launches += 1
+        kernels.launch("K4", _launchers()[3], dev, *args, tpp, cap)
     else:
-        _launch(_launchers()[1], "tiled_bwd", dev, *args)
-        run_backward.launches += 1
+        kernels.launch("K3", _launchers()[1], dev, *args)
     return grads
-
-
-run_backward.launches = 0
-run_backward.reverse_launches = 0
 
 
 def images_to_tiles(img: torch.Tensor, width: int, height: int,

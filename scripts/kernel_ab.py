@@ -22,7 +22,7 @@ gradient fields within chip_smoke's TOL_K3 of A's field's largest magnitude
 the yardstick of a changed walk: the parent's outputs, not a second walk
 kept in the tree. Then it times each kernel in four turns, A, B, B, A:
   - ``ms``, the wrapper call: CUDA events over ITERS back-to-back calls after
-    a warm-up, as chip_smoke times it. Once the wrapper's host work takes
+    a warm-up (``time_ms``). Once the wrapper's host work takes
     longer than its kernels, this is host time;
   - ``host_ms``, the wrapper's host time per call: a host clock over ITERS
     calls issued without a sync (the card's queue holds them);
@@ -69,6 +69,23 @@ def use_tree(csrc: Path) -> dict:
     return usage
 
 
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_ms(fn, iters: int) -> float:
     """Host time of one call of ``fn`` over ``iters`` calls issued without a
     sync, after a warm-up call."""
@@ -89,8 +106,6 @@ def graph_ms(fn, iters: int) -> float:
     wrapper's kernels without its host time."""
     import torch
 
-    import chip_smoke as cs
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -101,7 +116,7 @@ def graph_ms(fn, iters: int) -> float:
     # capture mode refuses
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         fn()
-    return cs.time_ms(graph.replay, iters)
+    return time_ms(graph.replay, iters)
 
 
 def main() -> int:
@@ -184,7 +199,7 @@ def main() -> int:
         rows = {m: {} for m in measures}
         records = {}
         for k, fn in calls.items():
-            rows["ms"][k] = cs.time_ms(fn, ITERS)
+            rows["ms"][k] = time_ms(fn, ITERS)
             rows["host_ms"][k] = host_ms(fn, ITERS)
             rows["graph_ms"][k] = graph_ms(fn, ITERS)
             rows["kernel_ms"][k], records[k] = cs.kernel_alone_ms(fn, k)

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 
 from cloth_splatting_tpu.ops.rasterize import pallas_train as jptr
 
+from cloth_splatting_tpu_torch import kernels
 from cloth_splatting_tpu_torch.ops.projection import ALPHA_MAX
 from cloth_splatting_tpu_torch.ops.rasterize import tiled_fwd as tpt
 from cloth_splatting_tpu_torch.ops.rasterize import tiled_train as ttr
@@ -352,12 +353,12 @@ def test_reverse_sweep_with_span_matches_rasterize_pallas_grad():
         *(getattr(pj, k) for k in names))
     pt = to_torch(pj)
     leaves = [getattr(pt, k).clone().requires_grad_() for k in names]
-    launches = ttr.run_backward.reverse_launches
+    launches = kernels.LAUNCHES["K4"]
     val_t = loss(*ttr.rasterize_tiled_train(
         pt._replace(**dict(zip(names, leaves))), W, H, BG,
         tiles_per_program=tpp, span_cap=span_cap), torch.from_numpy(tgt))
     g_t = torch.autograd.grad(val_t, leaves)
-    assert ttr.run_backward.reverse_launches == launches   # CPU: plain version
+    assert kernels.LAUNCHES["K4"] == launches   # CPU: plain version
     np.testing.assert_allclose(float(val_t.detach()), float(val_j), rtol=1e-5)
     for name, a, b in zip(names, g_t, g_j):
         assert_field_close(a.numpy(), np.asarray(b), name)

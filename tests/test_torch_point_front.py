@@ -24,6 +24,8 @@ kernel; and ``fit_static_scene``, whose leaves need a gradient, on the
 PyTorch ops.
 """
 
+import collections
+import contextlib
 import json
 import os
 import sys
@@ -166,10 +168,33 @@ def test_wrapper_checks_raise_before_any_library_loads(monkeypatch, case, messag
     monkeypatch.setattr(kernels, "load", refuse)
     PF._launcher.cache_clear()
     params, alive, cam, deg = _bad_inputs(case)
-    launches = PF.project_points_fused.launches
+    launches = kernels.LAUNCHES["front"]
     with pytest.raises(ValueError, match=message):
         PF.project_points_fused(params, alive, cam, WIDTH, HEIGHT, TAN_X, TAN_Y, deg)
-    assert PF.project_points_fused.launches == launches
+    assert kernels.LAUNCHES["front"] == launches
+
+
+def test_launch_counts_only_successful_launches_by_name(monkeypatch):
+    """``kernels.launch`` hands the launcher the current stream last, raises
+    with the kernel's name on a CUDA error, and counts only the launches
+    that succeeded, each kernel's name apart."""
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(kernels, "LAUNCHES", collections.Counter())
+    calls = []
+
+    def succeeds(*args):
+        calls.append(args)
+        return 0
+
+    kernels.launch("K1", succeeds, "cpu", 1, 2)
+    kernels.launch("K1", succeeds, "cpu", 3)
+    kernels.launch("front", succeeds, "cpu")
+    with pytest.raises(RuntimeError, match=r"^K4 kernel launch failed: CUDA error 3$"):
+        kernels.launch("K4", lambda *args: 3, "cpu")
+    assert calls == [(1, 2, 7), (3, 7), (7,)]
+    assert kernels.LAUNCHES == {"K1": 2, "front": 1}
 
 
 def test_transposed_camera_passes_the_checks_but_the_device():
@@ -313,10 +338,10 @@ def test_kernel_equals_the_pytorch_ops_on_the_gs360_field(gs360, sh_degree, max_
     for req in CAMERAS:
         cam = camera_arrays(req, dev)
         with torch.no_grad():
-            fused, launches = PG.COUNTS["front_fused"], PF.project_points_fused.launches
+            fused, launches = PG.COUNTS["front_fused"], kernels.LAUNCHES["front"]
             got = front(params, state, cam, sh_degree, max_radius)
             assert PG.COUNTS["front_fused"] == fused + 1
-            assert PF.project_points_fused.launches == launches + 1
+            assert kernels.LAUNCHES["front"] == launches + 1
             want = PG.project_points_eager(params, state.alive, cam, WIDTH, HEIGHT,
                                            TAN_X, TAN_Y, sh_degree, max_radius)
         torch.cuda.synchronize()
@@ -363,10 +388,10 @@ def test_no_gaussians_launch_nothing(gs360):
     params, state = gs360
     cam = camera_arrays(CAMERAS[0], params.xyz.device)
     empty = PG.PointGaussianParams(*(t[:0] for t in params))
-    launches = PF.project_points_fused.launches
+    launches = kernels.LAUNCHES["front"]
     got = PF.project_points_fused(empty, state.alive[:0], cam, WIDTH, HEIGHT, TAN_X,
                                   TAN_Y, 3)
-    assert PF.project_points_fused.launches == launches
+    assert kernels.LAUNCHES["front"] == launches
     assert got.xy.shape == (0, 2) and got.valid.shape == (0,)
 
 
@@ -375,10 +400,10 @@ def test_served_frame_equals_the_frame_of_the_pytorch_front_end(gs360):
     params, state = gs360
     cam = camera_arrays(CAMERAS[1], params.xyz.device)
     bg = tuple(float(c) for c in CFG["image"]["background"])
-    before, launches = dict(PG.COUNTS), PF.project_points_fused.launches
+    before, launches = dict(PG.COUNTS), kernels.LAUNCHES["front"]
     rgb, _, radii = PG.render_points(params, state, cam, WIDTH, HEIGHT, TAN_X, TAN_Y,
                                      bg, 3)
-    assert PF.project_points_fused.launches == launches + 1
+    assert kernels.LAUNCHES["front"] == launches + 1
     assert PG.COUNTS["front_fused"] == before.get("front_fused", 0) + 1
     assert PG.COUNTS["front_eager"] == before.get("front_eager", 0)
     with torch.no_grad():
@@ -399,9 +424,9 @@ def test_fit_static_scene_takes_the_pytorch_ops_on_the_card(card):
         colors=rng.uniform(0.0, 1.0, (500, 3)).astype(np.float32))
     cams = [camera_arrays(req, card) for req in CAMERAS]
     gts = [torch.rand(3, 64, 64, device=card) for _ in cams]
-    before, launches = dict(PG.COUNTS), PF.project_points_fused.launches
+    before, launches = dict(PG.COUNTS), kernels.LAUNCHES["front"]
     PG.fit_static_scene(cams, gts, cloud, 64, 64, TAN_X, TAN_Y, sh_degree=1,
                         iterations=3, device=card)
-    assert PF.project_points_fused.launches == launches
+    assert kernels.LAUNCHES["front"] == launches
     assert PG.COUNTS["front_eager"] == before.get("front_eager", 0) + 3
     assert PG.COUNTS["front_fused"] == before.get("front_fused", 0)

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from cloth_splatting_tpu.ops.rasterize import pallas_tiled as jpt
 from cloth_splatting_tpu.ops.rasterize import pallas_train as jptr
 
+from cloth_splatting_tpu_torch import kernels
 from cloth_splatting_tpu_torch.ops.rasterize import tiled_fwd as tpt
 from cloth_splatting_tpu_torch.ops.rasterize import tiled_train as ttr
 
@@ -88,12 +89,11 @@ def test_span_forward_matches_pallas(tpp, span_cap):
                                  interpret=True, tiles_per_program=tpp,
                                  span_cap=span_cap)
     pt = to_torch(pj)
-    launches = (tpt.raster_forward_tiles.launches,
-                tpt.raster_forward_tiles.span_launches)
+    launches = (kernels.LAUNCHES["K1"], kernels.LAUNCHES["K1-span"])
     out_t = tpt.rasterize_tiled_fwd(pt, W, H, BG, tiles_per_program=tpp,
                                     span_cap=span_cap)
-    assert launches == (tpt.raster_forward_tiles.launches,
-                        tpt.raster_forward_tiles.span_launches)  # CPU: no kernel
+    assert launches == (kernels.LAUNCHES["K1"],
+                        kernels.LAUNCHES["K1-span"])      # CPU: no kernel
     base = tpt.rasterize_tiled_fwd(pt, W, H, BG)
     for name, a, b, c in zip(("rgb", "depth", "alpha"), out_t, out_j, base):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL_IMG[name],
@@ -180,10 +180,9 @@ def test_reverse_sweep_matches_pallas_and_forward_order(scene, tpp, span_cap,
     scene) against JAX's reverse-sweep kernel with the same options."""
     jp, tp = packs(SCENES[scene]())
     gimg_t, tb_t = tile_cotangent(tp)
-    launches = (ttr.run_backward.launches, ttr.run_backward.reverse_launches)
+    launches = (kernels.LAUNCHES["K3"], kernels.LAUNCHES["K4"])
     g_t = ttr.run_backward(tp, gimg_t, tb_t, W, H, TILE, BG, tpp, span_cap).numpy()
-    assert launches == (ttr.run_backward.launches,
-                        ttr.run_backward.reverse_launches)
+    assert launches == (kernels.LAUNCHES["K3"], kernels.LAUNCHES["K4"])
     g_k3 = ttr.run_backward(tp, gimg_t, tb_t, W, H, TILE, BG).numpy()
     for field, rows in FIELDS.items():
         assert_field_close(g_t[rows], g_k3[rows], field + " vs forward order")

@@ -34,7 +34,7 @@ from cloth_splatting_tpu.ops.rasterize import pallas_train as jptr
 from cloth_splatting_tpu.render import camera_arrays as jcamera_arrays
 from cloth_splatting_tpu.render import render as jrender
 
-from cloth_splatting_tpu_torch import convert
+from cloth_splatting_tpu_torch import convert, kernels
 from cloth_splatting_tpu_torch.ops.rasterize import tiled_fwd as tpt
 from cloth_splatting_tpu_torch.ops.rasterize import tiled_train as ttr
 from cloth_splatting_tpu_torch.ops.rasterize.reference import rasterize_reference
@@ -94,9 +94,9 @@ def assert_field_close(a, b, name):
 def test_forward_train_plain_matches_pallas(name):
     _, jp, tp, tile = packs(name)
     out_j, tb_j = jptr.raster_forward_train(jp, W, H, tile, BG, interpret=True)
-    launches = ttr.raster_forward_train.launches
+    launches = kernels.LAUNCHES["K2"]
     out_t, tb_t = ttr.raster_forward_train(tp, W, H, tile, BG)
-    assert ttr.raster_forward_train.launches == launches       # CPU: no kernel
+    assert kernels.LAUNCHES["K2"] == launches       # CPU: no kernel
     out_j = np.asarray(out_j)
     for name_, rows in (("rgb", slice(0, 3)), ("depth", slice(3, 4)),
                         ("alpha", slice(4, 5))):
@@ -127,9 +127,9 @@ def test_backward_plain_matches_pallas(name):
     _, tb_j = jptr.raster_forward_train(jp, W, H, tile, BG, interpret=True)
     g_j = np.asarray(jptr._run_backward(jp, jnp.asarray(gimg_t.numpy()), tb_j,
                                         W, H, tile, BG, interpret=True))
-    launches = ttr.run_backward.launches
+    launches = kernels.LAUNCHES["K3"]
     g_t = ttr.run_backward(tp, gimg_t, tb_t, W, H, tile, BG).numpy()
-    assert ttr.run_backward.launches == launches
+    assert kernels.LAUNCHES["K3"] == launches
     # the same instances; the JAX package's array is longer (its slot
     # windows), and its columns past them hold no gradient
     b = int(tp.counts.sum())
@@ -271,8 +271,6 @@ def test_library_name_follows_shared_header(tmp_path, monkeypatch):
     from the old header is never loaded; an edited source renames only its
     own library. Nothing is compiled."""
     import shutil
-
-    from cloth_splatting_tpu_torch import kernels
 
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
