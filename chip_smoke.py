@@ -15,9 +15,9 @@ which raises on failure:
      (one ``nvcc`` per source, all started together; a library built before
      is compiled again into a temporary directory for its log), read each
      kernel's registers, shared memory and spills from the build log, fail
-     when the span kernels or any of the point front end's five SH degrees
-     spill or are missing from it, and print the card's name and power
-     limit;
+     when the span kernels or any of the five SH degrees of the point or
+     the cloth front end spill or are missing from it, and print the card's
+     name and power limit;
   2. kernels: each kernel against its plain PyTorch version on the card: K1
      on the packs of the 65k-Gaussian 800x800 serving scene for two orbit
      views, and K2 and K3 on the pack of the 65k training scene; all three
@@ -42,10 +42,15 @@ which raises on failure:
      phase 2, the span forms also at ``span_cap`` 96, and its bound from the
      benchmark's counts (``benchmark/counts/``);
   4. serving: frames of the scene at different views and times through the
-     port's ``render`` with the launch counts cleared just before: K1
+     port's ``render`` with the launch counts cleared just before: K1 and
+     the cloth front end's kernel (``csrc/point_front.cu``'s cloth pass)
      launched once per frame and nothing else, the frames finite with
      nonzero coverage; then the same frames with the span options on, which
-     launch K1-span once a frame and nothing else;
+     launch K1-span and the cloth front end once a frame and nothing else;
+     then one more frame: the cloth front end and K1 once and nothing else,
+     the front end run by the kernel and not by the PyTorch ops, its outputs
+     (``project_view``'s four) bit-identical to ``project_view_eager``'s,
+     and the kernel alone with its bound, registers and blocks an SM;
   5. oracle: a small render, and the gradients of the differentiable
      rasterizer (K2 forward, K3 backward, under autograd; once more with
      the span options: K2-span, K4), against the O(N*P) oracle;
@@ -59,12 +64,15 @@ which raises on failure:
      5 times, 4 orbit views rendered at 800x800 by the port's serving path
      into uint8 banks) fitted for 300 iterations of ``fit_banks`` with
      density control, barycentric cleanup, one held-out evaluation and one
-     checkpoint, checking the launch counts, that every event ran, finite
+     checkpoint, checking the launch counts (K2 and K3 three times an
+     iteration, K1 and the cloth front end once a held-out frame), that
+     every event ran, finite
      values, a rising PSNR and that the checkpoint reloads equal;
   8. eval: the fit's final state, as the fit hands it to
      ``save_scene_checkpoint``, through ``eval.render_sets.render_frames``
      over the fit's 5 held-out frames and the 80-pose spherical video orbit
-     at 800x800 (K1 launched 2 n + 1 times a split and no other kernel),
+     at 800x800 (K1 and the cloth front end launched 2 n + 1 times a split
+     and no other kernel),
      the held-out frames scored in memory by ``eval.metrics.score_images``
      (PSNR, SSIM, LPIPS on the ``fixture-v1`` weights; the mean PSNR equal
      to the fit's own held-out evaluation within 1e-3 dB, a frame's LPIPS
@@ -79,14 +87,18 @@ which raises on failure:
      the card against the same function on the CPU at 128x128 with a k_cap
      that drops (values and gradients within 1e-5, the same dropped count
      and deepest tile); the 65k serving frames through
-     ``render(backend="tiled")`` at k_cap 512 (launching none of the port's
-     kernels; dropped instances, the k_cap at which nothing drops, PSNR
-     against K1's frame); the fit's scene fitted through the tier from
-     k_cap 64: ``grow_k_cap`` runs and the final evaluation drops nothing;
+     ``render(backend="tiled")`` at k_cap 512 (launching no compositor
+     kernel of the port and the cloth front end once a frame; dropped
+     instances, the k_cap at which nothing drops, PSNR against K1's frame);
+     the fit's scene fitted through the tier from k_cap 64: ``grow_k_cap``
+     runs, the final evaluation drops nothing, and the fit and its
+     evaluation launch the cloth front end once an evaluated frame and
+     nothing else;
  11. parity: the parity arm at full width (800x800, 24 views, 8 times,
      ``mesh_res`` 24, noise 0) through ``parity_bench``'s in-memory form for
      300 iterations: finite numbers, the held-out PSNR above the initial
-     state's, K1, K2 and K3 launched as often as the run asks; then the same
+     state's, K1, K2, K3 and the cloth front end (once a K1 frame) launched
+     as often as the run asks; then the same
      fit again in the same process: every tensor of the final state, the
      alive count and the line bit-identical to the first fit's;
  12. gnn: the GNN dynamics at the full width of the root
@@ -108,8 +120,9 @@ which raises on failure:
      1e-5: the eager first call, the call that captures the CUDA graph and
      a replay; one eager call, one capture, one replay); one ``mpc-cs``
      episode of 3 steps (max_steps cut from 20) through the in-memory path,
-     with K2 and K3 launched once per camera of every refiner step and no
-     other kernel, finite costs and a finite refined history [4, 64, 3];
+     with K2 and K3 launched once per camera of every refiner step, the
+     cloth front end once per view of every observed state and no other
+     kernel, finite costs and a finite refined history [4, 64, 3];
      the same episode again, bit for bit (costs, history, every tensor of
      the refiner's state); K2 and K3 against their plain versions on the
      final refiner state's pack at 96x96 (16 px tiles); and 3-step episodes
@@ -130,15 +143,17 @@ which raises on failure:
      fit's shape from two texture seeds (one signature), both on the one
      card as one group, 120 iterations with a static stage, density events,
      two barycentric cleanups and an evaluation at the end: K2 and K3
-     launched once per camera of every step of both scenes, K1 only by the
-     evaluation; then scene 1 alone through ``train_scene``: every state
+     launched once per camera of every step of both scenes, K1 and the
+     cloth front end only by the evaluation; then scene 1 alone through
+     ``train_scene``: every state
      tensor bit-identical to the sweep's;
  16. mesh: the multi-device layer (``parallel/{launch,mesh,trainer}.py``)
      through ``parallel.launch`` on the one card: a world of one NCCL rank
      takes 5 sharded steps of the 65k train cell (mesh 1x1) bit-identical
      to 5 ``Trainer.step_banked`` steps from the same state (K2 and K3 3
      times a step), then ``train_scene(device_mesh=1x1)`` on the sweep's
-     scene 1, every state tensor bit-identical to its lone run, then the
+     scene 1 (K1 and the cloth front end by its evaluation), every state
+     tensor bit-identical to its lone run, then the
      GNN cut (3 curriculum epochs of one step at the gnn phase's width)
      data-parallel, against the single process (loss 1e-6 relative a step,
      parameters 1e-5); two gloo ranks sharing the card take 3 steps on
@@ -417,6 +432,13 @@ PEAK_HBM_BYTES = 3.35e12
 # floats and a byte written), which benchmark/counts/point_front_end.py
 # does not count
 FRONT_BYTES_PER_GAUSSIAN = (59 * 4 + 1) + (12 * 4 + 1)
+# the cloth front end's bytes a Gaussian: the point row (59 floats and a
+# byte), face_bary, the face id, the face's three indices and its six
+# vertices read; the point front end's 12 floats and a byte, means3d and
+# rotations written. Its FLOPs: benchmark/counts/front_end.py's 430 a
+# Gaussian (the simulator MLP, which runs in PyTorch, left out)
+CLOTH_FRONT_BYTES_PER_GAUSSIAN = ((59 * 4 + 1 + 3 * 4 + 8 + 3 * 8 + 6 * 3 * 4)
+                                  + (12 * 4 + 1 + 3 * 4 + 4 * 4))
 
 
 def log(msg: str) -> None:
@@ -435,7 +457,8 @@ KERNEL_ENTRIES = {"K1": "tiled_fwd_kernel<4>", "K1-span": "tiled_fwd_span_kernel
                   "K2": "tiled_fwd_train_kernel<4>",
                   "K2-span": "tiled_fwd_train_span_kernel<4>",
                   "K3": "tiled_bwd_kernel<4>", "K4": "tiled_bwd_reverse_kernel<4>",
-                  "front": "point_front_kernel<3>"}
+                  "front": "point_front_kernel<3>",
+                  "cloth_front": "cloth_front_kernel<3>"}
 
 
 def build_logs() -> dict:
@@ -462,10 +485,11 @@ def build_logs() -> dict:
 
 def check_spills(usage: dict) -> None:
     """Raises unless ``usage`` (``ptxas_usage`` of the build's logs) holds
-    the three span kernels and the point front end at each of its five SH
-    degrees, none of them spilling."""
+    the three span kernels and the point and cloth front ends at each of
+    their five SH degrees, none of them spilling."""
     entries = [KERNEL_ENTRIES[key] for key in SPAN_KERNELS]
-    entries += [f"point_front_kernel<{deg}>" for deg in range(5)]
+    entries += [f"{front}_front_kernel<{deg}>" for front in ("point", "cloth")
+                for deg in range(5)]
     for entry in entries:
         if entry not in usage:
             raise RuntimeError(f"the build log has no ptxas line of {entry}")
@@ -540,16 +564,26 @@ def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
 def roofline(kernel: str, item: dict) -> dict:
     """The least time the card could take for ``kernel``'s function on
     ``item`` ({"gaussians": valid Gaussians, "pixels": the frame's, "pairs":
-    live pairs; the front end's: {"gaussians": all}), by the benchmark's
+    live pairs; the front ends': {"gaussians": all}), by the benchmark's
     counts (``benchmark/counts/``: the compositor's forward for K1, K1-span,
     K2 and K2-span, its backward for K3 and K4, ``point_front_end`` and
-    FRONT_BYTES_PER_GAUSSIAN for the front end): the larger of its FLOPs at
-    the fp32 peak and its bytes at the memory rate."""
-    from benchmark.counts import compositor_backward, compositor_forward, point_front_end
+    FRONT_BYTES_PER_GAUSSIAN for the point front end, ``front_end``'s FLOPs
+    a Gaussian and CLOTH_FRONT_BYTES_PER_GAUSSIAN for the cloth front end):
+    the larger of its FLOPs at the fp32 peak and its bytes at the memory
+    rate."""
+    from benchmark.counts import (
+        compositor_backward,
+        compositor_forward,
+        front_end,
+        point_front_end,
+    )
 
     if kernel == "front":
         flops = point_front_end.flops(item["gaussians"])
         n_bytes = FRONT_BYTES_PER_GAUSSIAN * item["gaussians"]
+    elif kernel == "cloth_front":
+        flops = float(front_end.OPS_PER_GAUSSIAN * item["gaussians"])
+        n_bytes = CLOTH_FRONT_BYTES_PER_GAUSSIAN * item["gaussians"]
     else:
         count = compositor_backward if kernel in ("K3", "K4") else compositor_forward
         flops, n_bytes = count.flops(item), count.bytes_moved(item)
@@ -1335,12 +1369,14 @@ def fit_phase(mesh, tan, gpu):
 
     expected = 3 * FIT_ITERATIONS
     if counts.get("K2") != expected or counts.get("K3") != expected \
-            or set(counts) - {"K1", "K2", "K3"}:
+            or set(counts) - {"K1", "K2", "K3", "cloth_front"}:
         raise RuntimeError(f"fit: launches {counts}, expected K2 = K3 = {expected} "
-                           f"and no other kernel but K1")
-    if counts.get("K1") != FIT_TIMES:
+                           f"and no other kernel but K1 and the cloth front end")
+    if counts.get("K1") != FIT_TIMES or counts.get("cloth_front") != FIT_TIMES:
         raise RuntimeError(f"fit: the held-out evaluation launched K1 "
-                           f"{counts.get('K1')} times for {FIT_TIMES} frames")
+                           f"{counts.get('K1')} times and the cloth front end "
+                           f"{counts.get('cloth_front')} times for {FIT_TIMES} "
+                           f"frames")
     for name, t in state_tensors(final).items():
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"fit: non-finite {name}")
@@ -1507,9 +1543,10 @@ def eval_phase(fitted, gpu: str):
         kernels.LAUNCHES.clear()
         rs = run(keep_logs=split == "test")
         counts = dict(kernels.LAUNCHES)
-        if counts != {"K1": 2 * len(cams) + 1}:
+        if counts != {"K1": 2 * len(cams) + 1, "cloth_front": 2 * len(cams) + 1}:
             raise RuntimeError(f"eval {split}: launches {counts} for {len(cams)} "
-                               f"cameras, expected K1 = {2 * len(cams) + 1}")
+                               f"cameras, expected K1 = cloth_front = "
+                               f"{2 * len(cams) + 1}")
         k1 += counts["K1"]
         covered = []
         for i, frame in enumerate(rs.frames):
@@ -1595,12 +1632,15 @@ def dense_phase(sc, gpu: str) -> dict:
     CPU at DENSE_SIZE with a k_cap that drops (values, the binning's
     counts, gradients); (2) the 65k serving scene's frames through
     ``render(backend="tiled")`` at DENSE_K_CAP, with the launch counts
-    cleared just before (the tier launches none of the port's kernels),
-    the dropped count, the deepest tile, the k_cap at which
-    nothing drops and the frame's PSNR against K1's; (3) the fit's scene
-    fitted through the tier for DENSE_FIT_ITERATIONS iterations from
-    DENSE_FIT_K_CAP, every iteration a tick: ``grow_k_cap`` must run and the
-    final evaluation must drop nothing. Returns the {"dense": ...} record."""
+    cleared just before (the tier launches no compositor kernel of the
+    port; the front end, without a gradient, is the cloth front end's
+    kernel once a frame), the dropped count, the deepest tile, the k_cap at
+    which nothing drops and the frame's PSNR against K1's; (3) the fit's
+    scene fitted through the tier for DENSE_FIT_ITERATIONS iterations from
+    DENSE_FIT_K_CAP, every iteration a tick: ``grow_k_cap`` must run, the
+    final evaluation must drop nothing, and the cloth front end must run
+    once for each frame of each of the evaluation's k_cap rounds and no
+    other kernel. Returns the {"dense": ...} record."""
     import numpy as np
     import torch
 
@@ -1686,8 +1726,9 @@ def dense_phase(sc, gpu: str) -> dict:
         exact = frame(sc.cams[0], cap).rgb
         k1_rgb = render(sc.cams[0], WIDTH, HEIGHT, tan, tan, sc.params, sc.state,
                         sc.mesh, sc.simulator, sc.preds, BG, 3, device=dev).rgb
-    if counts:
-        raise RuntimeError(f"dense: the dense frames launched {counts}")
+    if counts != {"cloth_front": DENSE_FRAMES}:
+        raise RuntimeError(f"dense: the dense frames launched {counts}, expected the "
+                           f"cloth front end once a frame and no compositor kernel")
     for i, out in enumerate(outs):
         for name in ("rgb", "depth", "alpha"):
             if not bool(torch.isfinite(getattr(out, name)).all()):
@@ -1706,7 +1747,8 @@ def dense_phase(sc, gpu: str) -> dict:
                                     torch.clamp(k1_rgb, 0, 1))),
         "psnr_vs_k1_db_nothing_dropped": float(psnr(torch.clamp(exact, 0, 1),
                                                     torch.clamp(k1_rgb, 0, 1)))}
-    log(f"dense 65k {WIDTH}x{HEIGHT} k_cap {DENSE_K_CAP}: no kernel launched, "
+    log(f"dense 65k {WIDTH}x{HEIGHT} k_cap {DENSE_K_CAP}: no compositor kernel "
+        f"launched, the cloth front end once a frame, "
         f"dropped {record['serving']['n_dropped']}, deepest tile "
         f"{record['serving']['max_tile_count']}, nothing drops at k_cap {cap} "
         f"({json.dumps(caps)}), PSNR vs K1 "
@@ -1739,10 +1781,16 @@ def dense_phase(sc, gpu: str) -> dict:
     kernels.LAUNCHES.clear()
     final = fit_banks(trainer, state0, cam_bank, gt_bank, None, seed=SEED,
                       on_iteration=lambda i, m: ticks.append(m["psnr"]))
+    eval_k_cap = trainer.cfg.opt.raster_k_cap
     ev = evaluate_split(trainer, final, test_frames, cfg.model.white_background, 0)
     counts = dict(kernels.LAUNCHES)
-    if counts:
-        raise RuntimeError(f"dense fit: launched {counts}")
+    # the evaluation renders every frame at each k_cap from the trainer's,
+    # doubled until nothing drops: the cloth front end once a frame a round
+    rounds = round(math.log2(ev["k_cap"] / eval_k_cap)) + 1
+    if counts != {"cloth_front": rounds * len(test_frames)}:
+        raise RuntimeError(f"dense fit: launched {counts}, expected the cloth front "
+                           f"end {rounds} x {len(test_frames)} times (the "
+                           f"evaluation) and no compositor kernel")
     if not grown or ev["n_dropped"] != 0 or not all(map(math.isfinite, ticks)) \
             or not math.isfinite(ev["psnr"]):
         raise RuntimeError(f"dense fit: k_cap grew to {grown}, evaluation {ev}, "
@@ -1779,10 +1827,13 @@ def parity_phase(gpu: str) -> tuple[dict, dict]:
     # before and after the fit (a warm-up, a timed and an export pass each)
     # and the fit's own evaluation; K2 and K3: one camera a static step,
     # three a dynamic one
+    # the cloth front end: every K1 frame (the training renders need a
+    # gradient)
     static = PARITY_COARSE - 1
     expected = {"K1": args.n_views * args.n_times + 2 * (2 * n_test + 1) + n_test,
                 "K2": static + 3 * (PARITY_ITERATIONS - static)}
     expected["K3"] = expected["K2"]
+    expected["cloth_front"] = expected["K1"]
     numbers = [line[k] for k in ("value", "ssim", "lpips", "mte_mm")] + [
         v for k, v in run.items() if k not in ("line", "state")]
     if counts != expected:
@@ -2141,6 +2192,9 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
     # neighbours once 3 times are observed (step s observes s + 2)
     cams_per_refine = [min(s + 2, 3) for s in range(PLAN_STEPS)]
     expected = cfg.static_steps + cfg.refine_steps * sum(cams_per_refine)
+    # the observations (the dense tier, no gradient): every view of the
+    # first state and of each step's, the cloth front end once a view
+    observed = (PLAN_STEPS + 1) * cfg.n_views
 
     def episode():
         ep = {}
@@ -2150,9 +2204,10 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
 
     res, ep, counts = episode()
     history = ep["history"]
-    if counts != {"K2": expected, "K3": expected}:
+    if counts != {"K2": expected, "K3": expected, "cloth_front": observed}:
         raise RuntimeError(f"planning: mpc-cs launched {counts}, expected K2 and K3 "
-                           f"{expected} times each and nothing else")
+                           f"{expected} times each, the cloth front end {observed} "
+                           f"times and nothing else")
     if len(res["costs"]) != PLAN_STEPS or not all(map(math.isfinite, res["costs"])):
         raise RuntimeError(f"planning: mpc-cs costs {res['costs']}")
     if history.shape != (PLAN_STEPS + 1, cfg.num_samples, 3) \
@@ -2218,7 +2273,8 @@ def planning_phase(gpu: str, sim_state: dict, dev=None) -> tuple[dict, dict]:
         "reduced": {"max_steps": [PLAN_STEPS_FULL, PLAN_STEPS]},
         "model_rollout": rollout,
         "mpc_cs": {**res, "launches": counts,
-                   "launches_expected": {"K2": expected, "K3": expected},
+                   "launches_expected": {"K2": expected, "K3": expected,
+                                         "cloth_front": observed},
                    "cameras_per_refine_step": cams_per_refine,
                    "history_shape": list(history.shape),
                    "second_episode_bit_identical": True},
@@ -2582,7 +2638,8 @@ def sweep_phase(mesh, gpu: str) -> tuple[dict, dict, object, object]:
                            device=mesh.pos.device)
     static = SWEEP_SCHEDULE["static_reconst_iteration"] - 1
     per_scene = static + 3 * (SWEEP_ITERATIONS - static)
-    expected = {"K1": 2 * FIT_TIMES, "K2": 2 * per_scene, "K3": 2 * per_scene}
+    expected = {"K1": 2 * FIT_TIMES, "K2": 2 * per_scene, "K3": 2 * per_scene,
+                "cloth_front": 2 * FIT_TIMES}
     if got != expected:
         raise RuntimeError(f"sweep: launches {got}, expected {expected}")
     a, b = state_tensors(swept[1]), state_tensors(lone)
@@ -2895,7 +2952,8 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
         failures.append(f"train_scene on 1x1 differs from the lone run: {scene_differ[:8]}")
     static = SWEEP_SCHEDULE["static_reconst_iteration"] - 1
     per_scene = static + 3 * (SWEEP_ITERATIONS - static)
-    want = {"K1": FIT_TIMES, "K2": per_scene, "K3": per_scene}
+    want = {"K1": FIT_TIMES, "K2": per_scene, "K3": per_scene,
+            "cloth_front": FIT_TIMES}
     if sc["launches"] != want:
         failures.append(f"train_scene on 1x1 launches {sc['launches']}, expected {want}")
     # (2b) the train command's rank path on the world of one
@@ -2951,7 +3009,7 @@ def mesh_phase(gpu: str, scene, lone, dev=None) -> tuple[dict, dict]:
 
     launches = {k: sum(r["launches"].get(k, 0) for r in
                        (tr["1x1"], sc, cli, gloo["train"]["2x1"], gloo["train"]["1x2"]))
-                for k in ("K1", "K2", "K3")}
+                for k in ("K1", "K2", "K3", "cloth_front")}
     record = {
         "nccl_1x1": {"steps": MESH_STEPS, "bit_identical": True,
                      "launches": tr["1x1"]["launches"]},
@@ -3118,6 +3176,68 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
     log(f"points serving path [{label}]: {json.dumps(record)}")
     del params, state, proj, packed, rgb
     torch.cuda.empty_cache()
+    return record
+
+
+def cloth_front_frame(sc, usage: dict, gpu: str) -> dict:
+    """One frame of the 65k serving scene (``build_scenes``) through
+    ``render``, the launch counts cleared just before: the cloth front end's
+    kernel (``csrc/point_front.cu``'s cloth pass) and K1 launched once each
+    and no other counted kernel, ``render.COUNTS`` one call of the kernel
+    and none of the PyTorch ops; that frame's front end through
+    ``project_view`` (the ``ProjectedGaussians``, vertices, means and
+    rotations) bit-identical to ``project_view_eager``'s; the kernel alone
+    (torch.profiler), its bound (``roofline``), registers and blocks an SM.
+    Returns the record for the kernels line."""
+    import ctypes
+
+    import torch
+
+    from cloth_splatting_tpu_torch import kernels
+    from cloth_splatting_tpu_torch import render as R
+    from cloth_splatting_tpu_torch.ops.cloth_front import project_cloth_fused
+
+    cam = sc.cams[1]
+    args = (cam, WIDTH, HEIGHT, sc.tan, sc.tan, sc.params, sc.state, sc.mesh,
+            sc.simulator, sc.preds, 3)
+    kernels.LAUNCHES.clear()
+    fronts = dict(R.COUNTS)
+    R.render(*args[:10], BG, 3, device=cam.world_view.device)
+    launches = dict(kernels.LAUNCHES)
+    fronts = {k: R.COUNTS[k] - fronts.get(k, 0) for k in ("front_fused", "front_eager")}
+    if launches != {"cloth_front": 1, "K1": 1}:
+        raise RuntimeError(f"cloth front: a serving frame launched {launches}, "
+                           f"expected cloth_front and K1 once each")
+    if fronts != {"front_fused": 1, "front_eager": 0}:
+        raise RuntimeError(f"cloth front: a serving frame's front end ran {fronts}")
+    with torch.no_grad():
+        got = R.project_view(*args)
+        want = R.project_view_eager(*args)
+    differ = bits_differ(got[0], want[0])
+    differ.update({name: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for name, a, b in zip(("vertices", "means3d", "rotations"),
+                                         got[1:], want[1:])})
+    if any(differ.values()):
+        raise RuntimeError(f"cloth front: the kernel's outputs differ from the "
+                           f"PyTorch ops' in {differ} elements")
+    vertices = got[1]
+
+    def fused():
+        return project_cloth_fused(sc.params, sc.state, sc.mesh, vertices, cam, WIDTH,
+                                   HEIGHT, sc.tan, sc.tan, 3, True)
+
+    kernel_ms, records = kernel_alone_ms(fused, "cloth_front")
+    n = int(sc.params.face_bary.shape[0])
+    bound = roofline("cloth_front", {"gaussians": n})
+    query = kernels.load("point_front").cloth_front_blocks_per_sm
+    query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+    record = {"gaussians": n, "valid": int(want[0].valid.sum()), "launches": launches,
+              "counts": fronts, "bits_differ": differ, "kernel_ms": kernel_ms,
+              "kernel_ms_records": records, **bound,
+              "share_of_bound": bound["bound_ms"] / kernel_ms,
+              "usage": usage.get(KERNEL_ENTRIES["cloth_front"]),
+              "blocks_per_sm": query(3), "gpu": gpu}
+    log(f"cloth front end on a 65k serving frame: {json.dumps(record)}")
     return record
 
 
@@ -3344,9 +3464,9 @@ def main() -> int:
     kernels.LAUNCHES.clear()
     outs = [frame(c) for c in cams]
     serving_launches = dict(kernels.LAUNCHES)
-    if serving_launches != {"K1": N_FRAMES}:
+    if serving_launches != {"K1": N_FRAMES, "cloth_front": N_FRAMES}:
         raise RuntimeError(f"serving: launches {serving_launches} for {N_FRAMES} "
-                           f"frames, expected K1 = {N_FRAMES}")
+                           f"frames, expected K1 = cloth_front = {N_FRAMES}")
     coverages = []
     for i, out in enumerate(outs):
         if tuple(out.rgb.shape) != (3, HEIGHT, WIDTH):
@@ -3362,7 +3482,8 @@ def main() -> int:
         f"{min(coverages):.4f}..{max(coverages):.4f} [{gpu}]")
     del outs
     serve_span = span_turn(lambda: [frame(c) for c in cams], SPAN_32, "frame",
-                           {"K1-span": N_FRAMES})
+                           {"K1-span": N_FRAMES, "cloth_front": N_FRAMES})
+    cloth_front = cloth_front_frame(sc, usage, gpu)
     lap("serving")
 
     # 5. a small render and its gradients against the oracle -------------------
@@ -3555,6 +3676,26 @@ def main() -> int:
     # K3 also carry their readings at the planning refiner's 96 px shape
     # (at_planning_shape: error, launches), K1 at the gs-360-3m frame's
     # (at_points_shape)
+    # the cloth front end: every front end of a render without a gradient on
+    # the card, bit-identical to the PyTorch ops (cloth_front_frame)
+    cloth_entry = {
+        "name": "cloth_front mesh-anchored front end (positions, face rotations, SH, "
+                "covariance, EWA)",
+        "route": "cuda", "source": "cloth_splatting_tpu_torch/csrc/point_front.cu",
+        "replaces": None, "launches_by_path": {
+            "serving": serving_launches["cloth_front"] + 1,
+            "span_serving": serve_span["cloth_front"],
+            "fit": fit_launches["cloth_front"], "eval": eval_launches,
+            "parity": parity_launches["cloth_front"],
+            "planning": planning["mpc_cs"]["launches"]["cloth_front"],
+            "sweep": sweep_launches["cloth_front"],
+            "mesh": mesh_launches["cloth_front"]},
+        "max_abs_err": 0.0, "library_ms": None,
+        **{k: cloth_front[k] for k in (
+            "kernel_ms", "kernel_ms_records", "bound_ms", "bound_by", "share_of_bound",
+            "blocks_per_sm", "bits_differ")},
+        "ptxas": cloth_front["usage"]}
+    cloth_entry["launches"] = sum(cloth_entry["launches_by_path"].values())
     print(json.dumps({"kernels": [
         k1_entry,
         clustered(entry("K1-span tiled_fwd_span compositor, one window per program",
@@ -3570,7 +3711,7 @@ def main() -> int:
                         {"span_train": train_span["K2-span"]},
                         span_err["K2-span"], train_item),
                   "K2-span", "K2's patched, culled walk", cull["65k train cam 0"]),
-        k3_entry, k4_entry,
+        k3_entry, k4_entry, cloth_entry,
     ]}))
     log(f"total: {sum(phases.values()):.1f} s")
     print(json.dumps({"phases": phases}))

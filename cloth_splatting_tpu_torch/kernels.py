@@ -9,8 +9,9 @@ the flags, so an edited source or header is rebuilt. Nothing is built or
 loaded at import time.
 
 Every launch goes through ``launch``, which counts it in ``LAUNCHES`` by
-the kernel's name: "K1", "K1-span", "K2", "K2-span", "K3", "K4" and
-"front" (the point front end).
+the kernel's name: "K1", "K1-span", "K2", "K2-span", "K3", "K4", "front"
+(the point front end) and "cloth_front" (the cloth field's front end, the
+other pass of the same source).
 """
 
 from __future__ import annotations

@@ -14,10 +14,17 @@ binning -> tile compositor. Three backends:
   PyTorch dense tier of ``ops/rasterize/tiled.py``, differentiable, with a
   per-tile list capacity ``k_cap`` whose overflow it reports in
   ``n_dropped``.
+
+The front end after the simulator (means, face rotations, SH, EWA) is one
+launch of the hand-written kernel ``csrc/point_front.cu`` (its cloth pass,
+``ops/cloth_front.py``) whenever the tensors are on the card and no leaf
+needs a gradient, whatever the backend; every other call runs the PyTorch
+ops (``project_view_eager``), which the kernel answers bit for bit.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import NamedTuple
 
@@ -35,11 +42,11 @@ from cloth_splatting_tpu_torch.models.gaussians import (
     get_opacity,
     get_scaling,
 )
+from cloth_splatting_tpu_torch.ops.cloth_front import project_cloth_fused
 from cloth_splatting_tpu_torch.ops.projection import (
     build_covariance,
     project_gaussians,
 )
-from cloth_splatting_tpu_torch.ops.quaternion import quat_normalize
 from cloth_splatting_tpu_torch.ops.rasterize.tiled import rasterize_tiled
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import rasterize_tiled_fwd
 from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import rasterize_tiled_train
@@ -49,6 +56,11 @@ from cloth_splatting_tpu_torch.utils.profiling import span
 SERVING_BACKEND = "tiled_fwd"
 TRAIN_BACKEND = "tiled_train"
 DENSE_BACKEND = "tiled"
+
+# Calls of ``project_view`` since the process started (or the caller last
+# cleared it): "front_fused" ran the cloth front-end kernel after the
+# simulator, "front_eager" the PyTorch ops.
+COUNTS: collections.Counter = collections.Counter()
 
 
 class CameraArrays(NamedTuple):
@@ -84,6 +96,18 @@ def camera_arrays(cam, device: str | torch.device = "cuda") -> CameraArrays:
                         camera_center=t(cam.camera_center), time=t(cam.time))
 
 
+def serving(params: GaussianParams, simulator: torch.nn.Module | None,
+            *tensors: torch.Tensor | None) -> bool:
+    """True when no leaf needs a gradient: autograd is off, or none of
+    ``params``, the simulator's parameters and ``tensors`` (the other
+    inputs of a view; None where absent) requires one."""
+    if not torch.is_grad_enabled():
+        return True
+    leaves = [*params, *(simulator.parameters() if simulator is not None else ()),
+              *tensors]
+    return not any(t is not None and t.requires_grad for t in leaves)
+
+
 def project_view(
     cam: CameraArrays,
     width: int,
@@ -103,40 +127,81 @@ def project_view(
     override_vertices: torch.Tensor | None = None,
 ):
     """The front half of ``render``: (ProjectedGaussians, vertices, means3d,
-    rotations) for one camera."""
+    rotations) for one camera. CUDA tensors with no leaf needing a gradient
+    (``serving``) take the simulator in PyTorch and then the kernel
+    (``project_view_fused``), anything else the PyTorch ops
+    (``project_view_eager``); ``COUNTS`` counts which."""
+    fused = params.face_bary.is_cuda and serving(
+        params, simulator, mesh_predictions, screen_offset, override_color,
+        override_vertices, mesh.pos, *cam)
+    COUNTS["front_fused" if fused else "front_eager"] += 1
     with span("render.project_view"):
-        if override_vertices is not None:
-            vertices = override_vertices
-            means3d = gaussian_positions(params, state, mesh, vertices)
-            rotations = gaussian_rotations(params, state, mesh, vertices)
-        elif render_static or simulator is None:
-            vertices = mesh.pos
-            means3d = gaussian_positions(params, state, mesh)
-            rotations = quat_normalize(params.rotation)
-        else:
-            vertices = simulate_any(simulator, mesh_predictions, cam.time)
-            means3d = gaussian_positions(params, state, mesh, vertices)
-            rotations = gaussian_rotations(params, state, mesh, vertices)
+        project = project_view_fused if fused else project_view_eager
+        return project(cam, width, height, tanfovx, tanfovy, params, state, mesh,
+                       simulator, mesh_predictions, sh_degree, screen_offset,
+                       render_static, scaling_modifier, override_color,
+                       override_vertices)
 
-        cov3d = build_covariance(get_scaling(params), rotations, scaling_modifier)
 
-        if override_color is None:
-            dirs = means3d - cam.camera_center[None, :]
-            dirs = dirs / torch.clamp_min(
-                torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
-            colors = torch.clamp_min(
-                eval_sh(sh_degree, get_features(params), dirs) + 0.5, 0.0)
-        else:
-            colors = override_color
+def view_vertices(cam: CameraArrays, mesh: Mesh, simulator: torch.nn.Module | None,
+                  mesh_predictions: torch.Tensor | None, render_static: bool,
+                  override_vertices: torch.Tensor | None):
+    """(the vertices [V, 3] a view's means sit on, whether its faces rotate
+    with them): the given vertices, else the rest mesh when static or
+    without a simulator (no face rotation), else the simulator's."""
+    if override_vertices is not None:
+        return override_vertices, True
+    if render_static or simulator is None:
+        return mesh.pos, False
+    return simulate_any(simulator, mesh_predictions, cam.time), True
 
-        proj = project_gaussians(means3d, cov3d, colors, get_opacity(params),
-                                 cam.world_view, cam.full_proj, width, height,
-                                 tanfovx, tanfovy, alive=state.alive)
-        if screen_offset is not None:
-            scale = torch.tensor([width / 2.0, height / 2.0], dtype=proj.xy.dtype,
-                                 device=proj.xy.device)
-            proj = proj._replace(xy=proj.xy + screen_offset * scale)
-        return proj, vertices, means3d, rotations
+
+def project_view_fused(cam, width, height, tanfovx, tanfovy, params, state, mesh,
+                       simulator, mesh_predictions, sh_degree, screen_offset=None,
+                       render_static=False, scaling_modifier=1.0,
+                       override_color=None, override_vertices=None):
+    """``project_view`` on the card without autograd: the simulator in
+    PyTorch, then one launch of the cloth front-end kernel
+    (``ops.cloth_front.project_cloth_fused``), which gives
+    ``project_view_eager``'s bits."""
+    vertices, rotate = view_vertices(cam, mesh, simulator, mesh_predictions,
+                                     render_static, override_vertices)
+    proj, means3d, rotations = project_cloth_fused(
+        params, state, mesh, vertices, cam, width, height, tanfovx, tanfovy,
+        sh_degree, rotate, scaling_modifier, override_color, screen_offset)
+    return proj, vertices, means3d, rotations
+
+
+def project_view_eager(cam, width, height, tanfovx, tanfovy, params, state, mesh,
+                       simulator, mesh_predictions, sh_degree, screen_offset=None,
+                       render_static=False, scaling_modifier=1.0,
+                       override_color=None, override_vertices=None):
+    """``project_view`` in PyTorch ops, on any device and differentiable:
+    the kernel's plain version."""
+    vertices, rotate = view_vertices(cam, mesh, simulator, mesh_predictions,
+                                     render_static, override_vertices)
+    means3d = gaussian_positions(params, state, mesh, vertices)
+    rotations = gaussian_rotations(params, state, mesh, vertices if rotate else None)
+
+    cov3d = build_covariance(get_scaling(params), rotations, scaling_modifier)
+
+    if override_color is None:
+        dirs = means3d - cam.camera_center[None, :]
+        dirs = dirs / torch.clamp_min(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), 1e-8)
+        colors = torch.clamp_min(
+            eval_sh(sh_degree, get_features(params), dirs) + 0.5, 0.0)
+    else:
+        colors = override_color
+
+    proj = project_gaussians(means3d, cov3d, colors, get_opacity(params),
+                             cam.world_view, cam.full_proj, width, height,
+                             tanfovx, tanfovy, alive=state.alive)
+    if screen_offset is not None:
+        scale = torch.tensor([width / 2.0, height / 2.0], dtype=proj.xy.dtype,
+                             device=proj.xy.device)
+        proj = proj._replace(xy=proj.xy + screen_offset * scale)
+    return proj, vertices, means3d, rotations
 
 
 def render(

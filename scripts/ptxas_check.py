@@ -14,12 +14,17 @@ window most programs fit and with a window of one chunk (mostly the
 overflow walk), in programs of 2 tiles and of 8 (the cluster program of the
 three span kernels in clusters of 2 and of 8 CTAs, the largest portable
 size); K1-span and K2-span are also held bit-identical to K1 and K2, and K4
-to its plain version and to K3. Each build's point front end
+to its plain version and to K3. Each build's point and cloth front ends
 (``csrc/point_front.cu``, which includes no shared header) must spill
-nothing at any SH degree, and its outputs on a 50,000-Gaussian field drawn
-as the benchmark's gs-360-3m must equal the PyTorch ops' bit for bit at
-degrees 0-3, uncapped and capped at 24 px. Before that it compares the PTX
-of every kernel between the two forms.
+nothing at any SH degree (at -O3 the point front end may use no more
+registers than POINT_FRONT_REGISTERS); the point front end's outputs on a
+50,000-Gaussian field drawn as the benchmark's gs-360-3m must equal the
+PyTorch ops' bit for bit at degrees 0-3, uncapped and capped at 24 px, and
+the cloth front end's (``render.project_view``'s four outputs) on the
+benchmark's cs-field-65k scene cut to a 64 x 64 grid (15,876 Gaussians)
+must equal ``render.project_view_eager``'s at degrees 0-3, with the
+simulator and static. Before that it compares the PTX of every kernel
+between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
 
@@ -45,6 +50,11 @@ FORMS = ("as-is", "loop-index")
 PACKS = ((32, 256, 20000), (16, 128, 6000), (16, 128, 300))
 SPANS = ((2, 41), (2, 1), (8, 41))   # (tiles_per_program, span_cap)
 FRONT_GAUSSIANS = 50_000
+# the most registers the point front end may use at SH degrees 0-4 under
+# ptxas -O3: its counts when it was the source's only pass (the cloth pass
+# beside it must not cost it any)
+POINT_FRONT_REGISTERS = {0: 55, 1: 55, 2: 80, 3: 56, 4: 80}
+CLOTH_GRID = 64
 # each line of the rewrite, found once in the walk
 _WALKED = (
     ("  int walked = n_chunks;\n  for (int ci = 0; ci < n_chunks; ++ci) {",
@@ -108,7 +118,9 @@ def check(form: str, level: int) -> bool:
     kernels.NVCC_FLAGS = kernels.NVCC_FLAGS + ["-Xptxas", f"-O{level}"]
     logs = kernels.build_all()
     dev = torch.device("cuda")
-    ok = check_front(cs.ptxas_usage(logs["point_front"] or ""), form, level, dev)
+    usage = cs.ptxas_usage(logs["point_front"] or "")
+    ok = check_front(usage, form, level, dev)
+    ok = check_cloth(usage, form, level, dev) and ok
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
     for ts, size, n in PACKS:
@@ -165,6 +177,9 @@ def check_front(usage: dict, form: str, level: int, dev) -> bool:
     entries = {k: v for k, v in usage.items() if k.startswith("point_front_kernel<")}
     ok = len(entries) == 5 and not any(v.get("spill_stores") or v.get("spill_loads")
                                        for v in entries.values())
+    if level == 3:
+        ok = ok and all(entries[f"point_front_kernel<{deg}>"].get("registers", 256)
+                        <= regs for deg, regs in POINT_FRONT_REGISTERS.items())
     print(json.dumps({"form": form, "ptxas": f"-O{level}", "kernel": "front",
                       "usage": entries, "ok": ok}), flush=True)
     cfg = json.loads((ROOT / "benchmark" / "configs" / "gs-360-3m.json").read_text())
@@ -186,6 +201,58 @@ def check_front(usage: dict, form: str, level: int, dev) -> bool:
             ok = ok and agree
             print(json.dumps({"form": form, "ptxas": f"-O{level}",
                               "kernel": f"front degree {deg} max_radius {cap}",
+                              "ok": agree, "error": None if agree else differ}),
+                  flush=True)
+    return ok
+
+
+def check_cloth(usage: dict, form: str, level: int, dev) -> bool:
+    """The cloth front end of this build: its registers and spills at each
+    SH degree (``usage``, from the build's log), and ``project_view``'s
+    outputs on the kernel against ``project_view_eager``'s on the
+    cs-field-65k scene cut to CLOTH_GRID vertices a side; True when nothing
+    spills and every output is bit-identical."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from benchmark.drivers import splat_common
+    from benchmark.harness import scene as scene_mod
+    from cloth_splatting_tpu_torch import render as R
+    from cloth_splatting_tpu_torch.models.deform import simulator_from_params
+
+    entries = {k: v for k, v in usage.items() if k.startswith("cloth_front_kernel<")}
+    ok = len(entries) == 5 and not any(v.get("spill_stores") or v.get("spill_loads")
+                                       for v in entries.values())
+    print(json.dumps({"form": form, "ptxas": f"-O{level}", "kernel": "cloth_front",
+                      "usage": entries, "ok": ok}), flush=True)
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "cs-field-65k.json").read_text())
+    cfg["mesh"]["vertices_per_side"] = CLOTH_GRID
+    cfg["capacity"] = 16384
+    sc = scene_mod.make_scene(cfg, 1, dev)
+    params, state = splat_common.program_field(sc["target"], sc["face_ids"], sc["alive"])
+    mesh = splat_common.program_mesh(sc["mesh"])
+    sim = simulator_from_params(sc["sim"])
+    img = cfg["image"]
+    cam = splat_common.camera_arrays(scene_mod.look_at(
+        0.5, 0.4, 3.0, img["fov"], img["width"], img["height"], 0.6, dev))
+    tan = math.tan(img["fov"] / 2)
+    for deg in range(4):
+        for static in (False, True):
+            args = (cam, img["width"], img["height"], tan, tan, params, state, mesh,
+                    sim, sc["predictions"], deg)
+            with torch.no_grad():
+                got = R.project_view(*args, render_static=static)
+                want = R.project_view_eager(*args, render_static=static)
+            differ = cs.bits_differ(got[0], want[0])
+            differ.update({name: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                           for name, a, b in zip(("vertices", "means3d", "rotations"),
+                                                 got[1:], want[1:])})
+            agree = not any(differ.values())
+            ok = ok and agree
+            print(json.dumps({"form": form, "ptxas": f"-O{level}",
+                              "kernel": f"cloth_front degree {deg} static {static}",
                               "ok": agree, "error": None if agree else differ}),
                   flush=True)
     return ok

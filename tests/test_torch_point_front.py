@@ -225,18 +225,26 @@ def _ptxas_log(entries) -> str:
 @pytest.mark.parametrize("case,message", [
     ("whole", None), ("front_degree_missing", "point_front_kernel<4>"),
     ("front_spills", "point_front_kernel<2> spills"),
+    ("cloth_degree_missing", "cloth_front_kernel<0>"),
+    ("cloth_spills", "cloth_front_kernel<3> spills"),
     ("span_missing", "tiled_bwd_reverse_kernel<4>")])
 def test_chip_smoke_spill_check_needs_every_entry(case, message):
     """chip_smoke's build phase fails on a spill, and on a span kernel or SH
-    degree of the point front end that its build log does not hold."""
+    degree of the point or cloth front end that its build log does not
+    hold."""
     import chip_smoke as cs
 
     entries = {cs.KERNEL_ENTRIES[key]: 0 for key in cs.SPAN_KERNELS}
-    entries.update({f"point_front_kernel<{deg}>": 0 for deg in range(5)})
+    entries.update({f"{front}_front_kernel<{deg}>": 0 for front in ("point", "cloth")
+                    for deg in range(5)})
     if case == "front_degree_missing":
         del entries["point_front_kernel<4>"]
     elif case == "front_spills":
         entries["point_front_kernel<2>"] = 16
+    elif case == "cloth_degree_missing":
+        del entries["cloth_front_kernel<0>"]
+    elif case == "cloth_spills":
+        entries["cloth_front_kernel<3>"] = 8
     elif case == "span_missing":
         del entries["tiled_bwd_reverse_kernel<4>"]
     usage = cs.ptxas_usage(_ptxas_log(entries))

@@ -109,6 +109,54 @@ def test_render_screen_offset_matches_jax(tiny):
     assert_outputs_match(*render_both(tiny, 0.2, screen_offset=offset))
 
 
+@pytest.mark.parametrize("case", ["simulator", "static", "overrides", "screen_offset"])
+def test_project_view_eager_matches_jax(tiny, case):
+    """``project_view_eager`` (the PyTorch ops the card's front-end kernel
+    answers bit for bit) on the JAX comparison inputs: its vertices, means,
+    rotations, projected means and radii against the JAX package's render
+    on the same inputs, and ``project_view`` on the CPU its bits."""
+    import dataclasses
+
+    from cloth_splatting_tpu_torch.render import project_view, project_view_eager
+
+    cam, js, ps = tiny
+    cam = dataclasses.replace(cam, time=0.35)
+    rng = np.random.default_rng(2)
+    kw = {}
+    if case == "static":
+        kw["render_static"] = True
+    elif case == "overrides":
+        pos = np.asarray(js["mesh"].pos)
+        kw = {"override_vertices": (pos + rng.normal(0, 0.03, pos.shape)).astype(np.float32),
+              "override_color": rng.uniform(0, 1, (512, 3)).astype(np.float32),
+              "scaling_modifier": 0.8}
+    elif case == "screen_offset":
+        kw["screen_offset"] = rng.normal(0, 0.01, (512, 2)).astype(np.float32)
+    jcam = jcamera_arrays(cam)
+    out_j = jrender(jcam, cam.width, cam.height, cam.tanfovx, cam.tanfovy,
+                    js["params"], js["state"], js["mesh"], js["sim"], js["preds"],
+                    jnp.asarray(BG), 3, k_cap=8, k_chunk=4, backend="tiled",
+                    **{k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+                       for k, v in kw.items()})
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    args = (convert.camera_arrays(arrays(jcam), "cpu"), cam.width, cam.height,
+            cam.tanfovx, cam.tanfovy, ps["params"], ps["state"], ps["mesh"],
+            ps["simulator"], ps["preds"], 3)
+    with torch.no_grad():
+        proj, vertices, means3d, rotations = project_view_eager(*args, **tkw)
+        dispatched = project_view(*args, **tkw)
+    for name, got in (("vertices", vertices), ("means3d", means3d),
+                      ("rotations", rotations), ("projections", proj.xy)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(out_j, name)),
+                                   atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(proj.radius.numpy(), np.asarray(out_j.radii))
+    assert int(proj.valid.sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(dispatched[0], proj))
+    assert all(torch.equal(a, b) for a, b in
+               zip(dispatched[1:], (vertices, means3d, rotations)))
+
+
 def test_render_other_backends_raise(tiny):
     """The dense tier renders as the JAX package's default backend does (same
     tier, values within 1e-5, the same dropped count at a small k_cap); an
