@@ -128,8 +128,9 @@ which raises on failure:
      final refiner state's pack at 96x96 (16 px tiles); and 3-step episodes
      of ``fixed``, ``random``, ``mpc-oracle`` and ``mpc-ol`` (finite costs,
      no kernel);
- 14. legacy: ``models.point_gaussians.fit_static_scene`` (the free-xyz
-     model through the dense tier) at the root ``fit_legacy.py``'s defaults
+ 14. legacy: ``models.point_gaussians.fit_static_scene_capped`` (the
+     free-xyz model through the dense tier, the JAX package's fit) at the
+     root ``fit_legacy.py``'s defaults
      (sh 3, 500 iterations, k_cap 256, 50 training cameras, white
      background) on a scene of NeRF-synthetic size built in memory (800x800
      cameras on a sphere of radius 4.03 with the lego scene's field of
@@ -171,16 +172,22 @@ which raises on failure:
      agrees with K1's plain walk within 1e-5 (depth: 1e-5 of the deepest
      Gaussian's); the front end's ``ProjectedGaussians`` of the frame
      bit-identical to the PyTorch ops'; K1 and the front end alone, each
-     with its bound, registers and blocks an SM.
+     with its bound, registers and blocks an SM;
+ 18. train_points: the training compositors on the same field's partial
+     tiles: K2 and K3 on the whole 1237x822 frame (launched once each,
+     finite, every pixel off the frame with zero boundaries and
+     cotangents, the pack holding what the binning emitted), each against
+     its plain version on a crop that keeps the partial tiles, and on that
+     corner cut to whole tiles.
 
 Prints a {"train": ...} line, a {"span": ...} line, a {"fit": ...} line, an
 {"eval": ...} line, a {"dense": ...} line, a {"parity": ...} line, a
 {"gnn": ...} line, a {"planning": ...} line, a {"legacy": ...} line, a
 {"sweep": ...} line, a {"mesh": ...} line, a {"points": ...} line, a
-{"kernels": [...]} line, a {"phases": {phase: seconds}} line and, last,
-{"ok": true, "device": ...}. Exits non-zero and prints no result when CUDA
-is unavailable, when the port package is missing, or when any phase fails.
-Imports nothing of JAX.
+{"train_points": ...} line, a {"kernels": [...]} line, a {"phases": {phase:
+seconds}} line and, last, {"ok": true, "device": ...}. Exits non-zero and
+prints no result when CUDA is unavailable, when the port package is
+missing, or when any phase fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -408,6 +415,12 @@ CHANNELS = ("r", "g", "b", "depth", "alpha")
 # that. A pair classified differently, or a clamp gate missed, moves a field
 # by 1e-4 of its largest magnitude or more.
 TOL_K3 = 3e-6
+# K3 against its plain version on the gs-360-3m field's lists (thousands of
+# instances a tile, ~65 live pairs a pixel; phase 18): an instance's sums
+# over 1,024 pixels cancel more, and the opacity field read 5.0e-6 of its
+# largest magnitude on the partial-tile crop (an H100 at 700 W); a pair
+# classified differently moves a field by 1e-4 or more
+TOL_K3_DEEP = 2e-5
 # K4 against K3 on the same inputs. They differ in where the occlusion
 # suffix S_i comes from: K3 subtracts a running prefix from the closed-form
 # U_tot, K4 adds the chunk's remainder to a carry of the later chunks, each a
@@ -679,17 +692,22 @@ def compare_k1(packed, width, height, tile_size, label: str, span=None,
     return max(errs.values()), stats
 
 
-def compare_k2(packed, width, height, tile_size, label: str, span=None):
+def compare_k2(packed, width, height, tile_size, label: str, span=None,
+               depth_scale: float = 1.0):
     """(max abs difference of K2 and its plain version over the output and
     the saved boundaries, walk statistics, K2's out and tbounds); raises
     above TOL_PLAIN, on non-finite output, or when the two started
     different chunks. With ``span`` it is K2-span, and its boundaries must
-    also equal K2's bit for bit."""
+    also equal K2's bit for bit. As in ``compare_k1``, the pixels of partial
+    tiles outside the frame, which K2 leaves unwritten, are zeroed on both
+    sides first, and the depth channel is held to TOL_PLAIN x
+    ``depth_scale``."""
     import torch
 
     from cloth_splatting_tpu_torch import kernels
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
         chunk_span,
+        pixel_coords,
         walk_stats,
     )
     from cloth_splatting_tpu_torch.ops.rasterize.tiled_train import (
@@ -700,11 +718,16 @@ def compare_k2(packed, width, height, tile_size, label: str, span=None):
     name = "K2" if span is None else "K2-span"
     label += span_label(span)
     opts = () if span is None else tuple(span)
+    px, py = pixel_coords(width, tile_size, packed.starts.numel(),
+                          packed.rows16.device)
+    off_frame = ((px >= width) | (py >= height)).permute(0, 2, 1)    # [T, 1, p]
     n_before = kernels.LAUNCHES["K2-span"]
     out_k, tb_k = raster_forward_train(packed, width, height, tile_size, BG, *opts)
+    out_k = out_k.masked_fill(off_frame, 0.0)
     torch.cuda.synchronize()
     out_p, tb_p, walk = raster_forward_train_plain(packed, width, height,
                                                    tile_size, BG, *opts)
+    out_p = out_p.masked_fill(off_frame, 0.0)
     # rows past the tiles' chunk counts are laid out by chunk_layout's bound
     # but never written by K2 and never read by K3
     n_laid = int(chunk_span(packed)[3].sum())
@@ -729,10 +752,12 @@ def compare_k2(packed, width, height, tile_size, label: str, span=None):
         stats["programs"] = span_counts(packed, out_k.shape[0], span, "fwd_train")
         out_d, tb_d = raster_forward_train(packed, width, height, tile_size, BG)
         stats["bit_identical_to_k2"] = bool(
-            torch.equal(out_k, out_d) and torch.equal(tb_k[:n_laid], tb_d[:n_laid]))
+            torch.equal(out_k, out_d.masked_fill(off_frame, 0.0))
+            and torch.equal(tb_k[:n_laid], tb_d[:n_laid]))
     log(f"{name} vs plain [{label}] max|diff| {json.dumps(errs)} walk "
         f"{json.dumps(stats)}")
-    bad = {ch: e for ch, e in errs.items() if not e <= TOL_PLAIN}
+    bad = {ch: e for ch, e in errs.items()
+           if not e <= TOL_PLAIN * (depth_scale if ch == "depth" else 1.0)}
     if bad:
         raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     return max(errs.values()), stats, out_k, tb_k
@@ -779,12 +804,12 @@ def field_errors(g, ref, name: str, label: str):
 
 
 def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
-               span=None):
+               span=None, tol: float = TOL_K3):
     """(max abs difference of K3 and its plain version, per-field readings
     relative to the field's largest magnitude) on one pack, both fed K2's
-    boundaries; raises above TOL_K3, on non-finite grads, on nonzero rows
-    10..15, or when a second launch on the same inputs does not give the
-    same bits (no atomics, sums in a fixed order). With ``span`` it is K4
+    boundaries; raises above ``tol`` (TOL_K3), on non-finite grads, on
+    nonzero rows 10..15, or when a second launch on the same inputs does not
+    give the same bits (no atomics, sums in a fixed order). With ``span`` it is K4
     against its plain version, and K4 is also held to K3 at TOL_K4_K3 (a
     third value: those readings)."""
     import torch
@@ -814,14 +839,14 @@ def compare_k3(packed, gimg_t, tb, width, height, tile_size, label: str,
     abs_err, rel = field_errors(g_k, g_p, name, label)
     log(f"{name} vs plain [{label}] max|diff|/max|plain| {json.dumps(rel)} "
         f"max|diff| {abs_err:.4g}; a second launch bit-identical")
-    bad = {k: e for k, e in rel.items() if not e <= TOL_K3}
+    bad = {k: e for k, e in rel.items() if not e <= tol}
     if bad:
         raise RuntimeError(f"{name} {label}: disagrees with its plain version {bad}")
     if span is None:
         return abs_err, rel
     if kernels.LAUNCHES["K4"] != n_before + 2:
         raise RuntimeError(f"K4 {label}: the reverse kernel was not launched")
-    n_tiles = (width // tile_size) * (height // tile_size)
+    n_tiles = -(-width // tile_size) * -(-height // tile_size)
     g_3 = run_backward(packed, gimg_t, tb, width, height, tile_size, BG)
     _, rel_k3 = field_errors(g_k, g_3, "K4 vs K3", label)
     log(f"K4 vs K3 [{label}] max|diff|/max|K3| {json.dumps(rel_k3)} programs "
@@ -2360,8 +2385,8 @@ def legacy_ground_truth(ref, cams, size: int):
 
 
 def legacy_phase(gpu: str, dev=None) -> dict:
-    """Phase 14: ``fit_static_scene`` (the free-xyz model through the dense
-    tier, as the root fit_legacy.py runs it) at that script's defaults on a
+    """Phase 14: ``fit_static_scene_capped`` (the free-xyz model through the
+    dense tier, as the root fit_legacy.py runs it) at that script's defaults on a
     scene of NeRF-synthetic size built in memory (``legacy_cameras``,
     ``legacy_reference``, ``load_dnerf_scene``'s init cloud), with the
     launch counts cleared just before: the loss falls, the held-out
@@ -2410,9 +2435,9 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     psnr0 = float(psnr(img0, test_gts).mean())
 
     kernels.LAUNCHES.clear()
-    params, state, loss = PG.fit_static_scene(train_cams, train_gts, cloud, size, size,
-                                              tan, tan, iterations=LEGACY_ITERATIONS,
-                                              **kw)
+    params, state, loss = PG.fit_static_scene_capped(train_cams, train_gts, cloud, size,
+                                                     size, tan, tan,
+                                                     iterations=LEGACY_ITERATIONS, **kw)
     counts = dict(kernels.LAUNCHES)
     img1, drop_test = legacy_render_set(params, state, test_cams, size, LEGACY_SH,
                                         LEGACY_K_CAP)
@@ -2432,8 +2457,9 @@ def legacy_phase(gpu: str, dev=None) -> dict:
                            f"{psnr1:.3f} after")
 
     # the first LEGACY_REPEAT iterations twice: the same bits
-    a, b = (PG.fit_static_scene(train_cams, train_gts, cloud, size, size, tan, tan,
-                                iterations=LEGACY_REPEAT, **kw) for _ in range(2))
+    a, b = (PG.fit_static_scene_capped(train_cams, train_gts, cloud, size, size, tan,
+                                       tan, iterations=LEGACY_REPEAT, **kw)
+            for _ in range(2))
     differ = [k for k in PG.PointGaussianParams._fields
               if not torch.equal(getattr(a[0], k), getattr(b[0], k))]
     if differ or a[2] != b[2]:
@@ -2470,8 +2496,8 @@ def legacy_vs_cpu(ref, cloud, dev) -> dict:
     Gaussians fall in another depth bucket; the dense tier on the card's
     projected inputs, rgb, depth and the L1 + SSIM gradients within
     TOL_DENSE of each one's largest; LEGACY_SMALL_ITERATIONS iterations of
-    ``fit_static_scene`` on each device, the losses within TOL_LEGACY_LOSS
-    relative and the fitted models' renders at least TOL_LEGACY_RENDER_DB
+    ``fit_static_scene_capped`` on each device, the losses within
+    TOL_LEGACY_LOSS relative and the fitted models' renders at least TOL_LEGACY_RENDER_DB
     apart in PSNR."""
     import numpy as np
     import torch
@@ -2498,7 +2524,7 @@ def legacy_vs_cpu(ref, cloud, dev) -> dict:
             projs[where.type] = PG.project_points_view(p0, s0, wc[0], size, size,
                                                        tan, tan, LEGACY_SH,
                                                        max_radius=MAX_SPLAT_RADIUS)
-        params, state, loss = PG.fit_static_scene(
+        params, state, loss = PG.fit_static_scene_capped(
             wc, wg, cloud, size, size, tan, tan, sh_degree=LEGACY_SH,
             iterations=LEGACY_SMALL_ITERATIONS, seed=SEED, k_cap=LEGACY_K_CAP,
             white_background=True, device=where)
@@ -3179,6 +3205,129 @@ def points_phase(gpu: str, usage: dict, occupancy: dict, dev=None) -> dict:
     return record
 
 
+# the training compositors on partial tiles: a crop of the gs-360-3m frame
+# from this corner keeps its partial last column (21 px) and row (22 px) of
+# 32 px tiles
+TRAIN_POINTS_CROP = (960, 576)
+
+
+def crop_proj(proj, x0: int, y0: int, width: int, height: int):
+    """The projected Gaussians seen by the window [x0, x0 + width) x [y0,
+    y0 + height) of the frame, in the window's pixel coordinates: the valid
+    ones whose rect meets it."""
+    import torch
+
+    xy = proj.xy - torch.tensor([float(x0), float(y0)], device=proj.xy.device)
+    r = proj.radius
+    valid = (proj.valid & (xy[:, 0] + r > 0) & (xy[:, 0] - r < width)
+             & (xy[:, 1] + r > 0) & (xy[:, 1] - r < height))
+    return proj._replace(xy=xy, valid=valid, radius=torch.where(valid, r,
+                                                                torch.zeros_like(r)))
+
+
+def train_points_phase(gpu: str, dev=None) -> dict:
+    """K2 and K3 on the gs-360-3m field (3.0M Gaussians drawn from SEED,
+    uncapped splats) seen from POINTS_CAMERA at 1237x822, whose last column
+    and row of 32 px tiles are partial: on the whole frame K2 and K3 launched
+    once each, finite, every boundary of a pixel off the frame 0, and the
+    instances the frame's binning emitted; on the crop from
+    TRAIN_POINTS_CROP, the same partial tiles, each against its plain
+    version (``compare_k2``, ``compare_k3`` at TOL_K3_DEEP), and again on
+    that corner cut to whole tiles."""
+    import torch
+
+    from benchmark.drivers.render_points import camera, make_field
+    from cloth_splatting_tpu_torch import kernels
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops.rasterize import tiled_fwd as TF
+    from cloth_splatting_tpu_torch.ops.rasterize import tiled_train as TT
+    from cloth_splatting_tpu_torch.render import CameraArrays
+
+    dev = dev or torch.device("cuda")
+    with open(POINTS_CONFIG) as f:
+        cfg = json.load(f)
+    img = cfg["image"]
+    w, h, sh = img["width"], img["height"], cfg["sh_degree"]
+    tan_x = img["tan_half_fov_x"]
+    tan_y = tan_x * h / w
+    n = cfg["gaussians"]
+    params = PG.PointGaussianParams(**make_field(cfg, SEED, dev))
+    state = PG.PointGaussianState(
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        max_radii2d=torch.zeros(n, device=dev), grad_accum=torch.zeros(n, device=dev),
+        denom=torch.zeros(n, device=dev))
+    cam_m = camera(POINTS_CAMERA, tan_x, tan_y, dev)
+    cam = CameraArrays(world_view=cam_m["world_view"], full_proj=cam_m["full_proj"],
+                       camera_center=cam_m["center"], time=torch.zeros((), device=dev))
+    with torch.no_grad():
+        proj = PG.project_points_view(params, state, cam, w, h, tan_x, tan_y, sh)
+    del params, state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tile = TF.tile_size_for(w, h)
+    tw, th = TF.tile_grid(w, h, tile)
+    emitted = TF.COUNTS["instances"]
+    packed = TF.sorted_pack(proj, tw, th, tile, order="exact")
+    emitted = TF.COUNTS["instances"] - emitted
+    instances = int(packed.counts.to(torch.int64).sum())
+    kernels.LAUNCHES.clear()
+    out_t, tb = TT.raster_forward_train(packed, w, h, tile, BG)
+    gimg = cotangent_tiles(out_t, w, h, tile, gen)
+    grads = TT.run_backward(packed, gimg, tb, w, h, tile, BG)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches != {"K2": 1, "K3": 1}:
+        raise RuntimeError(f"train points: the frame launched {launches}")
+    if instances != emitted:
+        raise RuntimeError(f"train points: the pack holds {instances} instances, the "
+                           f"binning emitted {emitted}")
+    rgb = TF.tiles_to_images(out_t, w, h, tile)[0]
+    n_laid = int(TF.chunk_span(packed)[3].sum())
+    px, py = TF.pixel_coords(w, tile, tw * th, dev)
+    off = ((px >= w) | (py >= h))[..., 0]                    # [T, p]
+    tile_of_row = torch.repeat_interleave(torch.arange(tw * th, device=dev),
+                                          TF.chunk_span(packed)[3])
+    off_bounds = float((tb[:n_laid] * off[tile_of_row]).abs().max())
+    if not (bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(grads).all())):
+        raise RuntimeError("train points: non-finite image or gradients")
+    if off_bounds != 0.0 or float(gimg[off].abs().max()) != 0.0:
+        raise RuntimeError(f"train points: pixels off the frame hold a boundary "
+                           f"({off_bounds}) or a cotangent")
+    del out_t, tb, gimg, grads, packed
+    x0, y0 = TRAIN_POINTS_CROP
+    cw, ch = w - x0, h - y0
+    cpack = TF.sorted_pack(crop_proj(proj, x0, y0, cw, ch), *TF.tile_grid(cw, ch, tile),
+                           tile, order="exact")
+    label = f"gs-360-3m crop {cw}x{ch} of {w}x{h}"
+    # the shell's depths reach ~55: the depth channel is held relative to
+    # the deepest valid Gaussian, as phase 17 holds K1's
+    depth_scale = max(1.0, float(proj.depth[proj.valid].max()))
+    k2_err, k2_stats, c_out, c_tb = compare_k2(cpack, cw, ch, tile, label,
+                                               depth_scale=depth_scale)
+    k3_err, k3_rel = compare_k3(cpack, cotangent_tiles(c_out, cw, ch, tile, gen), c_tb,
+                                cw, ch, tile, label, tol=TOL_K3_DEEP)
+    # the same corner cut to whole tiles: what the field's lists alone give
+    ww, wh = cw // tile * tile, ch // tile * tile
+    wpack = TF.sorted_pack(crop_proj(proj, x0, y0, ww, wh), ww // tile, wh // tile,
+                           tile, order="exact")
+    wlabel = f"gs-360-3m crop {ww}x{wh} (whole tiles)"
+    _, _, w_out, w_tb = compare_k2(wpack, ww, wh, tile, wlabel, depth_scale=depth_scale)
+    _, k3_rel_whole = compare_k3(wpack, cotangent_tiles(w_out, ww, wh, tile, gen), w_tb,
+                                 ww, wh, tile, wlabel, tol=TOL_K3_DEEP)
+    del wpack, w_out, w_tb
+    record = {"width": w, "height": h, "tile": tile, "tiles": tw * th,
+              "instances": instances, "launches": launches,
+              "crop": {"width": cw, "height": ch, "k2_max_abs_err": k2_err,
+                       "k3_rel": k3_rel, "k3_max_abs_err": k3_err,
+                       "chunks_started": k2_stats["chunks_started"],
+                       "k3_rel_whole_tiles": k3_rel_whole},
+              "gpu": gpu}
+    log(f"training compositors on partial tiles [gs-360-3m {w}x{h}]: {json.dumps(record)}")
+    del proj, cpack
+    torch.cuda.empty_cache()
+    return record
+
+
 def cloth_front_frame(sc, usage: dict, gpu: str) -> dict:
     """One frame of the 65k serving scene (``build_scenes``) through
     ``render``, the launch counts cleared just before: the cloth front end's
@@ -3572,6 +3721,11 @@ def main() -> int:
     points = points_phase(gpu, usage, occupancy)
     print(json.dumps({"points": points}))
     lap("points")
+
+    # 18. the training compositors on partial tiles --------------------------
+    train_points = train_points_phase(gpu)
+    print(json.dumps({"train_points": train_points}))
+    lap("train_points")
 
     print(gpu)
 

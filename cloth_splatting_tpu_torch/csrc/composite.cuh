@@ -247,12 +247,15 @@ struct GlobalStage {
 // sum w, then three zero rows. The frame is width x height pixels: a pixel
 // of a partial tile outside it starts with T = 0, so every update leaves its
 // sums as they are and its T never holds the exit vote, and it is not
-// written. kRecord (K2 and K2-span) takes whole tiles only, and then width
-// and height are not read.
-// kRecord (K2) also stores every pixel's T at
+// written; on a frame of whole tiles every pixel is inside, and the walk
+// is the same float operations as without the clip. kClip false (K2-span)
+// leaves the clip out at compile time: whole tiles only, width and height
+// not read.
+// kRecord (K2 and K2-span) also stores every pixel's T at
 // the start of each chunk it walks to tb[(offset + ci) * p + pixel], and
 // zeros for the tile's chunks after the exit, so "never started" reads as
-// "max boundary is 0". Both are pixel-index-major, as K3 and K4 read them.
+// "max boundary is 0"; a pixel outside the frame records T = 0 throughout.
+// Both are pixel-index-major, as K3 and K4 read them.
 //
 // It walks as K3 does, where a plain walk would have every warp classify
 // every instance of the tile on all its pixels:
@@ -271,7 +274,7 @@ struct GlobalStage {
 // `stage` puts each chunk's rows and boxes in sh and boxes; where they come
 // from changes no bit of the result (chip_smoke holds K1-span and K2-span
 // bit-identical to K1 and K2).
-template <int PPT, bool kRecord, typename Stage = GlobalStage>
+template <int PPT, bool kRecord, bool kClip = true, typename Stage = GlobalStage>
 __device__ __forceinline__ void composite_tile_patched(
     int tile, const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ offsets, const float* __restrict__ rows16,
@@ -309,8 +312,8 @@ __device__ __forceinline__ void composite_tile_patched(
   float T[PPT], acc_r[PPT], acc_g[PPT], acc_b[PPT], acc_d[PPT], acc_w[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    inside[i] = kRecord || (ox + M::quad_x(warp, lane) + i % kQ < width &&
-                            oy + M::quad_y(warp, lane) + i / kQ < height);
+    inside[i] = !kClip || (ox + M::quad_x(warp, lane) + i % kQ < width &&
+                           oy + M::quad_y(warp, lane) + i / kQ < height);
     T[i] = inside[i] ? 1.0f : 0.0f;
     acc_r[i] = acc_g[i] = acc_b[i] = acc_d[i] = acc_w[i] = 0.0f;
   }

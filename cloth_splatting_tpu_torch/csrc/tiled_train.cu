@@ -40,6 +40,18 @@
 // patches, the footprint cull, no branch per pixel) that K1's notes in
 // tiled_fwd.cu describe.
 //
+// Frames of any size: the tiles are ceil(W / tile) x ceil(H / tile), and a
+// pixel of a partial tile outside the frame starts K2's walk with T = 0, as
+// in K1: it composites nothing, never holds its tile's exit, is not written,
+// and K2 records T = 0 for it at every chunk. K3 and K4 need no clip of their
+// own: such a pixel's boundaries are all 0 and the wrapper pads its
+// cotangents with zeros (images_to_tiles), so every term it adds to an
+// instance's sums, its dL/dalpha and its T chain is an exact zero, and it
+// never holds a chunk's "started" vote. K2-span takes whole tiles only (the
+// wrapper refuses a partial-tile frame): with the clip, its 32 px instance
+// spilled 4 bytes at 64 registers, so it keeps the clip out at compile time
+// (kClip false) and its code is K2's before the clip.
+//
 // K3 (one 256-thread block per tile, the chunk's rows in shared memory,
 // each pixel's T, prefix and cotangents in registers). What bounds it on
 // the H100 is the walk: per chunk, each warp steps through the instances it
@@ -152,13 +164,13 @@ tiled_fwd_train_kernel(const int* __restrict__ starts,
                        const int* __restrict__ counts,
                        const int* __restrict__ offsets,
                        const float* __restrict__ rows16, float* __restrict__ out,
-                       float* __restrict__ tb, int tw, int64_t b_pad,
-                       float bg0, float bg1, float bg2) {
+                       float* __restrict__ tb, int tw, int width, int height,
+                       int64_t b_pad, float bg0, float bg1, float bg2) {
   __shared__ float sh[kRows][kChunk];
   __shared__ float4 boxes[kChunk];
   composite::composite_tile_patched<PPT, true>(
-      blockIdx.x, starts, counts, offsets, rows16, out, tb, tw, INT_MAX,
-      INT_MAX, b_pad, bg0, bg1, bg2, sh, boxes);
+      blockIdx.x, starts, counts, offsets, rows16, out, tb, tw, width, height,
+      b_pad, bg0, bg1, bg2, sh, boxes);
 }
 
 // K2-span: K2's walk of this CTA's tile, from the cluster's window when its
@@ -179,7 +191,7 @@ tiled_fwd_train_span_kernel(const int* __restrict__ starts,
   composite::run_cluster_program(
       starts, counts, rows16, b_pad, tpp, span_cap, window, &bar,
       [&](int tile, auto stage) {
-        composite::composite_tile_patched<PPT, true>(
+        composite::composite_tile_patched<PPT, true, false>(
             tile, starts, counts, offsets, rows16, out, tb, tw, INT_MAX,
             INT_MAX, b_pad, bg0, bg1, bg2, sh, boxes, stage);
       });
@@ -674,23 +686,28 @@ Args unpack(const void* starts, const void* counts, const void* offsets,
 
 // Launches K2 on `stream`. Device pointers to contiguous starts/counts/
 // offsets i32 [n_tiles], rows16 f32 [16, b_pad], out f32 [n_tiles, 8, p] and
-// tb f32 [>= sum of the tiles' chunk counts, p]. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unsupported tile_size).
+// tb f32 [>= sum of the tiles' chunk counts, p]; the frame is width x height
+// pixels on tw x (n_tiles / tw) tiles, the last column and row of which may
+// be partial. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported tile_size).
 extern "C" int tiled_fwd_train_launch(const void* starts, const void* counts,
                                       const void* offsets, const void* rows16,
                                       void* out, void* tb, int n_tiles, int tw,
-                                      int64_t b_pad, int tile_size, float bg0,
-                                      float bg1, float bg2, void* stream) {
+                                      int width, int height, int64_t b_pad,
+                                      int tile_size, float bg0, float bg1,
+                                      float bg2, void* stream) {
   if (n_tiles <= 0) return 0;
   const Args a = unpack(starts, counts, offsets, rows16, stream);
   float* o = static_cast<float*>(out);
   float* t = static_cast<float*>(tb);
   if (tile_size == 32) {
     tiled_fwd_train_kernel<4><<<n_tiles, kThreads, 0, a.s>>>(
-        a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, bg0, bg1, bg2);
+        a.st, a.ct, a.of, a.rows, o, t, tw, width, height, b_pad, bg0, bg1,
+        bg2);
   } else if (tile_size == 16) {
     tiled_fwd_train_kernel<1><<<n_tiles, kThreads, 0, a.s>>>(
-        a.st, a.ct, a.of, a.rows, o, t, tw, b_pad, bg0, bg1, bg2);
+        a.st, a.ct, a.of, a.rows, o, t, tw, width, height, b_pad, bg0, bg1,
+        bg2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,13 +7,15 @@ D-NeRF); counterpart of the root ``fit_legacy.py``:
 Loads the scene (``data/legacy.py``), keeps the training cameras that share
 the first one's intrinsics (at most ``--max_cameras``), initializes the
 free-xyz model from the scene's point cloud, fits it
-(``models.point_gaussians.fit_static_scene``, the dense tier), renders up to
-10 held-out cameras (else the first 4 training cameras) through the serving
-rasterizer (K1 on the card), with the splats capped at 24 px as the fit
-renders them (``--k_cap`` governs the fit only), and writes
-``point_cloud.ply`` and ``results.json`` ({"ours_static": {"PSNR",
-"final_loss", "iterations"}}) under ``--model_path``. Every flag of the root
-script, plus ``--device`` (default ``cuda``; raises without a card).
+(``models.point_gaussians.fit_static_scene``: the training rasterizer, K2/K3
+on the card, exact and uncapped, with the published schedule and density
+control), renders up to 10 held-out cameras (else the first 4 training
+cameras) through the serving rasterizer (K1 on the card), uncapped too, and
+writes ``point_cloud.ply`` (the live Gaussians) and ``results.json``
+({"ours_static": {"PSNR", "final_loss", "iterations"}}) under
+``--model_path``. Every flag of the root script but ``--k_cap`` (its dense
+tier's instances a tile: the port's fit and render keep every instance),
+plus ``--device`` (default ``cuda``; raises without a card).
 Decoding the images needs PIL.
 """
 
@@ -42,9 +44,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iterations", type=int, default=500)
     p.add_argument("--max_cameras", type=int, default=50,
                    help="cap on decoded training cameras (memory)")
-    p.add_argument("--k_cap", type=int, default=256,
-                   help="instances a tile of the fit's dense tier; the held-out "
-                        "render drops nothing")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
     return p
@@ -61,7 +60,6 @@ def main(argv=None) -> None:
     from cloth_splatting_tpu_torch.device import resolve_device
     from cloth_splatting_tpu_torch.models import point_gaussians as PG
     from cloth_splatting_tpu_torch.ops.image import psnr
-    from cloth_splatting_tpu_torch.ops.projection import MAX_SPLAT_RADIUS
     from cloth_splatting_tpu_torch.render import camera_arrays
 
     dev = resolve_device(args.device)
@@ -101,7 +99,7 @@ def main(argv=None) -> None:
     params, state, loss = PG.fit_static_scene(
         cams, gts, scene.point_cloud, w, h, tanx, tany,
         sh_degree=args.sh_degree, iterations=args.iterations, seed=args.seed,
-        k_cap=args.k_cap, white_background=args.white_background, device=dev)
+        white_background=args.white_background, device=dev)
     print(f"final train loss: {loss:.5f}")
 
     # held-out evaluation (same-size cameras only)
@@ -112,8 +110,7 @@ def main(argv=None) -> None:
     with torch.no_grad():
         for r in test:
             rgb, _, _ = PG.render_points(params, state, camera_arrays(r.camera, dev),
-                                         w, h, tanx, tany, bg, args.sh_degree,
-                                         max_radius=MAX_SPLAT_RADIUS)
+                                         w, h, tanx, tany, bg, args.sh_degree)
             psnrs.append(float(psnr(torch.clamp(rgb, 0, 1)[None], image(r)[None])[0]))
     mean_psnr = float(np.mean(psnrs))
     print(f"test PSNR: {mean_psnr:.2f} dB over {len(test)} cameras")

@@ -13,8 +13,12 @@ points' colours, log-scales ``log(sqrt(clamp(mean 3-NN squared distance,
 
 The projection is the published one: a splat's 3-sigma radius is not
 capped (``project_gaussians(max_radius=None)``), where the cloth field caps
-it at 24 px; ``fit_static_scene``, which trains through the dense tier,
-keeps that cap. ``render_points`` serves through the serving rasterizer
+it at 24 px. ``fit_static_scene`` trains through ``train/points.py``: the
+training rasterizer (K2/K3 on the card), uncapped and exact, with the
+published schedule and density control (the functions below);
+``fit_static_scene_capped`` is the JAX package's capped, dense-tier fit,
+kept for the tests that hold the port to it. ``render_points`` serves
+through the serving rasterizer
 (``ops/rasterize/tiled_fwd.py``: exact binning of every (tile, Gaussian)
 pair, any frame size, K1 on the card) when no leaf needs a gradient, and
 through the dense tier (``ops/rasterize/tiled.py``), as the JAX package's
@@ -59,7 +63,9 @@ from cloth_splatting_tpu_torch.utils.profiling import span
 
 # Calls of ``project_points_view`` since the process started (or the caller
 # last cleared it): "front_fused" ran the front-end kernel, "front_eager"
-# the PyTorch ops.
+# the PyTorch ops; and what ``train.points.PointTrainer.host_events`` did:
+# "events" (calls that ran a host event), Gaussians "cloned", "split"
+# (parents), "pruned", and "overflow" (selected, but no free slot).
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -307,17 +313,53 @@ def fit_static_scene(cams, gts, point_cloud, width: int, height: int,
                      tanfovx: float, tanfovy: float,
                      sh_degree: int = 3, iterations: int = 300,
                      lr_xyz: float = 1.6e-4, lr_rest: float = 2.5e-3,
-                     seed: int = 0, k_cap: int = 256,
-                     white_background: bool = False,
+                     seed: int = 0, white_background: bool = False,
                      device: str | torch.device = "cuda"):
-    """A free-xyz 3DGS fit over parallel lists of ``CameraArrays`` and
-    ground-truth images [3, H, W] in [0, 1] on ``device``: camera
-    ``it % len(cams)`` at iteration ``it``, the L1 + 0.2 D-SSIM loss, and
-    Adam (eps 1e-15) with the reference's per-group learning rates; no
-    density control. It renders through the dense tier, whose tiles hold
-    ``k_cap`` instances, so splats keep the cloth field's 24 px cap, as the
-    JAX package's fit does. Returns (params, state, the last iteration's
-    loss)."""
+    """The published free-xyz 3DGS fit over parallel lists of
+    ``CameraArrays`` and ground-truth images [3, H, W] in [0, 1] on
+    ``device``, through ``train.points``: iterations 1 .. ``iterations``,
+    each on a view drawn as ``train.py`` draws them (``ViewStack`` seeded
+    ``seed``), the training rasterizer (exact binning, splats uncapped, any
+    frame size), the published loss, schedule and density control
+    (``PointOptimization`` with ``lr_xyz`` and ``lr_rest`` as the initial
+    position and feature rates, the positions' scaled by the cameras'
+    NeRF++ radius), at four times the point cloud's capacity for the
+    density events' new Gaussians. Returns (params, state, the last
+    iteration's loss)."""
+    from cloth_splatting_tpu_torch.train import points as TP
+    from cloth_splatting_tpu_torch.train.step import adam_init
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    params, state = init_from_point_cloud(
+        rng, point_cloud.points, point_cloud.colors, sh_degree,
+        capacity=round_capacity(4 * point_cloud.points.shape[0]), device=dev)
+    opt = TP.PointOptimization(position_lr_init=lr_xyz, position_lr_final=lr_xyz / 100.0,
+                               feature_lr=lr_rest)
+    bg = (1.0, 1.0, 1.0) if white_background else (0.0, 0.0, 0.0)
+    trainer = TP.PointTrainer(opt, width, height, tanfovx, tanfovy, bg, sh_degree,
+                              TP.camera_extent(cams), white_background)
+    losses = []
+    st = TP.fit_points(trainer, TP.PointTrainState(params, state, adam_init(params)),
+                       cams, gts, 1, iterations, TP.ViewStack(len(cams), seed), seed,
+                       on_iteration=lambda it, loss: losses.append(loss))
+    loss = float(losses[-1]) if losses else float("inf")
+    return st.params, st.gstate, loss
+
+
+def fit_static_scene_capped(cams, gts, point_cloud, width: int, height: int,
+                            tanfovx: float, tanfovy: float,
+                            sh_degree: int = 3, iterations: int = 300,
+                            lr_xyz: float = 1.6e-4, lr_rest: float = 2.5e-3,
+                            seed: int = 0, k_cap: int = 256,
+                            white_background: bool = False,
+                            device: str | torch.device = "cuda"):
+    """The JAX package's ``fit_static_scene``, kept for the tests that hold
+    the port to it: camera ``it % len(cams)`` at iteration ``it``, the L1 +
+    0.2 D-SSIM loss, and Adam (eps 1e-15) with constant per-group learning
+    rates; no density control. It renders through the dense tier, whose
+    tiles hold ``k_cap`` instances, so splats keep the cloth field's 24 px
+    cap. Returns (params, state, the last iteration's loss)."""
     from cloth_splatting_tpu_torch.train.losses import image_losses
     from cloth_splatting_tpu_torch.train.step import adam_init, adam_update
 

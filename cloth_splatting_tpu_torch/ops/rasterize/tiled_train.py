@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -64,6 +65,7 @@ from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import (
     resolve_span,
     sorted_pack,
     span_windows,
+    tile_grid,
     tile_size_for,
     tiles_to_images,
 )
@@ -72,9 +74,15 @@ from cloth_splatting_tpu_torch.utils.profiling import span
 GCH = 8  # grad-image channels: g_r g_g g_b g_dep g_acc acc u_tot pad
 
 
-def check_whole_tiles(width: int, height: int, tile_size: int) -> None:
-    if width % tile_size or height % tile_size:
-        raise ValueError("width/height must be multiples of tile_size")
+def check_span_frame(width: int, height: int, tile_size: int,
+                     span: tuple[int, int]) -> None:
+    """K2-span takes whole tiles only: raises ValueError for a frame whose
+    sides ``tile_size`` does not divide when ``span`` (``resolve_span``'s)
+    leaves a span."""
+    if span[1] and (width % tile_size or height % tile_size):
+        raise ValueError(f"K2-span takes whole tiles only: {width}x{height} at "
+                         f"{tile_size} px tiles with tiles_per_program/span_cap "
+                         f"{span}")
 
 
 def layout_rows(packed: PackedTiles, n_tiles: int) -> int:
@@ -100,9 +108,10 @@ def raster_forward_train_plain(packed: PackedTiles, width: int, height: int,
     """Plain PyTorch version of K2 and, with the span options, of K2-span:
     (out [T, 8, p], tbounds [rows, p], the walk's counters). K1's plain
     walk, recording the boundaries."""
-    n_tiles = (width // tile_size) * (height // tile_size)
+    n_tiles = math.prod(tile_grid(width, height, tile_size))
     span = resolve_span(n_tiles, packed.rows16.shape[1], tiles_per_program,
                         span_cap, "fwd_train")
+    check_span_frame(width, height, tile_size, span)
     out, walk, tbounds = plain_walk(packed, width, height, tile_size, bg,
                                     boundaries=chunk_layout(packed, n_tiles),
                                     span=span)
@@ -119,7 +128,8 @@ def _launchers():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     geom = [i32, i32, ctypes.c_int64, i32, ctypes.c_float, ctypes.c_float,
             ctypes.c_float]
-    fwd.argtypes = [ptr] * 6 + geom + [ptr]
+    frame = geom[:2] + [i32, i32] + geom[2:]     # n_tiles, tw, width, height, ...
+    fwd.argtypes = [ptr] * 6 + frame + [ptr]
     bwd.argtypes = [ptr] * 7 + geom + [ptr]
     fwd_span.argtypes = [ptr] * 6 + geom + [i32, i32, ptr]
     bwd_rev.argtypes = [ptr] * 7 + geom + [i32, i32, ptr]
@@ -142,34 +152,39 @@ def raster_forward_train(packed: PackedTiles, width: int, height: int,
     """Composite every tile and record the chunk boundaries: (out_t
     [T, 8, p] as ``raster_forward_tiles``, tbounds [rows, p]).
 
+    Frames of any size (``tile_grid``): a pixel of a partial tile outside
+    the frame starts with T = 0, is not written, and records T = 0. K2-span
+    takes whole tiles only, and a partial-tile frame raises ValueError
+    (``check_span_frame``) before any launch.
+
     A CUDA ``packed`` launches K2 or, when ``resolve_span`` leaves a span,
     K2-span (or raises): rows of tbounds past the sum of the tiles' chunk
     counts are left unwritten, and the backward never reads them. A CPU one
     runs the plain version. ``kernels.LAUNCHES`` counts them as "K2" and
     "K2-span"."""
     check_packed(packed, width, height, tile_size)
-    check_whole_tiles(width, height, tile_size)
     dev = _device(packed)
     if dev.type == "cpu":
         return raster_forward_train_plain(packed, width, height, tile_size, bg,
                                           tiles_per_program, span_cap)[:2]
-    tw = width // tile_size
-    n_tiles = tw * (height // tile_size)
+    tw, th = tile_grid(width, height, tile_size)
+    n_tiles = tw * th
     p = tile_size * tile_size
     b_pad = packed.rows16.shape[1]
     tpp, cap = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap,
                             "fwd_train")
+    check_span_frame(width, height, tile_size, (tpp, cap))
     offsets, n_rows = chunk_layout(packed, n_tiles)
     out = torch.empty((n_tiles, 8, p), dtype=torch.float32, device=dev)
     tbounds = torch.empty((n_rows, p), dtype=torch.float32, device=dev)
-    args = [packed.starts.data_ptr(), packed.counts.data_ptr(),
+    head = [packed.starts.data_ptr(), packed.counts.data_ptr(),
             offsets.data_ptr(), packed.rows16.data_ptr(), out.data_ptr(),
-            tbounds.data_ptr(), n_tiles, tw, b_pad, tile_size, float(bg[0]),
-            float(bg[1]), float(bg[2])]
+            tbounds.data_ptr(), n_tiles, tw]
+    tail = [b_pad, tile_size, float(bg[0]), float(bg[1]), float(bg[2])]
     if cap:
-        kernels.launch("K2-span", _launchers()[2], dev, *args, tpp, cap)
+        kernels.launch("K2-span", _launchers()[2], dev, *head, *tail, tpp, cap)
     else:
-        kernels.launch("K2", _launchers()[0], dev, *args)
+        kernels.launch("K2", _launchers()[0], dev, *head, width, height, *tail)
     return out, tbounds
 
 
@@ -231,7 +246,7 @@ def run_backward_plain(packed: PackedTiles, gimg_t: torch.Tensor,
     n_chunks - 1 - k per tile, skips chunks never started, and carries the
     later chunks' totals instead of reading U_tot; tiles of programs that
     fit read their chunks from the program's window."""
-    tw, th = width // tile_size, height // tile_size
+    tw, th = tile_grid(width, height, tile_size)
     n_tiles = tw * th
     dev = packed.rows16.device
     b_pad = packed.rows16.shape[1]
@@ -278,8 +293,7 @@ def check_backward_inputs(packed: PackedTiles, gimg_t: torch.Tensor,
                           tbounds: torch.Tensor, width: int, height: int,
                           tile_size: int) -> None:
     check_packed(packed, width, height, tile_size)
-    check_whole_tiles(width, height, tile_size)
-    n_tiles = (width // tile_size) * (height // tile_size)
+    n_tiles = math.prod(tile_grid(width, height, tile_size))
     p = tile_size * tile_size
     n_rows = layout_rows(packed, n_tiles)
     for name, t, shape in (("gimg_t", gimg_t, (n_tiles, p, GCH)),
@@ -304,14 +318,16 @@ def run_backward(packed: PackedTiles, gimg_t: torch.Tensor,
 
     A CUDA ``packed`` launches K3 or, when ``resolve_span`` leaves a span,
     K4 (or raises); a CPU one runs the plain version. ``kernels.LAUNCHES``
-    counts them as "K3" and "K4"."""
+    counts them as "K3" and "K4". A pixel of a partial tile outside the
+    frame has all-zero boundaries and, from ``images_to_tiles``, zero
+    cotangents: it adds exact zeros."""
     check_backward_inputs(packed, gimg_t, tbounds, width, height, tile_size)
     dev = _device(packed)
     if dev.type == "cpu":
         return run_backward_plain(packed, gimg_t, tbounds, width, height,
                                   tile_size, bg, tiles_per_program, span_cap)
-    tw = width // tile_size
-    n_tiles = tw * (height // tile_size)
+    tw, th = tile_grid(width, height, tile_size)
+    n_tiles = tw * th
     b_pad = packed.rows16.shape[1]
     tpp, cap = resolve_span(n_tiles, b_pad, tiles_per_program, span_cap, "bwd")
     offsets, _ = chunk_layout(packed, n_tiles)
@@ -329,9 +345,13 @@ def run_backward(packed: PackedTiles, gimg_t: torch.Tensor,
 
 def images_to_tiles(img: torch.Tensor, width: int, height: int,
                     tile_size: int) -> torch.Tensor:
-    """[C, H, W] -> [n_tiles, p, C] (pixel-major per tile), contiguous."""
+    """[C, H, W] -> [n_tiles, p, C] (pixel-major per tile), contiguous; the
+    pixels of partial tiles outside the frame are zeros."""
     c = img.shape[0]
-    tw, th = width // tile_size, height // tile_size
+    tw, th = tile_grid(width, height, tile_size)
+    pad_w, pad_h = tw * tile_size - width, th * tile_size - height
+    if pad_w or pad_h:
+        img = torch.nn.functional.pad(img, (0, pad_w, 0, pad_h))
     t = img.reshape(c, th, tile_size, tw, tile_size)
     return t.permute(1, 3, 2, 4, 0).reshape(th * tw, tile_size * tile_size,
                                             c).contiguous()
@@ -360,7 +380,7 @@ class _TiledTrainRaster(torch.autograd.Function):
                 radius, width, height, bg, pack_order, tiles_per_program,
                 span_cap):
         tile_size = tile_size_for(width, height)
-        tw, th = width // tile_size, height // tile_size
+        tw, th = tile_grid(width, height, tile_size)
         proj = ProjectedGaussians(xy=xy, depth=depth, conic=conic,
                                   radius=radius, color=color, opacity=opacity,
                                   valid=valid, power_cut=power_cut)
@@ -398,11 +418,9 @@ def rasterize_tiled_train(proj: ProjectedGaussians, width: int, height: int,
                           pack_order: str = "exact",
                           tiles_per_program: int | None = None,
                           span_cap: int | None = None):
-    """Differentiable rasterization at ``tile_size_for``'s tiling: (rgb
-    [3,H,W], depth [1,H,W], alpha [1,H,W]); counterpart of JAX
-    ``rasterize_pallas_grad``, span options included. The training tier
-    takes whole tiles only."""
-    check_whole_tiles(width, height, tile_size_for(width, height))
+    """Differentiable rasterization at ``tile_size_for``'s tiling, any frame
+    size: (rgb [3,H,W], depth [1,H,W], alpha [1,H,W]); counterpart of JAX
+    ``rasterize_pallas_grad``, span options included."""
     return _TiledTrainRaster.apply(
         proj.xy, proj.depth, proj.conic, proj.color, proj.opacity, proj.valid,
         proj.power_cut, proj.radius, width, height,

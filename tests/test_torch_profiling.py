@@ -1,8 +1,8 @@
 """The port's spans (``utils/profiling.py``) on the CPU: off, enabled and
 under ``torch.profiler``, and the span tree each hot path gives at a tiny
 size: two iterations of ``fit_banks`` with a host event due, one serving
-``render``, one ``MeshnetTrainer.train_step`` at unroll 2 and one
-``MPC.model_rollout``."""
+``render``, two iterations of the point trainer with a host event due, one
+``MeshnetTrainer.train_step`` at unroll 2 and one ``MPC.model_rollout``."""
 
 import threading
 
@@ -206,6 +206,32 @@ def test_render_points_gives_the_points_tree(spans_on):
     units_follow_roots(recs)
     assert trees(recs) == [("points.render", [("points.project_view", []), PACK,
                                               ("raster.composite", [])])]
+
+
+def test_point_fit_iterations_give_the_points_fit_tree(spans_on):
+    """Two iterations of the point trainer, a density event after the
+    second: each iteration's spans are roots, the host events one more."""
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.train import points as TP
+    from cloth_splatting_tpu_torch.train.step import adam_init
+
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-0.5, 0.5, (40, 3)).astype(np.float32)
+    params, state = PG.init_from_point_cloud(rng, pts, rng.random((40, 3)), 1,
+                                             capacity=64, device="cpu")
+    cam = camera_arrays(orbit_camera(0, 4, FOV, 40, 24, 0.0), "cpu")
+    tan = float(np.tan(FOV / 2))
+    opt = TP.PointOptimization(densify_from_iter=1, densification_interval=2)
+    trainer = TP.PointTrainer(opt, 40, 24, tan, tan * 24 / 40, (0.0, 0.0, 0.0), 1, 1.0)
+    gt = torch.rand(3, 24, 40, generator=torch.Generator().manual_seed(0))
+    P.take_spans()
+    TP.fit_points(trainer, TP.PointTrainState(params, state, adam_init(params)), [cam],
+                  [gt], 1, 2, TP.ViewStack(1, 0), 0)
+    recs = P.take_spans()
+    units_follow_roots(recs)
+    step = [("forward", [("points.project_view", []), PACK, ("raster.composite", [])]),
+            ("backward", []), ("update", [])]
+    assert trees(recs) == step + step + [("points.host_events", [])]
 
 
 def tiny_batch(rng, b=2, v=6, e=8, future=2, hist=2):

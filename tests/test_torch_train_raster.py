@@ -294,3 +294,74 @@ def test_library_name_follows_shared_header(tmp_path, monkeypatch):
     again = names()
     assert again["tiled_fwd"] == after["tiled_fwd"]
     assert again["tiled_train"] != after["tiled_train"]
+
+
+def partial_scene(width, height, n=160, seed=5):
+    """Splats over a frame whose sides the tile does not divide, some of
+    them centred past its right and bottom edges, so the partial tiles'
+    off-frame pixels lie inside their supports."""
+    rng = np.random.default_rng(seed)
+    xy = np.stack([rng.uniform(-4, width + 6, n), rng.uniform(-4, height + 6, n)], 1)
+    return to_torch(hand_proj(xy, rng.uniform(1, 5, n), 22.0,
+                              conic=(1 / 30, 0.004, 1 / 40),
+                              opacity=rng.uniform(0.2, 0.9, n), seed=seed))
+
+
+@pytest.mark.parametrize("width,height,tile,span", [
+    (70, 45, 16, (None, None)), (97, 61, 32, (None, None)),
+    (70, 45, 16, (5, 4)), (97, 61, 32, (4, 3))])
+def test_partial_tiles_match_brute_force_and_its_autograd(monkeypatch, width, height,
+                                                          tile, span):
+    """K2's and K3's plain versions on ceil(W / tile) x ceil(H / tile) tiles:
+    the image, and the gradients for xy, conic, colour, opacity and depth,
+    against the O(N P) composite and its autograd, which has no pixel off
+    the frame. Off-frame pixels record T = 0 at every chunk, and the grad
+    image gives them zero cotangents. With the span options K2-span refuses
+    the frame (whole tiles only) before any walk, and K4's plain version,
+    fed K2's boundaries, gives K3's gradients."""
+    monkeypatch.setattr(ttr, "tile_size_for", lambda w, h: tile)
+    pt = partial_scene(width, height)
+    names = ("xy", "conic", "color", "opacity", "depth")
+    rng = np.random.default_rng(3)
+    tgt = torch.from_numpy(rng.uniform(0, 1, (3, height, width)).astype(np.float32))
+
+    def grads(raster):
+        leaves = [getattr(pt, k).clone().requires_grad_() for k in names]
+        rgb, dep, acc = raster(pt._replace(**dict(zip(names, leaves))))
+        val = ((rgb - tgt) ** 2).mean() + 0.1 * dep.mean() + 0.05 * acc.mean()
+        return rgb, torch.autograd.grad(val, leaves)
+
+    if span[0]:
+        with pytest.raises(ValueError, match="whole tiles"):
+            ttr.rasterize_tiled_train(pt, width, height, BG, "exact", *span)
+    rgb, g = grads(lambda q: ttr.rasterize_tiled_train(q, width, height, BG, "exact"))
+    rgb_o, g_o = grads(lambda q: rasterize_reference(q, width, height, torch.ones(3)))
+    assert rgb.shape == (3, height, width)
+    np.testing.assert_allclose(rgb.detach().numpy(), rgb_o.detach().numpy(),
+                               atol=TOL_IMG["rgb"])
+    for name, a, o in zip(names, g, g_o):
+        assert float(o.abs().max()) > 0, name
+        assert_field_close(a.numpy(), o.numpy(), name + " vs oracle")
+
+    # the boundaries and cotangents of off-frame pixels are 0
+    tw, th = tpt.tile_grid(width, height, tile)
+    packed = tpt.sorted_pack(pt, tw, th, tile)
+    out_t, tb = ttr.raster_forward_train(packed, width, height, tile, BG)
+    px, py = tpt.pixel_coords(width, tile, tw * th, "cpu")
+    off = ((px >= width) | (py >= height))[..., 0]
+    offsets = ttr.chunk_layout(packed, tw * th)[0].long()
+    n_chunks = tpt.chunk_span(packed)[3]
+    for t in torch.nonzero(off.any(1)).squeeze(1).tolist():
+        rows = tb[offsets[t]:offsets[t] + n_chunks[t]]
+        assert rows.shape[0] > 0 and float(rows[:, off[t]].abs().max()) == 0.0
+    gimg = ttr.images_to_tiles(ttr.grad_image(*tpt.tiles_to_images(out_t, width, height,
+                                                                   tile),
+                                              *(torch.ones(c, height, width)
+                                                for c in (3, 1, 1)), BG),
+                               width, height, tile)
+    if span[0]:
+        g3 = ttr.run_backward(packed, gimg, tb, width, height, tile, BG).numpy()
+        g4 = ttr.run_backward(packed, gimg, tb, width, height, tile, BG, *span).numpy()
+        for field, rows in FIELDS.items():
+            assert_field_close(g4[rows], g3[rows], field + " K4 vs K3")
+    assert float(gimg[off].abs().max()) == 0.0
