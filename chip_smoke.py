@@ -137,7 +137,8 @@ which raises on failure:
      view, ``load_dnerf_scene``'s init cloud of 2,000 random points, ground
      truth rendered through ``render_points`` from the bench mesh's 16,384
      vertices on a wave): the loss falls, the held-out PSNR over 10 cameras
-     beats the initial model's, no kernel of the port is launched; the
+     beats the initial model's, the point front end's forward and backward
+     kernels launched once each an iteration and no other kernel; the
      first 20 iterations twice, bit for bit; 3 iterations at 128x128 on the
      card against the CPU;
  15. sweep: ``parallel.sweep.train_scenes_parallel`` over two scenes of the
@@ -178,7 +179,13 @@ which raises on failure:
      finite, every pixel off the frame with zero boundaries and
      cotangents, the pack holding what the binning emitted), each against
      its plain version on a crop that keeps the partial tiles, and on that
-     corner cut to whole tiles.
+     corner cut to whole tiles; then the point front end's backward kernel
+     (``csrc/point_front_bwd.cu``) on the frame's K3 gradients, reduced to
+     the [C, 16] per-Gaussian rows as the training rasterizer reduces them,
+     at the benchmark's 3.5M slots (0.5M dead): one launch, each leaf within
+     1e-5 of its plain version's norm, exact zeros on every slot without a
+     cotangent, and the kernel alone, its bound, registers and blocks an
+     SM.
 
 Prints a {"train": ...} line, a {"span": ...} line, a {"fit": ...} line, an
 {"eval": ...} line, a {"dense": ...} line, a {"parity": ...} line, a
@@ -452,6 +459,16 @@ FRONT_BYTES_PER_GAUSSIAN = (59 * 4 + 1) + (12 * 4 + 1)
 # Gaussian (the simulator MLP, which runs in PyTorch, left out)
 CLOTH_FRONT_BYTES_PER_GAUSSIAN = ((59 * 4 + 1 + 3 * 4 + 8 + 3 * 8 + 6 * 3 * 4)
                                   + (12 * 4 + 1 + 3 * 4 + 4 * 4))
+# the point front end's backward: every slot reads its cotangents (floats
+# 0-9 of a [C, 16] row of the training rasterizer: two 32-byte sectors) and
+# its valid byte and writes its 59-float gradient row; a slot with a
+# cotangent also reads its 59-float parameter row. Its FLOPs:
+# benchmark/counts/point_front_backward.py's a Gaussian
+FRONT_BWD_BYTES_PER_SLOT = 16 * 4 + 1 + 59 * 4
+FRONT_BWD_BYTES_PER_REACHED = 59 * 4
+# the benchmark's fit-gs360 slots: gs-360-3m's 3.0M Gaussians and 0.5M free
+FRONT_BWD_SLOTS = 3_500_000
+TOL_FRONT_BWD = 1e-5
 
 
 def log(msg: str) -> None:
@@ -471,7 +488,8 @@ KERNEL_ENTRIES = {"K1": "tiled_fwd_kernel<4>", "K1-span": "tiled_fwd_span_kernel
                   "K2-span": "tiled_fwd_train_span_kernel<4>",
                   "K3": "tiled_bwd_kernel<4>", "K4": "tiled_bwd_reverse_kernel<4>",
                   "front": "point_front_kernel<3>",
-                  "cloth_front": "cloth_front_kernel<3>"}
+                  "cloth_front": "cloth_front_kernel<3>",
+                  "front_bwd": "point_front_bwd_kernel<3>"}
 
 
 def build_logs() -> dict:
@@ -498,11 +516,12 @@ def build_logs() -> dict:
 
 def check_spills(usage: dict) -> None:
     """Raises unless ``usage`` (``ptxas_usage`` of the build's logs) holds
-    the three span kernels and the point and cloth front ends at each of
-    their five SH degrees, none of them spilling."""
+    the three span kernels and the point front end, its backward and the
+    cloth front end at each of their five SH degrees, none of them
+    spilling."""
     entries = [KERNEL_ENTRIES[key] for key in SPAN_KERNELS]
-    entries += [f"{front}_front_kernel<{deg}>" for front in ("point", "cloth")
-                for deg in range(5)]
+    entries += [f"{front}_kernel<{deg}>" for front in
+                ("point_front", "cloth_front", "point_front_bwd") for deg in range(5)]
     for entry in entries:
         if entry not in usage:
             raise RuntimeError(f"the build log has no ptxas line of {entry}")
@@ -577,21 +596,28 @@ def kernel_alone_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
 def roofline(kernel: str, item: dict) -> dict:
     """The least time the card could take for ``kernel``'s function on
     ``item`` ({"gaussians": valid Gaussians, "pixels": the frame's, "pairs":
-    live pairs; the front ends': {"gaussians": all}), by the benchmark's
-    counts (``benchmark/counts/``: the compositor's forward for K1, K1-span,
-    K2 and K2-span, its backward for K3 and K4, ``point_front_end`` and
-    FRONT_BYTES_PER_GAUSSIAN for the point front end, ``front_end``'s FLOPs
-    a Gaussian and CLOTH_FRONT_BYTES_PER_GAUSSIAN for the cloth front end):
-    the larger of its FLOPs at the fp32 peak and its bytes at the memory
-    rate."""
+    live pairs; the front ends': {"gaussians": all}; the point front end's
+    backward's: {"gaussians": slots, "reached": slots with a cotangent}), by
+    the benchmark's counts (``benchmark/counts/``: the compositor's forward
+    for K1, K1-span, K2 and K2-span, its backward for K3 and K4,
+    ``point_front_end`` and FRONT_BYTES_PER_GAUSSIAN for the point front
+    end, ``point_front_backward`` and FRONT_BWD_BYTES_PER_* for its
+    backward, ``front_end``'s FLOPs a Gaussian and
+    CLOTH_FRONT_BYTES_PER_GAUSSIAN for the cloth front end): the larger of
+    its FLOPs at the fp32 peak and its bytes at the memory rate."""
     from benchmark.counts import (
         compositor_backward,
         compositor_forward,
         front_end,
+        point_front_backward,
         point_front_end,
     )
 
-    if kernel == "front":
+    if kernel == "front_bwd":
+        flops = point_front_backward.flops(item["reached"])
+        n_bytes = (FRONT_BWD_BYTES_PER_SLOT * item["gaussians"]
+                   + FRONT_BWD_BYTES_PER_REACHED * item["reached"])
+    elif kernel == "front":
         flops = point_front_end.flops(item["gaussians"])
         n_bytes = FRONT_BYTES_PER_GAUSSIAN * item["gaussians"]
     elif kernel == "cloth_front":
@@ -2393,8 +2419,10 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     PSNR over LEGACY_TEST_CAMS cameras beats the initial model's, no kernel
     of the port runs; the first LEGACY_REPEAT iterations twice give the same
     bits; LEGACY_SMALL_ITERATIONS iterations at LEGACY_SMALL px on the card
-    against the CPU (``legacy_vs_cpu``). ``dev`` defaults to the card.
-    Returns the {"legacy": ...} record."""
+    against the CPU (``legacy_vs_cpu``). The fit's only kernels are the
+    point front end's forward and backward, once each an iteration (its
+    leaves need a gradient; the dense tier has no kernel). ``dev`` defaults
+    to the card. Returns the {"legacy": ...} record."""
     import numpy as np
     import torch
 
@@ -2444,7 +2472,7 @@ def legacy_phase(gpu: str, dev=None) -> dict:
     psnr1 = float(psnr(img1, test_gts).mean())
     _, drop_train = legacy_render_set(params, state, train_cams, size, LEGACY_SH,
                                       LEGACY_K_CAP)
-    if counts:
+    if counts != {"front": LEGACY_ITERATIONS, "front_bwd": LEGACY_ITERATIONS}:
         raise RuntimeError(f"legacy: the dense-tier fit launched {counts}")
     for name, t in params._asdict().items():
         if not bool(torch.isfinite(t).all()):
@@ -2483,7 +2511,7 @@ def legacy_phase(gpu: str, dev=None) -> dict:
         f"{loss:.5f}; held-out PSNR {psnr0:.3f} -> {psnr1:.3f} dB over "
         f"{LEGACY_TEST_CAMS} cameras; dropped (most a frame) "
         f"{json.dumps(record['dropped_most_a_frame'])} at k_cap {LEGACY_K_CAP}; "
-        f"no kernel launched; {LEGACY_REPEAT} iterations twice bit-identical; "
+        f"launches {json.dumps(counts)}; {LEGACY_REPEAT} iterations twice bit-identical; "
         f"card vs CPU {json.dumps(vs_cpu)} [{gpu}]")
     return record
 
@@ -3225,15 +3253,17 @@ def crop_proj(proj, x0: int, y0: int, width: int, height: int):
                                                                 torch.zeros_like(r)))
 
 
-def train_points_phase(gpu: str, dev=None) -> dict:
+def train_points_phase(gpu: str, usage: dict, dev=None) -> dict:
     """K2 and K3 on the gs-360-3m field (3.0M Gaussians drawn from SEED,
-    uncapped splats) seen from POINTS_CAMERA at 1237x822, whose last column
-    and row of 32 px tiles are partial: on the whole frame K2 and K3 launched
-    once each, finite, every boundary of a pixel off the frame 0, and the
-    instances the frame's binning emitted; on the crop from
-    TRAIN_POINTS_CROP, the same partial tiles, each against its plain
-    version (``compare_k2``, ``compare_k3`` at TOL_K3_DEEP), and again on
-    that corner cut to whole tiles."""
+    uncapped splats, in FRONT_BWD_SLOTS slots) seen from POINTS_CAMERA at
+    1237x822, whose last column and row of 32 px tiles are partial: on the
+    whole frame K2 and K3 launched once each, finite, every boundary of a
+    pixel off the frame 0, and the instances the frame's binning emitted;
+    then the point front end's backward on the frame's K3 gradients
+    (``front_bwd_gate``); on the crop from TRAIN_POINTS_CROP, the same
+    partial tiles, each against its plain version (``compare_k2``,
+    ``compare_k3`` at TOL_K3_DEEP), and again on that corner cut to whole
+    tiles."""
     import torch
 
     from benchmark.drivers.render_points import camera, make_field
@@ -3250,18 +3280,25 @@ def train_points_phase(gpu: str, dev=None) -> dict:
     w, h, sh = img["width"], img["height"], cfg["sh_degree"]
     tan_x = img["tan_half_fov_x"]
     tan_y = tan_x * h / w
-    n = cfg["gaussians"]
-    params = PG.PointGaussianParams(**make_field(cfg, SEED, dev))
+    n, slots = cfg["gaussians"], FRONT_BWD_SLOTS
+    field = make_field(cfg, SEED, dev)
+    free = {k: torch.zeros((slots - n,) + tuple(v.shape[1:]), device=dev)
+            for k, v in field.items()}
+    free["rotation"][:, 0] = 1.0
+    params = PG.PointGaussianParams(**{k: torch.cat([v, free[k]]).contiguous()
+                                       for k, v in field.items()})
+    del field, free
+    alive = torch.zeros(slots, dtype=torch.bool, device=dev)
+    alive[:n] = True
     state = PG.PointGaussianState(
-        alive=torch.ones(n, dtype=torch.bool, device=dev),
-        max_radii2d=torch.zeros(n, device=dev), grad_accum=torch.zeros(n, device=dev),
-        denom=torch.zeros(n, device=dev))
+        alive=alive, max_radii2d=torch.zeros(slots, device=dev),
+        grad_accum=torch.zeros(slots, device=dev), denom=torch.zeros(slots, device=dev))
     cam_m = camera(POINTS_CAMERA, tan_x, tan_y, dev)
     cam = CameraArrays(world_view=cam_m["world_view"], full_proj=cam_m["full_proj"],
                        camera_center=cam_m["center"], time=torch.zeros((), device=dev))
     with torch.no_grad():
         proj = PG.project_points_view(params, state, cam, w, h, tan_x, tan_y, sh)
-    del params, state
+    del state
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     tile = TF.tile_size_for(w, h)
@@ -3293,7 +3330,10 @@ def train_points_phase(gpu: str, dev=None) -> dict:
     if off_bounds != 0.0 or float(gimg[off].abs().max()) != 0.0:
         raise RuntimeError(f"train points: pixels off the frame hold a boundary "
                            f"({off_bounds}) or a cotangent")
-    del out_t, tb, gimg, grads, packed
+    del out_t, tb, gimg
+    front_bwd = front_bwd_gate(params, proj, cam, packed, grads, (w, h, tan_x, tan_y, sh),
+                               usage)
+    del grads, packed, params
     x0, y0 = TRAIN_POINTS_CROP
     cw, ch = w - x0, h - y0
     cpack = TF.sorted_pack(crop_proj(proj, x0, y0, cw, ch), *TF.tile_grid(cw, ch, tile),
@@ -3316,7 +3356,7 @@ def train_points_phase(gpu: str, dev=None) -> dict:
                                  ww, wh, tile, wlabel, tol=TOL_K3_DEEP)
     del wpack, w_out, w_tb
     record = {"width": w, "height": h, "tile": tile, "tiles": tw * th,
-              "instances": instances, "launches": launches,
+              "instances": instances, "launches": launches, "front_bwd": front_bwd,
               "crop": {"width": cw, "height": ch, "k2_max_abs_err": k2_err,
                        "k3_rel": k3_rel, "k3_max_abs_err": k3_err,
                        "chunks_started": k2_stats["chunks_started"],
@@ -3326,6 +3366,64 @@ def train_points_phase(gpu: str, dev=None) -> dict:
     del proj, cpack
     torch.cuda.empty_cache()
     return record
+
+
+def front_bwd_gate(params, proj, cam, packed, grads16, view: tuple, usage: dict) -> dict:
+    """The point front end's backward (``csrc/point_front_bwd.cu``) on one
+    frame's K3 gradients ``grads16`` [16, B_pad] of the training pack
+    ``packed`` of ``proj`` (the front end of ``params`` from ``cam`` at
+    ``view`` = (width, height, tan_x, tan_y, sh_degree)), reduced to [C, 16]
+    per-Gaussian rows as the training rasterizer's backward reduces them
+    and handed over as its views: one ``front_bwd`` launch; each leaf
+    within TOL_FRONT_BWD of the norm of ``project_points_backward_plain``'s
+    on the same cotangents, and exact zeros on every slot without a
+    cotangent; the kernel alone (torch.profiler), its bound (``roofline``) on the
+    slots and the slots with a cotangent, its registers and blocks an SM.
+    Returns the record."""
+    import ctypes
+
+    import torch
+
+    from cloth_splatting_tpu_torch import kernels
+    from cloth_splatting_tpu_torch.ops import point_front as PF
+    from cloth_splatting_tpu_torch.ops.rasterize.tiled_fwd import PACK16
+
+    slots = params.xyz.shape[0]
+    rows = grads16.new_zeros((slots + 1, PACK16)).index_add_(
+        0, packed.gauss_idx, grads16.T)[:slots]
+    cots = (rows[:, 0:2], rows[:, 9], rows[:, 2:5], rows[:, 5:8], rows[:, 8])
+    args = (params, proj.valid, cam, *view, *cots)
+    kernels.LAUNCHES.clear()
+    got = PF.project_points_backward_fused(*args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches != {"front_bwd": 1}:
+        raise RuntimeError(f"front_bwd: one backward launched {launches}")
+    want = PF.project_points_backward_plain(*args)
+    gaps = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for name, a, b in zip(params._fields, got, want)}
+    unreached = ~((rows[:, :9] != 0).any(1) | ((rows[:, 9] != 0) & proj.valid))
+    zeros = all(bool((g.reshape(slots, -1)[unreached] == 0).all()) for g in got)
+    del got, want
+    bad = [k for k, v in gaps.items() if not v <= TOL_FRONT_BWD]
+    if bad or not zeros:
+        raise RuntimeError(f"front_bwd: the kernel disagrees with its plain version in "
+                           f"{bad} {gaps}, or a slot without a cotangent has a "
+                           f"gradient ({not zeros})")
+    kernel_ms, records = kernel_alone_ms(lambda: PF.project_points_backward_fused(*args),
+                                         "front_bwd")
+    reached = slots - int(unreached.sum())
+    bound = roofline("front_bwd", {"gaussians": slots, "reached": reached})
+    query = kernels.load("point_front_bwd").point_front_bwd_blocks_per_sm
+    query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+    return {"slots": slots, "reached": reached, "launches": launches, "vs_plain": gaps,
+            "unreached_zero": zeros,
+            "kernel_ms": kernel_ms, "kernel_ms_records": records, **bound,
+            "share_of_bound": bound["bound_ms"] / kernel_ms,
+            "usage": usage.get(KERNEL_ENTRIES["front_bwd"]),
+            "usage_by_degree": {d: usage.get(f"point_front_bwd_kernel<{d}>")
+                                for d in range(5)},
+            "blocks_per_sm": query(view[4])}
 
 
 def cloth_front_frame(sc, usage: dict, gpu: str) -> dict:
@@ -3723,7 +3821,7 @@ def main() -> int:
     lap("points")
 
     # 18. the training compositors on partial tiles --------------------------
-    train_points = train_points_phase(gpu)
+    train_points = train_points_phase(gpu, usage)
     print(json.dumps({"train_points": train_points}))
     lap("train_points")
 

@@ -16,9 +16,12 @@
 //
 // Neither replaces a TPU kernel: the JAX package's front ends
 // (cloth_splatting_tpu/render.py::project_view and
-// models/point_gaussians.py::project_points_view) are XLA. Each entry runs
-// on the serving path (CUDA tensors, no leaf needing a gradient) and
-// answers its plain version bit for bit.
+// models/point_gaussians.py::project_points_view) are XLA. Each entry
+// answers its plain version bit for bit. The cloth pass runs on the
+// serving path (CUDA tensors, no leaf needing a gradient); the point pass
+// also runs in training, as the forward of ops/point_front.py's autograd
+// function, whose backward (point_front_bwd.cu) recomputes what it needs
+// with the same device functions (front.cuh).
 //
 // What it computes, per Gaussian g. FreeXyz reads xyz [C, 3] and the WXYZ
 // rotation [C, 4]. MeshAnchored reads face_bary [C, 3], face_ids [C], the
@@ -76,46 +79,17 @@
 // cache, no state: a face's two Gaussians compute its frames twice) and
 // stores its rotations as one 16-byte store a lane.
 
-#include <cmath>
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
+
+#include "front.cuh"
 
 namespace {
 
+using namespace front;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-
-// one rounding per operation, never contracted into an FMA
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-
-// torch.clamp_min / clamp_max / clamp on a CUDA float tensor: NaN passes
-__device__ __forceinline__ float clamp_lo(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-__device__ __forceinline__ float clamp_hi(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-
-// The PyTorch path's constants: Python floats (doubles) rounded to float32
-#define F(x) static_cast<float>(x)
-
-// Shared-memory row stride of `used` floats: odd, so a warp reading one
-// float of each of its 32 rows touches 32 banks
-__host__ __device__ constexpr int odd_stride(int used) {
-  return used % 2 ? used : used + 1;
-}
-
-// Rows of SH coefficients a degree uses beyond the DC term, times 3
-__host__ __device__ constexpr int rest_floats(int deg) {
-  return ((deg + 1) * (deg + 1) - 1) * 3;
-}
 
 struct FrontArgs {
   const float* pos;         // [n, 3]: xyz (FreeXyz) or face_bary (MeshAnchored)
@@ -156,100 +130,6 @@ struct ClothArgs {
   float* means;             // [n, 3]
   float* rotations;         // [n, 4]
 };
-
-// Copies the USED leading floats of the rows of Gaussians [g0, g0 + count)
-// (rows `stride` floats apart from `src`) into dst, SS floats a row. The
-// scalar loop alone covers every input, coalesced, but its integer division
-// by USED per float costs: on the 3.0M-Gaussian gs-360-3m field at degree 3
-// the kernel takes 0.457 ms with it alone against 0.340 ms with the 16-byte
-// path for whole, aligned warps (H100 80GB HBM3, CUDA events over 50).
-template <int USED, int SS>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int64_t g0, int count, int stride,
-                                      int lane) {
-  const bool whole = count == 32 && stride == USED &&
-                     (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  if (whole) {
-    // 32 rows of USED floats: 8 * USED float4s from a 16-byte boundary
-    const float4* s4 = reinterpret_cast<const float4*>(src + g0 * USED);
-    for (int v = lane; v < 8 * USED; v += 32) {
-      const float4 q = __ldcs(s4 + v);
-      const int e = 4 * v;
-      if constexpr (SS == USED) {
-        *reinterpret_cast<float4*>(dst + e) = q;
-      } else {
-        const float vals[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          dst[((e + k) / USED) * SS + (e + k) % USED] = vals[k];
-      }
-    }
-  } else {
-    for (int e = lane; e < count * USED; e += 32) {
-      const int r = e / USED, c = e % USED;
-      dst[r * SS + c] = __ldcs(src + (g0 + r) * stride + c);
-    }
-  }
-}
-
-// The real SH basis of ops/sh.py::sh_basis at the unit direction (x, y, z),
-// each term in its Python expression's order.
-template <int DEG>
-__device__ __forceinline__ void sh_basis(float x, float y, float z,
-                                         float* b) {
-  b[0] = F(0.28209479177387814);
-  if constexpr (DEG >= 1) {
-    b[1] = mul(y, F(-0.4886025119029199));
-    b[2] = mul(z, F(0.4886025119029199));
-    b[3] = mul(x, F(-0.4886025119029199));
-  }
-  if constexpr (DEG >= 2) {
-    const float xx = mul(x, x), yy = mul(y, y), zz = mul(z, z);
-    const float xy = mul(x, y), yz = mul(y, z), xz = mul(x, z);
-    b[4] = mul(xy, F(1.0925484305920792));
-    b[5] = mul(yz, F(-1.0925484305920792));
-    b[6] = mul(sub(sub(mul(zz, 2.0f), xx), yy), F(0.31539156525252005));
-    b[7] = mul(xz, F(-1.0925484305920792));
-    b[8] = mul(sub(xx, yy), F(0.5462742152960396));
-    if constexpr (DEG >= 3) {
-      b[9] = mul(mul(y, F(-0.5900435899266435)), sub(mul(xx, 3.0f), yy));
-      b[10] = mul(mul(xy, F(2.890611442640554)), z);
-      b[11] = mul(mul(y, F(-0.4570457994644658)),
-                  sub(sub(mul(zz, 4.0f), xx), yy));
-      b[12] = mul(mul(z, F(0.3731763325901154)),
-                  sub(sub(mul(zz, 2.0f), mul(xx, 3.0f)), mul(yy, 3.0f)));
-      b[13] = mul(mul(x, F(-0.4570457994644658)),
-                  sub(sub(mul(zz, 4.0f), xx), yy));
-      b[14] = mul(mul(z, F(1.445305721320277)), sub(xx, yy));
-      b[15] = mul(mul(x, F(-0.5900435899266435)), sub(xx, mul(yy, 3.0f)));
-    }
-    if constexpr (DEG >= 4) {
-      b[16] = mul(mul(xy, F(2.5033429417967046)), sub(xx, yy));
-      b[17] = mul(mul(yz, F(-1.7701307697799304)), sub(mul(xx, 3.0f), yy));
-      b[18] = mul(mul(xy, F(0.9461746957575601)), sub(mul(zz, 7.0f), 1.0f));
-      b[19] = mul(mul(yz, F(-0.6690465435572892)), sub(mul(zz, 7.0f), 3.0f));
-      b[20] = mul(add(mul(zz, sub(mul(zz, 35.0f), 30.0f)), 3.0f),
-                  F(0.10578554691520431));
-      b[21] = mul(mul(xz, F(-0.6690465435572892)), sub(mul(zz, 7.0f), 3.0f));
-      b[22] = mul(mul(sub(xx, yy), F(0.47308734787878004)),
-                  sub(mul(zz, 7.0f), 1.0f));
-      b[23] = mul(mul(xz, F(-1.7701307697799304)), sub(xx, mul(yy, 3.0f)));
-      b[24] = mul(sub(mul(xx, sub(xx, mul(yy, 3.0f))),
-                      mul(yy, sub(mul(xx, 3.0f), yy))),
-                  F(0.6258357354491761));
-    }
-  }
-}
-
-// quat_normalize: q * rsqrt(sum q^2 + 1e-12), the sum as PyTorch's
-// reduction over 4 takes it: (w^2 + y^2) + (x^2 + z^2)
-__device__ __forceinline__ void quat_normalize(float q[4]) {
-  const float ss = add(add(mul(q[0], q[0]), mul(q[2], q[2])),
-                       add(mul(q[1], q[1]), mul(q[3], q[3])));
-  const float inv = rsqrtf(add(ss, F(1e-12)));
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = mul(q[k], inv);
-}
 
 // FreeXyz: positions and quaternions as stored
 struct FreeXyz {
@@ -497,28 +377,15 @@ __device__ __forceinline__ void front_pass(const FrontArgs& a, const Anchor& an)
     float q[4];
     an.place(s_pos + lane * 3, s_rot + lane * 5, g, x, y, z, q);
 
-    // view direction: (xyz - centre) / max(|xyz - centre|, 1e-8); the norm
-    // sums as PyTorch's reduction over 3 does: x^2 + z^2, then y^2
-    float dx = sub(x, __ldg(a.center + 0)), dy = sub(y, __ldg(a.center + 1)),
-          dz = sub(z, __ldg(a.center + 2));
-    const float nrm = clamp_lo(
-        __fsqrt_rn(add(add(mul(dx, dx), mul(dz, dz)), mul(dy, dy))), F(1e-8));
-    dx = div(dx, nrm);
-    dy = div(dy, nrm);
-    dz = div(dz, nrm);
-
-    // SH colour, summed term by term in the JAX package's order
+    // view direction and SH colour
+    const ViewDir vd = view_dir(x, y, z, a.center);
     if (an.colored(a)) {
       float b[kCoef];
-      sh_basis<DEG>(dx, dy, dz, b);
+      sh_basis<DEG>(vd.u[0], vd.u[1], vd.u[2], b);
       const float* rest = s_rest + lane * kRestSS;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float v = mul(b[0], s_dc[lane * 3 + c]);
-#pragma unroll
-        for (int k = 1; k < kCoef; ++k) v = add(v, mul(b[k], rest[(k - 1) * 3 + c]));
-        color[c] = clamp_lo(add(v, 0.5f), 0.0f);
-      }
+      for (int c = 0; c < 3; ++c)
+        color[c] = clamp_lo(add(sh_sum<DEG>(b, s_dc + lane * 3, rest, c), 0.5f), 0.0f);
     }
 
     // activations: exp of the scales, the opacity's sigmoid
@@ -530,77 +397,21 @@ __device__ __forceinline__ void front_pass(const FrontArgs& a, const Anchor& an)
     }
     const float op = div(1.0f, add(1.0f, expf(-__ldcs(a.opacity + g))));
 
-    // quat_to_rotmat of the normalized quaternion
+    // the covariance of the normalized quaternion's rotation
     an.quaternion(s_rot + lane * 5, q);
     quat_normalize(q);
-    const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-    float r[3][3];
-    r[0][0] = sub(1.0f, mul(add(mul(qy, qy), mul(qz, qz)), 2.0f));
-    r[0][1] = mul(sub(mul(qx, qy), mul(qw, qz)), 2.0f);
-    r[0][2] = mul(add(mul(qx, qz), mul(qw, qy)), 2.0f);
-    r[1][0] = mul(add(mul(qx, qy), mul(qw, qz)), 2.0f);
-    r[1][1] = sub(1.0f, mul(add(mul(qx, qx), mul(qz, qz)), 2.0f));
-    r[1][2] = mul(sub(mul(qy, qz), mul(qw, qx)), 2.0f);
-    r[2][0] = mul(sub(mul(qx, qz), mul(qw, qy)), 2.0f);
-    r[2][1] = mul(add(mul(qy, qz), mul(qw, qx)), 2.0f);
-    r[2][2] = sub(1.0f, mul(add(mul(qx, qx), mul(qy, qy)), 2.0f));
-    // sym33_from_rs: (xx, xy, xz, yy, yz, zz)
-    auto cov = [&](int i, int j) {
-      return add(add(mul(mul(s2[0], r[i][0]), r[j][0]),
-                     mul(mul(s2[1], r[i][1]), r[j][1])),
-                 mul(mul(s2[2], r[i][2]), r[j][2]));
-    };
-    const float s00 = cov(0, 0), s01 = cov(0, 1), s02 = cov(0, 2),
-                s11 = cov(1, 1), s12 = cov(1, 2), s22 = cov(2, 2);
+    float r[3][3], cov[6];
+    quat_rotmat(q, r);
+    covariance(s2, r, cov);
 
-    // project_gaussians: affine4_shared's row-vector transforms
-    auto affine = [&](const float* m, int j) {
-      return add(add(add(mul(x, __ldg(m + j)), mul(y, __ldg(m + 4 + j))),
-                     mul(z, __ldg(m + 8 + j))),
-                 __ldg(m + 12 + j));
-    };
-    const float t0 = affine(wv, 0), t1 = affine(wv, 1), tz = affine(wv, 2);
-    const float p_w = div(1.0f, add(affine(fp, 3), F(1e-7)));
-    const float px = sub(mul(mul(add(mul(affine(fp, 0), p_w), 1.0f), a.width), 0.5f),
-                         0.5f);
-    const float py = sub(mul(mul(add(mul(affine(fp, 1), p_w), 1.0f), a.height), 0.5f),
-                         0.5f);
-    const float tz_safe = fabsf(tz) < F(1e-6) ? F(1e-6) : tz;
-    const float tx = mul(clamp(div(t0, tz_safe), -a.lim_x, a.lim_x), tz_safe);
-    const float ty = mul(clamp(div(t1, tz_safe), -a.lim_y, a.lim_y), tz_safe);
-    const float inv_z = div(1.0f, tz_safe);
-    const float inv_z2 = mul(inv_z, inv_z);
-    const float j00 = mul(inv_z, a.focal_x);
-    const float j02 = mul(mul(tx, -a.focal_x), inv_z2);
-    const float j11 = mul(inv_z, a.focal_y);
-    const float j12 = mul(mul(ty, -a.focal_y), inv_z2);
-    // A = J W, W_colvec[i][j] = world_view[j][i]
-    const float a00 = add(mul(j00, __ldg(wv + 0)), mul(j02, __ldg(wv + 2)));
-    const float a01 = add(mul(j00, __ldg(wv + 4)), mul(j02, __ldg(wv + 6)));
-    const float a02 = add(mul(j00, __ldg(wv + 8)), mul(j02, __ldg(wv + 10)));
-    const float a10 = add(mul(j11, __ldg(wv + 1)), mul(j12, __ldg(wv + 2)));
-    const float a11 = add(mul(j11, __ldg(wv + 5)), mul(j12, __ldg(wv + 6)));
-    const float a12 = add(mul(j11, __ldg(wv + 9)), mul(j12, __ldg(wv + 10)));
-    // sym33_quadform2
-    auto s_dot = [&](float q0, float q1, float q2, float* o) {
-      o[0] = add(add(mul(s00, q0), mul(s01, q1)), mul(s02, q2));
-      o[1] = add(add(mul(s01, q0), mul(s11, q1)), mul(s12, q2));
-      o[2] = add(add(mul(s02, q0), mul(s12, q1)), mul(s22, q2));
-    };
-    float t[3], u[3];
-    s_dot(a00, a01, a02, t);
-    float c00 = add(add(mul(a00, t[0]), mul(a01, t[1])), mul(a02, t[2]));
-    const float c01 = add(add(mul(a10, t[0]), mul(a11, t[1])), mul(a12, t[2]));
-    s_dot(a10, a11, a12, u);
-    float c11 = add(add(mul(a10, u[0]), mul(a11, u[1])), mul(a12, u[2]));
-    c00 = add(c00, F(0.3));
-    c11 = add(c11, F(0.3));
-    const float det = sub(mul(c00, c11), mul(c01, c01));
-    const float det_safe = fabsf(det) < F(1e-12) ? F(1e-12) : det;
-    const float inv_det = div(1.0f, det_safe);
-    conic[0] = mul(c11, inv_det);
-    conic[1] = mul(-c01, inv_det);
-    conic[2] = mul(c00, inv_det);
+    // project_gaussians
+    const ScreenMean sm = screen_mean(x, y, z, wv, fp, a.width, a.height);
+    const float tz = sm.tz, px = sm.px, py = sm.py;
+    Ewa e;
+    ewa(sm.t0, sm.t1, tz, cov, wv, a.focal_x, a.focal_y, a.lim_x, a.lim_y, e);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) conic[k] = e.conic[k];
+    const float c00 = e.c00, c11 = e.c11, det = e.det;
     const float mid = mul(add(c00, c11), 0.5f);
     const float lambda1 =
         add(mid, __fsqrt_rn(clamp_lo(sub(mul(mid, mid), det), F(0.1))));
@@ -668,20 +479,6 @@ constexpr size_t smem_bytes() {
   constexpr int kRest = rest_floats(DEG);
   return sizeof(float) * kWarps *
          (32 * (kRest ? odd_stride(kRest) : 0) + 3 * 96 + 32 * 5);
-}
-
-// fn(std::integral_constant<int, d>{}) at SH degree d in [0, 4], else
-// cudaErrorInvalidValue
-template <class Fn>
-cudaError_t by_degree(int sh_degree, Fn fn) {
-  switch (sh_degree) {
-    case 0: return fn(std::integral_constant<int, 0>{});
-    case 1: return fn(std::integral_constant<int, 1>{});
-    case 2: return fn(std::integral_constant<int, 2>{});
-    case 3: return fn(std::integral_constant<int, 3>{});
-    case 4: return fn(std::integral_constant<int, 4>{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 unsigned blocks_for(int64_t n) {

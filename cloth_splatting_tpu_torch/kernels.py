@@ -10,8 +10,9 @@ loaded at import time.
 
 Every launch goes through ``launch``, which counts it in ``LAUNCHES`` by
 the kernel's name: "K1", "K1-span", "K2", "K2-span", "K3", "K4", "front"
-(the point front end) and "cloth_front" (the cloth field's front end, the
-other pass of the same source).
+(the point front end), "cloth_front" (the cloth field's front end, the
+other pass of the same source) and "front_bwd" (the point front end's
+backward).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"tiled_fwd": CSRC / "tiled_fwd.cu",
            "tiled_train": CSRC / "tiled_train.cu",
-           "point_front": CSRC / "point_front.cu"}
+           "point_front": CSRC / "point_front.cu",
+           "point_front_bwd": CSRC / "point_front_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

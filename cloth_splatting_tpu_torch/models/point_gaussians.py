@@ -22,11 +22,14 @@ through the serving rasterizer
 (``ops/rasterize/tiled_fwd.py``: exact binning of every (tile, Gaussian)
 pair, any frame size, K1 on the card) when no leaf needs a gradient, and
 through the dense tier (``ops/rasterize/tiled.py``), as the JAX package's
-goes through its XLA tier, when one does. On the same condition, with CUDA
-tensors, the front end (SH, covariance, EWA) is one launch of the
-hand-written kernel ``csrc/point_front.cu`` (``ops/point_front.py``'s
-``project_points_fused``), which gives the PyTorch ops' bits; every other
-call runs those ops (``project_points_eager``).
+goes through its XLA tier, when one does. With CUDA tensors (and a camera
+needing no gradient) the front end (SH, covariance, EWA) is one launch of
+the hand-written kernel ``csrc/point_front.cu`` (``ops/point_front.py``'s
+``project_points_fused``), which gives the PyTorch ops' bits, and, when a
+leaf needs a gradient, its adjoint one launch of ``csrc/point_front_bwd.cu``
+behind the same autograd function (``project_points_autograd``); on the
+CPU the front end is those ops (``project_points_eager``), differentiated
+by autograd.
 """
 
 from __future__ import annotations
@@ -46,7 +49,10 @@ from cloth_splatting_tpu_torch.models.gaussians import (
 )
 from cloth_splatting_tpu_torch.ops.image import inverse_sigmoid
 from cloth_splatting_tpu_torch.ops.knn import mean_knn_sq_dist
-from cloth_splatting_tpu_torch.ops.point_front import project_points_fused
+from cloth_splatting_tpu_torch.ops.point_front import (
+    project_points_autograd,
+    project_points_fused,
+)
 from cloth_splatting_tpu_torch.ops.projection import (
     MAX_SPLAT_RADIUS,
     ProjectedGaussians,
@@ -62,10 +68,11 @@ from cloth_splatting_tpu_torch.utils.profiling import span
 
 
 # Calls of ``project_points_view`` since the process started (or the caller
-# last cleared it): "front_fused" ran the front-end kernel, "front_eager"
-# the PyTorch ops; and what ``train.points.PointTrainer.host_events`` did:
-# "events" (calls that ran a host event), Gaussians "cloned", "split"
-# (parents), "pruned", and "overflow" (selected, but no free slot).
+# last cleared it): "front_fused" ran the front-end kernel (and, with a
+# gradient, its backward kernel), "front_eager" the PyTorch ops; and what
+# ``train.points.PointTrainer.host_events`` did: "events" (calls that ran a
+# host event), Gaussians "cloned", "split" (parents), "pruned", and
+# "overflow" (selected, but no free slot).
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -241,8 +248,7 @@ def add_densification_stats(state: PointGaussianState, xy_grad_norm: torch.Tenso
 
 def serving(params: PointGaussianParams) -> bool:
     """True when no leaf of ``params`` needs a gradient: ``render_points``
-    then serves without autograd, and on CUDA tensors the front end is the
-    kernel."""
+    then serves through the serving rasterizer without autograd."""
     return not (torch.is_grad_enabled() and any(p.requires_grad for p in params))
 
 
@@ -253,13 +259,22 @@ def project_points_view(params: PointGaussianParams, state: PointGaussianState,
     """The front half of ``render_points``: SH colours and the EWA
     projection of the free-xyz model from one camera (``CameraArrays``);
     ``max_radius`` None is the published rule, a splat's whole 3-sigma
-    support. CUDA tensors with no leaf needing a gradient take the kernel
-    (``project_points_fused``), anything else the PyTorch ops
-    (``project_points_eager``); ``COUNTS`` counts which."""
-    fused = params.xyz.is_cuda and serving(params)
+    support. CUDA tensors whose camera needs no gradient take the kernels:
+    the forward alone (``project_points_fused``) when no leaf needs a
+    gradient (``serving``), else the forward and its backward kernel behind
+    one autograd function (``project_points_autograd``); anything else
+    takes the PyTorch ops (``project_points_eager``). ``COUNTS`` counts
+    which ("front_fused", "front_eager")."""
+    camera = (cam.world_view, cam.full_proj, cam.camera_center)
+    fused = params.xyz.is_cuda and not any(t.requires_grad for t in camera)
     COUNTS["front_fused" if fused else "front_eager"] += 1
     with span("points.project_view"):
-        project = project_points_fused if fused else project_points_eager
+        if not fused:
+            project = project_points_eager
+        elif serving(params):
+            project = project_points_fused
+        else:
+            project = project_points_autograd
         return project(params, state.alive, cam, width, height, tanfovx, tanfovy,
                        sh_degree, max_radius)
 
@@ -269,7 +284,8 @@ def project_points_eager(params: PointGaussianParams, alive: torch.Tensor, cam,
                          sh_degree: int,
                          max_radius: float | None = None) -> ProjectedGaussians:
     """``project_points_view`` in PyTorch ops, on any device and
-    differentiable: the kernel's plain version."""
+    differentiable: the forward kernel's plain version (autograd through it
+    is the backward kernel's yardstick)."""
     dirs = params.xyz - cam.camera_center[None]
     dirs = dirs / torch.clamp_min(torch.linalg.norm(dirs, dim=-1, keepdim=True),
                                   1e-8)
@@ -289,12 +305,12 @@ def render_points(params: PointGaussianParams, state: PointGaussianState, cam,
     """Render the free-xyz model from one camera: (rgb [3, H, W], depth
     [1, H, W], radii [C]); splats uncapped unless ``max_radius`` is given.
 
-    When no leaf of ``params`` needs a gradient (``serving``), the front-end
-    kernel on CUDA tensors and the serving rasterizer (every (tile,
-    Gaussian) pair binned, sorted by exact depth, composited by K1 on the
-    card and by its plain walk on the CPU) without autograd; otherwise the
-    PyTorch front end and the dense tier (per-tile list capacity ``k_cap``,
-    chunk ``k_chunk``), differentiable."""
+    The front end is ``project_points_view``'s (the kernels on CUDA
+    tensors). When no leaf of ``params`` needs a gradient (``serving``), the
+    serving rasterizer (every (tile, Gaussian) pair binned, sorted by exact
+    depth, composited by K1 on the card and by its plain walk on the CPU)
+    without autograd; otherwise the dense tier (per-tile list capacity
+    ``k_cap``, chunk ``k_chunk``), differentiable."""
     serve = serving(params)
     with span("points.render"), torch.no_grad() if serve else contextlib.nullcontext():
         proj = project_points_view(params, state, cam, width, height, tanfovx,

@@ -80,6 +80,51 @@ def sh_basis(deg: int, dirs: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def sh_basis_grad(deg: int, dirs: torch.Tensor) -> torch.Tensor:
+    """The partial derivatives of ``sh_basis`` [..., (deg+1)**2, 3] with
+    respect to the direction's (x, y, z), each term's written out."""
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree must be in [0, 4], got {deg}")
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    zero = torch.zeros_like(x)
+    out = [(zero, zero, zero)]
+    if deg >= 1:
+        out += [(zero, zero - C1, zero), (zero, zero, zero + C1), (zero - C1, zero, zero)]
+    if deg >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        out += [
+            (C2[0] * y, C2[0] * x, zero),
+            (zero, C2[1] * z, C2[1] * y),
+            (-2.0 * C2[2] * x, -2.0 * C2[2] * y, 4.0 * C2[2] * z),
+            (C2[3] * z, zero, C2[3] * x),
+            (2.0 * C2[4] * x, -2.0 * C2[4] * y, zero),
+        ]
+    if deg >= 3:
+        out += [
+            (6.0 * C3[0] * x * y, C3[0] * (3 * xx - 3 * yy), zero),
+            (C3[1] * y * z, C3[1] * x * z, C3[1] * x * y),
+            (-2.0 * C3[2] * x * y, C3[2] * (4 * zz - xx - 3 * yy), 8.0 * C3[2] * y * z),
+            (-6.0 * C3[3] * x * z, -6.0 * C3[3] * y * z, C3[3] * (6 * zz - 3 * xx - 3 * yy)),
+            (C3[4] * (4 * zz - 3 * xx - yy), -2.0 * C3[4] * x * y, 8.0 * C3[4] * x * z),
+            (2.0 * C3[5] * x * z, -2.0 * C3[5] * y * z, C3[5] * (xx - yy)),
+            (C3[6] * (3 * xx - 3 * yy), -6.0 * C3[6] * x * y, zero),
+        ]
+    if deg >= 4:
+        out += [
+            (C4[0] * y * (3 * xx - yy), C4[0] * x * (xx - 3 * yy), zero),
+            (6.0 * C4[1] * x * y * z, C4[1] * z * (3 * xx - 3 * yy), C4[1] * y * (3 * xx - yy)),
+            (C4[2] * y * (7 * zz - 1), C4[2] * x * (7 * zz - 1), 14.0 * C4[2] * x * y * z),
+            (zero, C4[3] * z * (7 * zz - 3), C4[3] * y * (21 * zz - 3)),
+            (zero, zero, C4[4] * z * (140 * zz - 60)),
+            (C4[5] * z * (7 * zz - 3), zero, C4[5] * x * (21 * zz - 3)),
+            (2.0 * C4[6] * x * (7 * zz - 1), -2.0 * C4[6] * y * (7 * zz - 1),
+             14.0 * C4[6] * z * (xx - yy)),
+            (C4[7] * z * (3 * xx - 3 * yy), -6.0 * C4[7] * x * y * z, C4[7] * x * (xx - 3 * yy)),
+            (C4[8] * (4 * x * xx - 12 * x * yy), C4[8] * (4 * y * yy - 12 * xx * y), zero),
+        ]
+    return torch.stack([torch.stack(d, dim=-1) for d in out], dim=-2)
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH values [..., C] from coefficients [..., K, C] (K >= (deg+1)**2; only
     the first (deg+1)**2 are used) at unit directions [..., 3]. Add 0.5 and

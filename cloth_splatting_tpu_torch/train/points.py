@@ -5,7 +5,9 @@
 
 ``PointTrainer`` holds the two calls of an iteration:
 
-- ``step``: the forward (the PyTorch front end, ``project_points_eager``,
+- ``step``: the forward (the front end, ``project_points_view``: on the
+  card the hand-written forward kernel and its backward kernel behind one
+  autograd function, on the CPU the PyTorch ops, ``project_points_eager``;
   and the training rasterizer, ``rasterize_tiled_train``: exact binning of
   every (tile, Gaussian) pair, splats uncapped, any frame size, K2/K3 on
   the card), the published loss (1 - ``lambda_dssim``) L1 +

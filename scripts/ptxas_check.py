@@ -15,16 +15,22 @@ overflow walk), in programs of 2 tiles and of 8 (the cluster program of the
 three span kernels in clusters of 2 and of 8 CTAs, the largest portable
 size); K1-span and K2-span are also held bit-identical to K1 and K2, and K4
 to its plain version and to K3. Each build's point and cloth front ends
-(``csrc/point_front.cu``, which includes no shared header) must spill
-nothing at any SH degree (at -O3 the point front end may use no more
-registers than POINT_FRONT_REGISTERS); the point front end's outputs on a
-50,000-Gaussian field drawn as the benchmark's gs-360-3m must equal the
-PyTorch ops' bit for bit at degrees 0-3, uncapped and capped at 24 px, and
-the cloth front end's (``render.project_view``'s four outputs) on the
-benchmark's cs-field-65k scene cut to a 64 x 64 grid (15,876 Gaussians)
-must equal ``render.project_view_eager``'s at degrees 0-3, with the
-simulator and static. Before that it compares the PTX of every kernel
-between the two forms.
+(``csrc/point_front.cu``) and the point front end's backward
+(``csrc/point_front_bwd.cu``; both include ``front.cuh``, not the tile
+header the rewrite edits) must spill nothing at any SH degree (at -O3 the
+point front end may use no more registers than POINT_FRONT_REGISTERS);
+the point front end's outputs on a 50,000-Gaussian field drawn as the
+benchmark's gs-360-3m must equal the PyTorch ops' bit for bit at degrees
+0-3, uncapped and capped at 24 px; its backward's gradients on the same
+field stored at degree 4, from cotangents laid as the training rasterizer
+hands them over (views of [C, 16] rows, a third of the rows zero), must
+lie within FRONT_BWD_TOL of ``project_points_backward_plain``'s norm, leaf
+by leaf, with exact zeros on the rows without a cotangent and in the SH
+coefficients above the degree, at degrees 0-4; and the cloth front end's (``render.project_view``'s four outputs)
+on the benchmark's cs-field-65k scene cut to a 64 x 64 grid (15,876
+Gaussians) must equal ``render.project_view_eager``'s at degrees 0-3,
+with the simulator and static. Before that it compares the PTX of every
+kernel between the two forms.
 
     python3 scripts/ptxas_check.py      # needs a CUDA card and nvcc
 
@@ -54,6 +60,7 @@ FRONT_GAUSSIANS = 50_000
 # ptxas -O3: its counts when it was the source's only pass (the cloth pass
 # beside it must not cost it any)
 POINT_FRONT_REGISTERS = {0: 55, 1: 55, 2: 80, 3: 56, 4: 80}
+FRONT_BWD_TOL = 1e-5
 CLOTH_GRID = 64
 # each line of the rewrite, found once in the walk
 _WALKED = (
@@ -120,6 +127,8 @@ def check(form: str, level: int) -> bool:
     dev = torch.device("cuda")
     usage = cs.ptxas_usage(logs["point_front"] or "")
     ok = check_front(usage, form, level, dev)
+    ok = check_front_bwd(cs.ptxas_usage(logs["point_front_bwd"] or ""), form, level,
+                         dev) and ok
     ok = check_cloth(usage, form, level, dev) and ok
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
@@ -203,6 +212,59 @@ def check_front(usage: dict, form: str, level: int, dev) -> bool:
                               "kernel": f"front degree {deg} max_radius {cap}",
                               "ok": agree, "error": None if agree else differ}),
                   flush=True)
+    return ok
+
+
+def check_front_bwd(usage: dict, form: str, level: int, dev) -> bool:
+    """The point front end's backward of this build: its registers and
+    spills at each SH degree (``usage``, from the build's log), and its
+    gradients against ``project_points_backward_plain``'s on a gs-360-3m
+    field of FRONT_GAUSSIANS Gaussians stored at degree 4; True when nothing
+    spills and every leaf agrees."""
+    import torch
+
+    from benchmark.drivers.render_points import camera, make_field
+    from cloth_splatting_tpu_torch.models import point_gaussians as PG
+    from cloth_splatting_tpu_torch.ops import point_front as PF
+    from cloth_splatting_tpu_torch.render import CameraArrays
+
+    entries = {k: v for k, v in usage.items() if k.startswith("point_front_bwd_kernel<")}
+    ok = len(entries) == 5 and not any(v.get("spill_stores") or v.get("spill_loads")
+                                       for v in entries.values())
+    print(json.dumps({"form": form, "ptxas": f"-O{level}", "kernel": "front_bwd",
+                      "usage": entries, "ok": ok}), flush=True)
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "gs-360-3m.json").read_text())
+    n = FRONT_GAUSSIANS
+    params = PG.PointGaussianParams(**make_field({**cfg, "gaussians": n, "sh_degree": 4},
+                                                 1, dev))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    alive = torch.rand(n, generator=gen, device=dev) > 0.1
+    img = cfg["image"]
+    w, h, tan_x = img["width"], img["height"], img["tan_half_fov_x"]
+    tan_y = tan_x * h / w
+    cam = camera((0.7, 0.25, 3.6), tan_x, tan_y, dev)
+    cam = CameraArrays(cam["world_view"], cam["full_proj"], cam["center"],
+                       torch.zeros((), device=dev))
+    rows = torch.randn((n, 16), generator=gen, device=dev)
+    unreached = torch.rand(n, generator=gen, device=dev) < 1 / 3
+    rows[unreached] = 0.0
+    cots = (rows[:, 0:2], rows[:, 9], rows[:, 2:5], rows[:, 5:8], rows[:, 8])
+    for deg in range(5):
+        for cap in (None, 24.0):
+            valid = PF.project_points_fused(params, alive, cam, w, h, tan_x, tan_y, deg,
+                                            cap).valid
+            args = (params, valid, cam, w, h, tan_x, tan_y, deg, *cots)
+            got = PF.project_points_backward_fused(*args)
+            want = PF.project_points_backward_plain(*args)
+            gaps = {k: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                    for k, a, b in zip(params._fields, got, want)}
+            zeros = (all(bool((g.reshape(n, -1)[unreached] == 0).all()) for g in got)
+                     and bool((got.features_rest[:, (deg + 1) ** 2 - 1:] == 0).all()))
+            agree = all(rel <= FRONT_BWD_TOL for rel in gaps.values()) and zeros
+            ok = ok and agree
+            print(json.dumps({"form": form, "ptxas": f"-O{level}",
+                              "kernel": f"front_bwd degree {deg} max_radius {cap}",
+                              "ok": agree, "gaps": gaps, "zeros": zeros}), flush=True)
     return ok
 
 

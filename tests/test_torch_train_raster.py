@@ -286,7 +286,7 @@ def test_library_name_follows_shared_header(tmp_path, monkeypatch):
         path.write_text(path.read_text() + text)
 
     before = names()
-    assert set(before) == {"tiled_fwd", "tiled_train", "point_front"}
+    assert set(before) == {"tiled_fwd", "tiled_train", "point_front", "point_front_bwd"}
     append("composite.cuh", "\n// edited\n")
     after = names()
     assert all(after[k] != before[k] for k in before)
